@@ -1,0 +1,140 @@
+"""The hand-written CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: each test skips without a CUDA device.  This file imports
+neither jax nor nifty_tpu, so it runs where only PyTorch is installed:
+``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`` (the
+shared ``tests/conftest.py`` imports jax).
+
+Tolerances: K1 exact (a gather computes nothing); K2 relative 1e-6 against
+a float64 segment sum (f32 sums over one bin in a fixed order); the
+Hartley max|Δ|/max|ref| <= 1e-5 (f32 FFT rounding); the metric relative L2
+<= 1e-4 against float64 on the CPU (f32 through exp and three Hartleys).
+"""
+
+import copy
+
+import numpy as np
+import pytest
+import torch
+
+import nifty_tpu_torch as nt
+from nifty_tpu_torch import native
+from nifty_tpu_torch.ops import cuda_expand as ce
+from nifty_tpu_torch.ops import cuda_fft as cfft
+from nifty_tpu_torch.ops import mode_expand as me
+
+pytestmark = pytest.mark.cuda
+torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda:0")
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _index(P, U, seed, big_bin=0):
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, U, P)
+    idx[:U] = np.arange(U)  # every bin non-empty
+    if big_bin:
+        idx[U : U + big_bin] = 3  # one bin reduced by a warp
+    layout = me.ExpandLayout("flat", (P,), (P,), U, "")
+    return idx, ce.ExpandIndex(idx, layout)
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("big_bin", [0, 5000])
+def test_gather_and_segment_sum(cuda_device, B, big_bin):
+    U = 90_001  # about 2 members a bin; big_bin adds one bin that a warp reduces
+    idx, index = _index(200_003, U, 0, big_bin)
+    assert (index.large_bins.numel() > 0) == bool(big_bin)
+    index_d = copy.deepcopy(index).to(cuda_device)
+    shape = (U,) if B == 1 else (U, B)
+    tab = torch.randn(shape, device=cuda_device)
+    out = ce.expand_gather(tab, index_d)
+    assert torch.equal(out, tab[torch.from_numpy(idx).to(cuda_device)])
+    cshape = (200_003,) if B == 1 else (200_003, B)
+    cot = torch.randn(cshape, device=cuda_device)
+    seg = ce.expand_segment_sum(cot, index_d)
+    assert torch.equal(seg, ce.expand_segment_sum(cot, index_d))  # deterministic
+    ref = ce.expand_segment_sum_plain(cot.double().cpu(), index)
+    assert _rel(seg.double().cpu(), ref) <= 1e-6
+
+
+def test_wrappers_raise_on_bad_cuda_input(cuda_device):
+    _, index = _index(1000, 100, 1)
+    index_d = copy.deepcopy(index).to(cuda_device)
+    with pytest.raises(TypeError):
+        ce.expand_gather(torch.zeros(100, device=cuda_device, dtype=torch.float64), index_d)
+    with pytest.raises(ValueError):
+        ce.expand_gather(torch.zeros(101, device=cuda_device), index_d)
+    with pytest.raises(ValueError):
+        ce.expand_segment_sum(torch.zeros((2, 1000), device=cuda_device).T, index_d)
+    with pytest.raises(ValueError):
+        ce.expand_gather(torch.zeros(100, device=cuda_device), index)  # index on CPU
+    with pytest.raises(TypeError):
+        cfft.hartley_rows(torch.zeros((256, 256), device=cuda_device, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        cfft.hartley_rows(torch.zeros((256, 512), device=cuda_device).T)
+    with pytest.raises(ValueError):
+        cfft.hartley_rows(torch.zeros((256, 300), device=cuda_device))
+
+
+@pytest.mark.parametrize(
+    "shape", [(256, 256), (512, 768), (1280, 1280), (256, 1792), (2048, 512), (10240, 256), (256, 10240)]
+)
+def test_hartley_kernels(cuda_device, shape):
+    x = torch.randn(shape, device=cuda_device)
+    G = cfft.hartley_rows(x)
+    Gp = cfft.hartley_rows_plain(x)
+    assert _rel(G, Gp) <= 1e-5
+    H = cfft.hartley_cols(Gp, shape[1])
+    Hp = cfft.hartley_cols_plain(Gp, shape[1])
+    assert _rel(H, Hp) <= 1e-5
+    full = cfft.hartley2d(x)
+    ref = nt.ops.fft.hartley_plain(x.double().cpu())
+    assert _rel(full.double().cpu(), ref) <= 1e-5
+    assert _rel(cfft.hartley2d(full) / x.numel(), x) <= 1e-5
+
+
+def test_hartley_dispatch_launches_kernels(cuda_device):
+    x = torch.randn((512, 512), device=cuda_device)
+    native.reset_launches()
+    nt.hartley(x)
+    assert native.launches["hartley_rows"] == 1 and native.launches["hartley_cols"] == 1
+    native.reset_launches()
+    nt.hartley(x.double())  # outside the kernel's domain: plain torch.fft
+    assert not native.launches
+
+
+def test_metric_on_card_matches_cpu_f64(cuda_device):
+    n = 256
+    cfm = nt.CorrelatedFieldMaker("cf")
+    cfm.set_amplitude_total_offset(offset_mean=1.0, offset_std=(1e-1, 3e-2))
+    cfm.add_fluctuations((n, n), 1.0 / n, (1.0, 5e-1), (-3.0, 2e-1), (1e0, 2e-1))
+    cf = cfm.finalize()
+    rng = np.random.default_rng(0)
+    pos = {k: rng.standard_normal(v.shape) for k, v in cf.domain.items()}
+    tan = {k: rng.standard_normal(v.shape) for k, v in cf.domain.items()}
+    data = torch.from_numpy(rng.poisson(1.0, (n, n)).astype(np.int32))
+    lh64 = nt.Poissonian(data).amend(nt.ChainModel(torch.exp, cf))
+    lh32 = copy.deepcopy(lh64).to(cuda_device, torch.float32)
+    native.reset_launches()
+    m32 = lh32.metric(
+        nt.position_from_numpy(cf, pos, device=cuda_device, dtype=torch.float32),
+        nt.position_from_numpy(cf, tan, device=cuda_device, dtype=torch.float32),
+    )
+    for name in ("expand_gather", "expand_segment_sum", "hartley_rows", "hartley_cols"):
+        assert native.launches[name] > 0, name
+    m64 = lh64.metric(nt.position_from_numpy(cf, pos), nt.position_from_numpy(cf, tan))
+    num = sum(float(((m32[k].double().cpu() - m64[k]) ** 2).sum()) for k in m64)
+    den = sum(float((m64[k] ** 2).sum()) for k in m64)
+    assert (num / den) ** 0.5 <= 1e-4

@@ -1,0 +1,290 @@
+"""Port parity: the Hartley transform and the mode-table expansion.
+
+The same numpy inputs go through ``nifty_tpu`` and ``nifty_tpu_torch``.
+On CPU tensors the port's kernel wrappers run their plain versions, which
+are what the CUDA kernels are held against on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).  The Pallas kernels run
+in interpret mode, as their own tests run them.
+
+Tolerances: float64 paths agree to rtol 1e-10 (both sides are exact
+algorithms in double precision); float32 Hartleys to 1e-5 of max|ref|
+(f32 FFT rounding); gathers exactly (a gather computes nothing).
+"""
+
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax import numpy as jnp
+
+from nifty_tpu.models.correlated_field import make_grid as jax_make_grid
+from nifty_tpu.ops import mode_expand as jme
+from nifty_tpu.ops.fft import hartley as jax_hartley
+from nifty_tpu_torch.ops import cuda_expand, cuda_fft
+from nifty_tpu_torch.ops import mode_expand as tme
+from nifty_tpu_torch.ops.fft import hartley, hartley_plain
+
+torch.set_num_threads(1)
+
+
+def _close(a, b, rtol):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape
+    np.testing.assert_allclose(a, b, rtol=rtol, atol=rtol * np.abs(b).max())
+
+
+# --- Hartley -----------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "shape,axes",
+    [
+        ((17,), None),
+        ((64,), None),
+        ((12, 9), None),
+        ((15, 16), None),
+        ((7, 10, 6), None),
+        ((5, 8, 9), (1, 2)),
+        ((6, 11), (0,)),
+    ],
+)
+def test_hartley_plain_matches_jax_f64(shape, axes):
+    x = np.random.default_rng(0).standard_normal(shape)
+    want = jax_hartley(jnp.asarray(x), axes=axes)
+    _close(hartley(torch.from_numpy(x), axes=axes).numpy(), want, 1e-10)
+
+
+def test_hartley_complex_input_matches_jax():
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((6, 10)) + 1j * rng.standard_normal((6, 10))
+    _close(hartley(torch.from_numpy(x)).numpy(), jax_hartley(jnp.asarray(x)), 1e-10)
+
+
+@pytest.mark.parametrize("shape", [(256, 256), (256, 512)])
+def test_hartley2d_matches_pallas_interpret(shape):
+    from nifty_tpu.ops.pallas_fft import hartley2d_pallas
+
+    x = np.random.default_rng(2).standard_normal(shape).astype(np.float32)
+    want = np.asarray(hartley2d_pallas(jnp.asarray(x)))
+    xt = torch.from_numpy(x)
+    got = cuda_fft.Hartley2d.apply(xt)
+    assert got.dtype == torch.float32
+    assert np.abs(got.numpy() - want).max() / np.abs(want).max() < 1e-5
+
+
+@pytest.mark.parametrize("shape", [(256, 256), (512, 768), (256, 1280)])
+def test_hartley_rows_cols_plain_compose_to_hartley(shape):
+    x = np.random.default_rng(3).standard_normal(shape)
+    G = cuda_fft.hartley_rows(torch.from_numpy(x))
+    assert G.shape == (shape[0], shape[1] // 2 + 1)
+    H = cuda_fft.hartley_cols(G, shape[1])
+    _close(H.numpy(), hartley_plain(torch.from_numpy(x)).numpy(), 1e-10)
+
+
+def test_hartley_dispatch_is_by_shape_and_dtype():
+    assert cuda_fft.cuda_hartley_supported((256, 256), torch.float32)
+    assert cuda_fft.cuda_hartley_supported((1280, 10240), torch.float32)
+    assert cuda_fft.cuda_hartley_supported((512, 768), torch.float32)
+    assert not cuda_fft.cuda_hartley_supported((256, 256), torch.float64)
+    assert not cuda_fft.cuda_hartley_supported((255, 256), torch.float32)
+    assert not cuda_fft.cuda_hartley_supported((128, 256), torch.float32)
+    assert not cuda_fft.cuda_hartley_supported((256,), torch.float32)
+    assert not cuda_fft.cuda_hartley_supported((256, 256, 256), torch.float32)
+    assert not cuda_fft.cuda_hartley_supported((256 * 11, 256), torch.float32)
+    assert not cuda_fft.cuda_hartley_supported((256, 2 * cuda_fft.MAX_AXIS), torch.float32)
+
+
+def test_hartley2d_function_is_linear_and_self_adjoint():
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((256, 256)).astype(np.float32))
+    t = torch.from_numpy(rng.standard_normal((256, 256)).astype(np.float32))
+    f = cuda_fft.Hartley2d.apply
+    _, jt = torch.func.jvp(f, (x,), (t,))
+    torch.testing.assert_close(jt, f(t), rtol=0, atol=0)
+    _, vjp_fn = torch.func.vjp(f, x)
+    torch.testing.assert_close(vjp_fn(t)[0], f(t), rtol=0, atol=0)
+    y = f(f(x)) / x.numel()
+    assert (y - x).abs().max() < 1e-4
+
+
+@pytest.mark.parametrize("n", [256, 768, 1280, 1792, 4096, 10240])
+def test_dit_order_and_radix_plan_give_the_dft(n):
+    """A vectorised numpy model of the kernel's in-place mixed-radix FFT:
+    digit-reversed load by ``dit_input_order``, then one butterfly stage
+    per radix of ``radix_plan`` with the twiddle indices of
+    ``csrc/hartley.cu``.  It must reproduce the DFT."""
+    rads = cuda_fft.radix_plan(n)
+    assert int(np.prod(rads)) == n
+    x = np.random.default_rng(n).standard_normal(n) + 0j
+    buf = x[cuda_fft.dit_input_order(n)]
+    tw = np.exp(-2j * np.pi * np.arange(n) / n)
+    m = 1
+    for R in rads:
+        L = m * R
+        b = np.arange(n // R)
+        g, k = b // m, b % m
+        base = g * L + k
+        a = np.stack([buf[base + r * m] * tw[r * k * (n // L)] for r in range(R)])
+        W = tw[(np.outer(np.arange(R), np.arange(R)) % R) * (n // R)]
+        out = W.T @ a
+        for q in range(R):
+            buf[base + q * m] = out[q]
+        m = L
+    _close(buf, np.fft.fft(x), 1e-10)
+
+
+def test_column_tile_fits_shared_memory():
+    for n0 in (256, 1280, 4096, 10240, cuda_fft.MAX_AXIS):
+        tc = cuda_fft.column_tile(n0)
+        assert tc >= 1 and (tc == 1 or tc * cuda_fft.column_bytes(n0) <= 176 * 1024)
+        assert tc * cuda_fft.column_bytes(n0) <= 227 * 1024  # a block's shared-memory limit
+
+
+# --- mode expansion ----------------------------------------------------------
+
+
+def _layout(shape):
+    g = jax_make_grid(shape, 1.0 / shape[0], "fourier")
+    pd = np.asarray(g.harmonic_grid.power_distributor, dtype=np.int32)
+    core = pd[tuple(slice(0, n // 2 + 1) for n in pd.shape)]
+    return core, int(g.harmonic_grid.mode_lengths.size)
+
+
+@pytest.mark.parametrize("shape,kind", [((48, 48), "rfp2"), ((48, 64), "flat"), ((33, 33), "rfp2")])
+def test_build_expand_layout_matches_jax(shape, kind):
+    core, U = _layout(shape)
+    packed_j, layout_j = jme.build_expand_layout(core, U)
+    packed_t, layout_t = tme.build_expand_layout(core, U)
+    assert layout_t.kind == kind == layout_j.kind
+    assert tuple(layout_t) == tuple(layout_j)
+    np.testing.assert_array_equal(packed_t, np.asarray(packed_j))
+
+
+def test_expand_index_csr_is_a_stable_sort():
+    core, U = _layout((48, 48))
+    packed, layout = tme.build_expand_layout(core, U)
+    index = tme.ExpandIndex(packed, layout)
+    idx = packed.ravel()
+    perm = index.perm.numpy()
+    off = index.offsets.numpy()
+    np.testing.assert_array_equal(perm, np.argsort(idx, kind="stable"))
+    np.testing.assert_array_equal(np.diff(off), np.bincount(idx, minlength=U))
+    bins = np.sort(np.concatenate([index.small_bins.numpy(), index.large_bins.numpy()]))
+    np.testing.assert_array_equal(bins, np.arange(U))
+    assert (np.diff(off)[index.large_bins.numpy()] > cuda_expand.LARGE_BIN).all()
+
+
+def test_expand_index_rejects_out_of_range():
+    core, U = _layout((16, 16))
+    packed, layout = tme.build_expand_layout(core, U)
+    with pytest.raises(ValueError):
+        tme.ExpandIndex(packed + U, layout)
+
+
+def _tables(U, B, seed):
+    rng = np.random.default_rng(seed)
+    shape = (U,) if B is None else (U, B)
+    return rng.standard_normal(shape), rng.standard_normal(shape)
+
+
+@pytest.mark.parametrize("shape", [(48, 48), (48, 64)])
+@pytest.mark.parametrize("B", [None, 3])
+def test_mode_expand_matches_jax(shape, B):
+    core, U = _layout(shape)
+    packed, layout = jme.build_expand_layout(core, U)
+    index = tme.ExpandIndex(*tme.build_expand_layout(core, U))
+    tab, tan = _tables(U, B, 5)
+    fj = lambda t: jme.mode_expand(t, packed, layout)
+    ft = lambda t: tme.mode_expand(t, index)
+    want = np.asarray(fj(jnp.asarray(tab)))
+    got = ft(torch.from_numpy(tab)).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, tab[core] if B is None else tab[core, :])
+    # jvp
+    _, jt_j = jax.jvp(fj, (jnp.asarray(tab),), (jnp.asarray(tan),))
+    _, jt_t = torch.func.jvp(ft, (torch.from_numpy(tab),), (torch.from_numpy(tan),))
+    np.testing.assert_array_equal(jt_t.numpy(), np.asarray(jt_j))
+    # vjp
+    cot = np.random.default_rng(6).standard_normal(want.shape)
+    _, vj = jax.vjp(fj, jnp.asarray(tab))
+    _, vt = torch.func.vjp(ft, torch.from_numpy(tab))
+    _close(vt(torch.from_numpy(cot))[0].numpy(), np.asarray(vj(jnp.asarray(cot))[0]), 1e-10)
+
+
+@pytest.mark.parametrize("shape", [(48, 48), (48, 64)])
+@pytest.mark.parametrize("B", [None, 2])
+def test_mode_expand_collapse_adjoint(shape, B):
+    core, U = _layout(shape)
+    index = tme.ExpandIndex(*tme.build_expand_layout(core, U))
+    tab, _ = _tables(U, B, 7)
+    out_shape = core.shape + (() if B is None else (B,))
+    c = np.random.default_rng(8).standard_normal(out_shape)
+    lhs = float((tme.mode_expand(torch.from_numpy(tab), index) * torch.from_numpy(c)).sum())
+    rhs = float((torch.from_numpy(tab) * tme.mode_collapse(torch.from_numpy(c), index)).sum())
+    assert abs(lhs - rhs) <= 1e-12 * max(abs(lhs), 1.0)
+    # collapse is the segment sum over the core's bins
+    ref = np.zeros((U,) + (() if B is None else (B,)))
+    np.add.at(ref, core.ravel(), c.reshape((-1,) + ref.shape[1:]))
+    _close(tme.mode_collapse(torch.from_numpy(c), index).numpy(), ref, 1e-10)
+
+
+def test_mode_collapse_backward_is_expand():
+    core, U = _layout((48, 48))
+    index = tme.ExpandIndex(*tme.build_expand_layout(core, U))
+    c = torch.from_numpy(np.random.default_rng(9).standard_normal(core.shape))
+    g = torch.from_numpy(np.random.default_rng(10).standard_normal(U))
+    _, vjp_fn = torch.func.vjp(lambda x: tme.mode_collapse(x, index), c)
+    np.testing.assert_array_equal(vjp_fn(g)[0].numpy(), tme.mode_expand(g, index).numpy())
+    _, jt = torch.func.jvp(lambda x: tme.mode_collapse(x, index), (c,), (c,))
+    np.testing.assert_array_equal(jt.numpy(), tme.mode_collapse(c, index).numpy())
+
+
+def test_expand_plain_matches_pallas_interpret_48():
+    """The plain K1/K2 against the Pallas kernels (interpret mode) on the
+    48² exact layout."""
+    from nifty_tpu.ops import pallas_expand as pe
+    from nifty_tpu.ops.route import build_expand_plan
+
+    core, U = _layout((48, 48))
+    packed, layout = tme.build_expand_layout(core, U)
+    idx = packed.ravel()
+    plan = build_expand_plan(idx, U)
+    index = tme.ExpandIndex(packed, layout)
+    rng = np.random.default_rng(11)
+    tab = rng.standard_normal(U).astype(np.float32)
+    want = np.asarray(pe.expand_forward(plan, jnp.asarray(tab), interpret=True))
+    got = cuda_expand.expand_gather(torch.from_numpy(tab), index).numpy()
+    np.testing.assert_array_equal(got, want)
+    cot = rng.standard_normal(idx.size).astype(np.float32)
+    want = np.asarray(pe.expand_transpose(plan, jnp.asarray(cot), interpret=True))
+    got = cuda_expand.expand_segment_sum(torch.from_numpy(cot), index).numpy()
+    assert np.abs(got - want).max() / np.abs(want).max() < 1e-6
+
+
+def test_wrappers_refuse_other_devices():
+    core, U = _layout((16, 16))
+    index = tme.ExpandIndex(*tme.build_expand_layout(core, U))
+    meta = torch.zeros(U, device="meta")
+    with pytest.raises(ValueError):
+        cuda_expand.expand_gather(meta, index)
+    with pytest.raises(ValueError):
+        cuda_fft.hartley_rows(torch.zeros((256, 256), device="meta"))
+
+
+def test_port_never_imports_jax():
+    code = (
+        "import sys, nifty_tpu_torch, nifty_tpu_torch.interop, "
+        "nifty_tpu_torch.ops.cuda_fft, nifty_tpu_torch.ops.cuda_expand, "
+        "nifty_tpu_torch.native; "
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'nifty_tpu.'))"
+        " or m == 'nifty_tpu']; print(bad); sys.exit(1 if bad else 0)"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120, cwd=root
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
