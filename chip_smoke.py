@@ -7,9 +7,16 @@ JAX.  Phases, each printing one JSON line to stdout:
 
 1. device: requires CUDA; the card's name and power limit (nvidia-smi);
 2. build: compiles ``nifty_tpu_torch/csrc/*.cu`` with nvcc (set-up time)
-   and builds the 1280²- and 4096²-exact models on the host;
+   and builds the 1280²- and 4096²-exact models on the card (f32) through
+   the entry points, and the 1280² one on the CPU in f64 as the reference;
 3. kernels: each hand-written kernel against its plain PyTorch version on
-   the card, at the main path's shapes, with both times (CUDA events);
+   the card, at the main path's shapes.  Times are device times: 20 calls
+   captured in one CUDA graph, replayed between CUDA events, so no host
+   dispatch is in them.  Beside each: ``bound_ms``, the least time the card
+   could take (the larger of the bytes moved, each input read once and
+   each output written once, over 3.35 TB/s and the flops over 67 TFLOP/s
+   f32), and ``library_ms``, the one PyTorch call that computes the same
+   function (``index_select``, ``index_add_``, ``rfft``; none for K4);
 4. main path: ``Poissonian(data).amend(ChainModel(torch.exp, cf))`` with
    the exact-spectrum correlated field at 1280² and 4096², f32 on the
    card: the Fisher-metric apply, its median time, and at 1280² its
@@ -55,46 +62,6 @@ def fail(msg):
     raise RuntimeError(msg)
 
 
-def cuda_ms(fn, iters=20, warmup=3):
-    """Mean device time of ``fn`` in ms over ``iters`` back-to-back calls."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def build_likelihood(nt, n, seed=42):
-    """The bench's exact-spectrum row at n²: model and data on the host, f64."""
-    import numpy as np
-    import torch
-
-    cfm = nt.CorrelatedFieldMaker("cf")
-    cfm.set_amplitude_total_offset(offset_mean=1.0, offset_std=(1e-1, 3e-2))
-    cfm.add_fluctuations(
-        (n, n),
-        distances=1.0 / n,
-        fluctuations=(1.0, 5e-1),
-        loglogavgslope=(-3.0, 2e-1),
-        flexibility=(1e0, 2e-1),
-    )
-    cf = cfm.finalize()
-    rng = np.random.default_rng(seed)
-    pos = {k: rng.standard_normal(v.shape) for k, v in sorted(cf.domain.items())}
-    data = rng.poisson(1.0, size=(n, n)).astype(np.int32)
-    rng_t = np.random.default_rng(seed + 2)
-    tan = {k: rng_t.standard_normal(v.shape) for k, v in sorted(cf.domain.items())}
-    lh = nt.Poissonian(torch.from_numpy(data)).amend(nt.ChainModel(torch.exp, cf))
-    return lh, pos, tan
-
-
 def rel_max(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
@@ -111,6 +78,8 @@ def main() -> int:
     import nifty_tpu_torch as nt
     from nifty_tpu_torch import native
     from nifty_tpu_torch.ops import cuda_expand as ce
+    from nifty_tpu_torch.bench.timing import bound, device_ms, fft_flops
+    from nifty_tpu_torch.bench.workload import build_likelihood
     from nifty_tpu_torch.ops import cuda_fft as cfft
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -133,7 +102,8 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(native.build_log(), file=sys.stderr)
     t0 = time.perf_counter()
-    cpu = {n: build_likelihood(nt, n) for n in SHAPES_MAIN}
+    card = {n: build_likelihood(n, dev, torch.float32) for n in SHAPES_MAIN}
+    ref64 = build_likelihood(SHAPES_MAIN[0], "cpu", torch.float64)
     model_s = time.perf_counter() - t0
     emit({"phase": "build", "nvcc_s": build_s, "models_s": model_s})
 
@@ -141,14 +111,19 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(0)
     summary = {}
 
-    def record(key, err, ms, plain_ms):
+    def record(key, err, times):
         s = summary.setdefault(key, {"max_abs_err": 0.0})
         s["max_abs_err"] = max(s["max_abs_err"], err)
-        s["ms"], s["plain_ms"] = ms, plain_ms  # the last (largest) shape's times
+        s.update(times)  # the last (largest) main-path shape's times
+
+    def timing(ms, plain_ms, n_bytes, flops=0.0, library_ms=None):
+        b_ms, b_by = bound(n_bytes, flops)
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": library_ms}
 
     for n in SHAPES_MAIN:
-        index = cpu[n][0].forward_model.inner.indexes[0]
-        index_d = copy.deepcopy(index).to(dev)
+        index_d = card[n][0].forward_model.inner.indexes[0]
+        index = copy.deepcopy(index_d).to("cpu")
         U, P = index.n_unique, index.n_packed
         n_large = int(index.large_bins.numel())
         max_bin = int(np.diff(index.offsets.numpy()).max())
@@ -159,35 +134,44 @@ def main() -> int:
             ref = ce.expand_gather_plain(tab, index_d)
             if not torch.equal(out, ref):
                 fail(f"K1 differs from tab[idx] at {n}² B={B}")
-            ms = cuda_ms(lambda: ce.expand_gather(tab, index_d))
-            pms = cuda_ms(lambda: ce.expand_gather_plain(tab, index_d))
+            # the plain versions of K1 and K2 are the one PyTorch call that
+            # computes their function (index_select, index_add_)
+            k1 = timing(device_ms(lambda: ce.expand_gather(tab, index_d)),
+                        device_ms(lambda: ce.expand_gather_plain(tab, index_d)),
+                        4 * U * B + 4 * P + 4 * P * B)
+            k1["library_ms"] = k1["plain_ms"]
             cshape = (P,) if B == 1 else (P, B)
             cot = torch.randn(cshape, generator=g, device=dev)
             seg = ce.expand_segment_sum(cot, index_d)
             seg2 = ce.expand_segment_sum(cot, index_d)
             if not torch.equal(seg, seg2):
                 fail(f"K2 is not deterministic at {n}² B={B}")
-            ref64 = ce.expand_segment_sum_plain(cot.double().cpu(), index)
-            k2_err = rel_max(seg.double().cpu(), ref64)
+            seg_ref = ce.expand_segment_sum_plain(cot.double().cpu(), index)
+            k2_err = rel_max(seg.double().cpu(), seg_ref)
             if not k2_err <= TOL["k2"]:
                 fail(f"K2 relative error {k2_err} > {TOL['k2']} at {n}² B={B}")
-            k2_abs = float((seg.double().cpu() - ref64).abs().max())
-            k2_ms = cuda_ms(lambda: ce.expand_segment_sum(cot, index_d))
-            k2_pms = cuda_ms(lambda: ce.expand_segment_sum_plain(cot, index_d))
+            k2_abs = float((seg.double().cpu() - seg_ref).abs().max())
+            # what a segment sum must move: cot and the index in, the table
+            # out (the CSR offsets and bin lists are this design's own data)
+            k2 = timing(device_ms(lambda: ce.expand_segment_sum(cot, index_d)),
+                        device_ms(lambda: ce.expand_segment_sum_plain(cot, index_d)),
+                        4 * P * B + 4 * P + 4 * U * B)
+            k2["library_ms"] = k2["plain_ms"]
             emit({"phase": "kernels", "kernel": "K1+K2", "layout": f"{n}x{n}_exact", "B": B,
                   "P": P, "U": U, "large_bins": n_large, "max_bin": max_bin,
-                  "k1_exact": True, "k1_ms": ms, "k1_plain_ms": pms,
-                  "k2_rel_err": k2_err, "k2_ms": k2_ms, "k2_plain_ms": k2_pms})
+                  "k1_exact": True, **{f"k1_{k}": v for k, v in k1.items()},
+                  "k2_rel_err": k2_err, **{f"k2_{k}": v for k, v in k2.items()}})
             if B == 1:
-                record("K1", 0.0, ms, pms)
-                record("K2", k2_abs, k2_ms, k2_pms)
+                record("K1", 0.0, k1)
+                record("K2", k2_abs, k2)
 
     for n in SHAPES_HARTLEY:
         x = torch.randn((n, n), generator=g, device=dev)
         G = cfft.hartley_rows(x)
         Gp = cfft.hartley_rows_plain(x)
         e3 = rel_max(G, Gp)
-        H = cfft.hartley_cols(Gp, n)
+        Gp_pad = cfft.padded_half_spectrum(Gp)
+        H = cfft.hartley_cols(Gp_pad, n)
         Hp = cfft.hartley_cols_plain(Gp, n)
         e4 = rel_max(H, Hp)
         full = cfft.hartley2d(x)
@@ -196,34 +180,37 @@ def main() -> int:
         for what, err in (("K3", e3), ("K4", e4), ("K3+K4", e_full), ("H(H(x))/N", e_inv)):
             if not err <= TOL["hartley"]:
                 fail(f"{what} relative error {err} > {TOL['hartley']} at {n}²")
-        ms3 = cuda_ms(lambda: cfft.hartley_rows(x), iters=10)
-        pms3 = cuda_ms(lambda: cfft.hartley_rows_plain(x), iters=10)
-        ms4 = cuda_ms(lambda: cfft.hartley_cols(Gp, n), iters=10)
-        pms4 = cuda_ms(lambda: cfft.hartley_cols_plain(Gp, n), iters=10)
+        h = n // 2 + 1
+        io_bytes = 4 * n * n + 8 * n * h  # one real array and one half spectrum
+        rfft_ms = device_ms(lambda: cfft.hartley_rows_plain(x))  # plain K3 is rfft itself
+        k3 = timing(device_ms(lambda: cfft.hartley_rows(x)), rfft_ms,
+                    io_bytes, fft_flops(n, n // 2), library_ms=rfft_ms)
+        k4 = timing(device_ms(lambda: cfft.hartley_cols(Gp_pad, n)),
+                    device_ms(lambda: cfft.hartley_cols_plain(Gp, n)),
+                    io_bytes, fft_flops(n, h))
         emit({"phase": "kernels", "kernel": "K3+K4", "shape": [n, n],
               "k3_rel_err": e3, "k4_rel_err": e4, "hartley_rel_err": e_full,
-              "inverse_rel_err": e_inv, "k3_ms": ms3, "k3_plain_ms": pms3,
-              "k4_ms": ms4, "k4_plain_ms": pms4})
+              "inverse_rel_err": e_inv, **{f"k3_{k}": v for k, v in k3.items()},
+              **{f"k4_{k}": v for k, v in k4.items()}})
         if n in SHAPES_MAIN:
-            record("K3", float((G - Gp).abs().max()), ms3, pms3)
-            record("K4", float((H - Hp).abs().max()), ms4, pms4)
-        del x, G, Gp, H, Hp, full
+            record("K3", float((G - Gp).abs().max()), k3)
+            record("K4", float((H - Hp).abs().max()), k4)
+        del x, G, Gp, Gp_pad, H, Hp, full
         torch.cuda.empty_cache()
 
     # -- 4. main path -----------------------------------------------------
     native.reset_launches()
     apply_ms = {}
     for n in SHAPES_MAIN:
-        lh_cpu, pos_np, tan_np = cpu[n]
+        lh, pos_np, tan_np = card[n]
         torch.cuda.reset_peak_memory_stats()
-        lh = copy.deepcopy(lh_cpu).to(dev, torch.float32)
-        p = nt.position_from_numpy(lh.forward_model, pos_np, device=dev, dtype=torch.float32)
-        t = nt.position_from_numpy(lh.forward_model, tan_np, device=dev, dtype=torch.float32)
+        p = nt.position_from_numpy(lh.forward_model, pos_np)  # the model's device and dtype
+        t = nt.position_from_numpy(lh.forward_model, tan_np)
         m = lh.metric(p, t)
         torch.cuda.synchronize()
         for k, v in m.items():
-            if v.shape != t[k].shape or not bool(torch.isfinite(v).all()):
-                fail(f"metric leaf {k} at {n}²: shape {tuple(v.shape)} or non-finite values")
+            if v.shape != t[k].shape or v.device != dev or not bool(torch.isfinite(v).all()):
+                fail(f"metric leaf {k} at {n}²: shape {tuple(v.shape)}, {v.device} or non-finite")
         times = []
         for _ in range(10):
             s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -237,9 +224,10 @@ def main() -> int:
                 "metric_apply_ms_median": apply_ms[n], "metric_apply_ms_all": times,
                 "peak_mem_bytes": torch.cuda.max_memory_allocated()}
         if n == SHAPES_MAIN[0]:
-            p64 = nt.position_from_numpy(lh_cpu.forward_model, pos_np, dtype=torch.float64)
-            t64 = nt.position_from_numpy(lh_cpu.forward_model, tan_np, dtype=torch.float64)
-            ref = lh_cpu.metric(p64, t64)
+            lh64, _, _ = ref64
+            p64 = nt.position_from_numpy(lh64.forward_model, pos_np)
+            t64 = nt.position_from_numpy(lh64.forward_model, tan_np)
+            ref = lh64.metric(p64, t64)
             num = sum(float(((m[k].double().cpu() - ref[k]) ** 2).sum()) for k in ref)
             den = sum(float((ref[k] ** 2).sum()) for k in ref)
             rel_l2 = (num / den) ** 0.5
@@ -249,6 +237,7 @@ def main() -> int:
         emit(line)
         if n != SHAPES_MAIN[0]:
             del lh, p, t, m
+            card.pop(n)
             torch.cuda.empty_cache()
         else:
             lh_small, p_small, t_small = lh, p, t
@@ -293,9 +282,7 @@ def main() -> int:
                "K4": ("nifty_tpu_torch/csrc/hartley.cu", "nifty_tpu/ops/pallas_fft.py:246")}
     kernels = [
         {"name": f"{k} {names[k]}", "route": "cuda", "source": sources[k][0],
-         "replaces": sources[k][1], "launches": counts[names[k]],
-         "max_abs_err": summary[k]["max_abs_err"], "ms": summary[k]["ms"],
-         "plain_ms": summary[k]["plain_ms"]}
+         "replaces": sources[k][1], "launches": counts[names[k]], **summary[k]}
         for k in names
     ]
     print(smi)

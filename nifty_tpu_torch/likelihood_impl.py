@@ -1,5 +1,7 @@
 """Standard likelihoods (counterpart of the Poisson and Gaussian
-likelihoods of ``nifty_tpu/likelihood_impl.py``).  Data are one tensor."""
+likelihoods of ``nifty_tpu/likelihood_impl.py``).  Data are one tensor:
+a tensor stays on its device unless ``device`` is given; other data (numpy
+arrays, lists) go to ``device``, the CUDA card by default."""
 
 from __future__ import annotations
 
@@ -7,9 +9,16 @@ from typing import Callable, Optional, Union
 
 import torch
 
+from . import device as _device
 from .likelihood import Likelihood
 
 __all__ = ["Gaussian", "Poissonian"]
+
+
+def _as_data(data, device):
+    if isinstance(data, torch.Tensor):
+        return data if device is None else data.to(device)
+    return torch.as_tensor(data, device=_device.resolve(device))
 
 
 class Gaussian(Likelihood):
@@ -25,21 +34,23 @@ class Gaussian(Likelihood):
         data,
         noise_cov_inv: Optional[Union[Callable, torch.Tensor]] = None,
         noise_std_inv: Optional[Union[Callable, torch.Tensor]] = None,
+        device=None,
     ):
         super().__init__()
-        data = torch.as_tensor(data)
+        data = _as_data(data, device)
         self.register_buffer("data", data)
+        as_t = lambda w: torch.as_tensor(w, device=data.device)
         cov, std = noise_cov_inv, noise_std_inv
         if cov is not None or std is not None:
             ones = torch.ones_like(data.real)
             if cov is None:
-                cov = (std(ones) if callable(std) else torch.as_tensor(std) * ones) ** 2
+                cov = (std(ones) if callable(std) else as_t(std) * ones) ** 2
             if std is None:
-                std = torch.sqrt(cov(ones) if callable(cov) else torch.as_tensor(cov) * ones)
+                std = torch.sqrt(cov(ones) if callable(cov) else as_t(cov) * ones)
         self._cov_fn = cov if callable(cov) else None
         self._std_fn = std if callable(std) else None
-        self.register_buffer("cov_weight", None if cov is None or callable(cov) else torch.as_tensor(cov))
-        self.register_buffer("std_weight", None if std is None or callable(std) else torch.as_tensor(std))
+        self.register_buffer("cov_weight", None if cov is None or callable(cov) else as_t(cov))
+        self.register_buffer("std_weight", None if std is None or callable(std) else as_t(std))
 
     @staticmethod
     def _apply(fn, weight, x):
@@ -77,9 +88,9 @@ class Poissonian(Likelihood):
     """Poisson count likelihood: E(λ) = Σλ - dᵀ log λ, with the geometric
     transformation 2√λ."""
 
-    def __init__(self, data):
+    def __init__(self, data, device=None):
         super().__init__()
-        data = torch.as_tensor(data)
+        data = _as_data(data, device)
         if data.is_floating_point() or data.is_complex():
             raise TypeError("Poisson `data` must have integer dtype")
         self.register_buffer("data", data)

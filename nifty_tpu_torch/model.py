@@ -16,6 +16,7 @@ from typing import Callable, Optional
 
 import torch
 
+from . import device as _device
 from .utils.tree import ShapeWithDtype, random_like
 
 __all__ = ["ChainModel", "Initializer", "Model", "WrappedCall"]
@@ -24,7 +25,8 @@ __all__ = ["ChainModel", "Initializer", "Model", "WrappedCall"]
 class Initializer:
     """A dict of per-parameter draw functions
     ``f(generator, *, device, dtype) -> Tensor``, or one such function.
-    Two dict initializers merge with ``|``."""
+    Two dict initializers merge with ``|``.  ``device=None`` draws on the
+    CUDA card (raises without one)."""
 
     def __init__(self, call_or_struct):
         if isinstance(call_or_struct, Initializer):
@@ -32,6 +34,7 @@ class Initializer:
         self._call_or_struct = call_or_struct
 
     def __call__(self, generator, *, device=None, dtype=None):
+        device = _device.resolve(device)
         if callable(self._call_or_struct):
             return self._call_or_struct(generator, device=device, dtype=dtype)
         return {

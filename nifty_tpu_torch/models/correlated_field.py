@@ -15,6 +15,7 @@ and field-sharded execution are not part of this port yet.
 
 from __future__ import annotations
 
+import copy
 from collections import namedtuple
 from functools import partial
 from typing import Callable, Optional
@@ -22,6 +23,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import device as _device
 from ..model import Model, WrappedCall
 from ..num.stats_distributions import lognormal_prior, normal_prior
 from ..ops.fft import hartley
@@ -338,10 +340,12 @@ class CorrelatedFieldMaker:
         self._azm = WrappedCall(zm, name=self._prefix + "zeromode")
         self._parameter_tree[self._prefix + "zeromode"] = ShapeWithDtype(())
 
-    def finalize(self) -> CorrelatedField:
-        """Assemble the model (CPU, float64 buffers; move it with ``.to``)."""
+    def finalize(self, device=None, dtype=torch.float32) -> CorrelatedField:
+        """Assemble the model with its floating buffers in ``dtype`` on
+        ``device`` (the CUDA card by default; raises without one)."""
         if self._azm is None:
             raise RuntimeError("set_amplitude_total_offset must be called first")
+        device = _device.resolve(device)
         harmonic_transforms = []
         excitation_shape = ()
         indexes = []
@@ -357,13 +361,15 @@ class CorrelatedFieldMaker:
             indexes.append(ExpandIndex(packed, layout))
         xi_key = self._prefix + "xi"
         self._parameter_tree[xi_key] = ShapeWithDtype(excitation_shape)
+        # copies: `.to` moves modules in place, and a maker may be finalized
+        # more than once (on the card and on the CPU, say)
         return CorrelatedField(
-            amplitudes=self._fluctuations,
+            amplitudes=copy.deepcopy(self._fluctuations),
             indexes=indexes,
             full_shapes=[g.harmonic_grid.shape for g in self._target_grids],
-            azm=self._azm,
+            azm=copy.deepcopy(self._azm),
             offset_mean=self._offset_mean,
             xi_key=xi_key,
             harmonic_transforms=harmonic_transforms,
             domain=dict(self._parameter_tree),
-        )
+        ).to(device=device, dtype=dtype)

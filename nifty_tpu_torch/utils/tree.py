@@ -13,6 +13,8 @@ import operator
 import torch
 from torch.utils import _pytree as pytree
 
+from .. import device as _device
+
 __all__ = [
     "ShapeWithDtype",
     "Vector",
@@ -149,7 +151,8 @@ def zeros_like(tree):
 def random_like(generator, primals, *, device=None, dtype=None):
     """Standard-normal draws shaped like ``primals`` (a tree of tensors or
     :class:`ShapeWithDtype`), from ``generator``, one leaf after another in
-    the tree's order."""
+    the tree's order, on ``device`` (the CUDA card by default)."""
+    device = _device.resolve(device)
 
     def draw(p):
         dt = dtype if dtype is not None else (p.dtype or torch.get_default_dtype())

@@ -39,7 +39,7 @@ def _build(pkg, shape, **kw):
         flexibility=(1e0, 2e-1),
         **kw,
     )
-    return cfm.finalize()
+    return cfm.finalize() if pkg is nj else cfm.finalize(device="cpu", dtype=torch.float64)
 
 
 def _pair(shape, seed=0, **kw):
@@ -106,7 +106,7 @@ def test_two_subgrids_outer_product():
         cfm.set_amplitude_total_offset(offset_mean=0.5, offset_std=(1e-1, 3e-2))
         cfm.add_fluctuations((24,), 0.1, (1.0, 5e-1), (-2.0, 2e-1), (1e0, 2e-1), prefix="a")
         cfm.add_fluctuations((10, 12), 0.2, (1.0, 5e-1), (-3.0, 2e-1), None, prefix="b")
-        return cfm.finalize()
+        return cfm.finalize() if pkg is nj else cfm.finalize(device="cpu", dtype=torch.float64)
 
     cj, ct = build(nj), build(nt)
     rng = np.random.default_rng(6)
@@ -173,7 +173,7 @@ def test_model_moves_to_float32():
     ct = _build(nt, (16, 16)).to(dtype=torch.float32)
     assert ct.indexes[0].idx.dtype == torch.int32
     assert ct.amplitudes[0].relative_log_mode_lengths.dtype == torch.float32
-    p = ct.init(torch.Generator().manual_seed(0), dtype=torch.float32)
+    p = ct.init(torch.Generator().manual_seed(0), device="cpu", dtype=torch.float32)
     out = ct(p)
     assert out.dtype == torch.float32 and out.shape == (16, 16)
     assert torch.isfinite(out).all()

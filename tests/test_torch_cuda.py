@@ -5,6 +5,9 @@ neither jax nor nifty_tpu, so it runs where only PyTorch is installed:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`` (the
 shared ``tests/conftest.py`` imports jax).
 
+On the card the port's entry points build on the card by default
+(``finalize()``, ``position_from_numpy``, a likelihood given numpy data).
+
 Tolerances: K1 exact (a gather computes nothing); K2 relative 1e-6 against
 a float64 segment sum (f32 sums over one bin in a fixed order); the
 Hartley max|Δ|/max|ref| <= 1e-5 (f32 FFT rounding); the metric relative L2
@@ -58,11 +61,12 @@ def test_gather_and_segment_sum(cuda_device, B, big_bin):
     assert (index.large_bins.numel() > 0) == bool(big_bin)
     index_d = copy.deepcopy(index).to(cuda_device)
     shape = (U,) if B == 1 else (U, B)
-    tab = torch.randn(shape, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(B + big_bin)  # the same data every run
+    tab = torch.randn(shape, device=cuda_device, generator=g)
     out = ce.expand_gather(tab, index_d)
     assert torch.equal(out, tab[torch.from_numpy(idx).to(cuda_device)])
     cshape = (200_003,) if B == 1 else (200_003, B)
-    cot = torch.randn(cshape, device=cuda_device)
+    cot = torch.randn(cshape, device=cuda_device, generator=g)
     seg = ce.expand_segment_sum(cot, index_d)
     assert torch.equal(seg, ce.expand_segment_sum(cot, index_d))  # deterministic
     ref = ce.expand_segment_sum_plain(cot.double().cpu(), index)
@@ -86,23 +90,61 @@ def test_wrappers_raise_on_bad_cuda_input(cuda_device):
         cfft.hartley_rows(torch.zeros((256, 512), device=cuda_device).T)
     with pytest.raises(ValueError):
         cfft.hartley_rows(torch.zeros((256, 300), device=cuda_device))
+    G = torch.zeros((256, 129), device=cuda_device, dtype=torch.complex64)
+    with pytest.raises(ValueError):  # row pitch 129: K4 takes no unpadded half spectrum
+        cfft.hartley_cols(G, 256)
+    with pytest.raises(ValueError):
+        cfft.hartley_cols(torch.zeros((136, 256), device=cuda_device, dtype=torch.complex64).T[:, :129], 256)
+    with pytest.raises(TypeError):
+        cfft.hartley_cols(cfft.padded_half_spectrum(G).real, 256)
 
 
 @pytest.mark.parametrize(
-    "shape", [(256, 256), (512, 768), (1280, 1280), (256, 1792), (2048, 512), (10240, 256), (256, 10240)]
+    "shape",
+    [(256, 256), (512, 768), (1280, 1280), (256, 1792), (2048, 512), (10240, 256), (256, 10240),
+     (768, 1280), (1792, 256), (4096, 4096), (12288, 256), (24576, 256)],
 )
 def test_hartley_kernels(cuda_device, shape):
     x = torch.randn(shape, device=cuda_device)
     G = cfft.hartley_rows(x)
     Gp = cfft.hartley_rows_plain(x)
     assert _rel(G, Gp) <= 1e-5
-    H = cfft.hartley_cols(Gp, shape[1])
+    H = cfft.hartley_cols(cfft.padded_half_spectrum(Gp), shape[1])
     Hp = cfft.hartley_cols_plain(Gp, shape[1])
     assert _rel(H, Hp) <= 1e-5
     full = cfft.hartley2d(x)
     ref = nt.ops.fft.hartley_plain(x.double().cpu())
     assert _rel(full.double().cpu(), ref) <= 1e-5
     assert _rel(cfft.hartley2d(full) / x.numel(), x) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(768, 1280), (1792, 256), (1280, 1280), (256, 24576)])
+def test_padded_pitch_round_trip(cuda_device, shape):
+    """K3 writes the half spectrum with the padded pitch (padding zeroed),
+    K4 reads it as it is, and H(H(x))/N = x."""
+    n0, n1 = shape
+    x = torch.randn(shape, device=cuda_device)
+    G = cfft.hartley_rows(x)
+    pitch = cfft.half_spectrum_pitch(n1)
+    assert G.shape == (n0, n1 // 2 + 1) and G.stride() == (pitch, 1)
+    assert not G.as_strided((n0, pitch), (pitch, 1))[:, n1 // 2 + 1 :].abs().any()
+    H = cfft.hartley_cols(G, n1)
+    assert _rel(H, cfft.hartley_cols_plain(cfft.hartley_rows_plain(x), n1)) <= 1e-5
+    assert _rel(cfft.hartley2d(H) / x.numel(), x) <= 1e-5
+
+
+def test_hartley_realigns_an_offset_input(cuda_device):
+    """K3 loads 16-byte vectors; Hartley2d hands it an aligned copy of a
+    contiguous input that starts off a 16-byte boundary."""
+    n = 512
+    x = torch.randn(n * n + 1, device=cuda_device)[1:].view(n, n)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    with pytest.raises(ValueError):
+        cfft.hartley_rows(x)
+    native.reset_launches()
+    H = nt.hartley(x)
+    assert native.launches["hartley_rows"] == 1 and native.launches["hartley_cols"] == 1
+    assert _rel(H.double().cpu(), nt.ops.fft.hartley_plain(x.double().cpu())) <= 1e-5
 
 
 def test_hartley_dispatch_launches_kernels(cuda_device):
@@ -120,21 +162,25 @@ def test_metric_on_card_matches_cpu_f64(cuda_device):
     cfm = nt.CorrelatedFieldMaker("cf")
     cfm.set_amplitude_total_offset(offset_mean=1.0, offset_std=(1e-1, 3e-2))
     cfm.add_fluctuations((n, n), 1.0 / n, (1.0, 5e-1), (-3.0, 2e-1), (1e0, 2e-1))
-    cf = cfm.finalize()
+    cf = cfm.finalize()  # on the card, float32
+    cf64 = cfm.finalize(device="cpu", dtype=torch.float64)
+    assert all(b.device.type == "cuda" for b in cf.buffers())
+    assert cf.amplitudes[0].mode_multiplicity.dtype == torch.float32
+    assert cf64.amplitudes[0].mode_multiplicity.device.type == "cpu"
     rng = np.random.default_rng(0)
     pos = {k: rng.standard_normal(v.shape) for k, v in cf.domain.items()}
     tan = {k: rng.standard_normal(v.shape) for k, v in cf.domain.items()}
-    data = torch.from_numpy(rng.poisson(1.0, (n, n)).astype(np.int32))
-    lh64 = nt.Poissonian(data).amend(nt.ChainModel(torch.exp, cf))
-    lh32 = copy.deepcopy(lh64).to(cuda_device, torch.float32)
+    data = rng.poisson(1.0, (n, n)).astype(np.int32)
+    lh64 = nt.Poissonian(data, device="cpu").amend(nt.ChainModel(torch.exp, cf64))
+    lh32 = nt.Poissonian(data).amend(nt.ChainModel(torch.exp, cf))
+    assert lh32.likelihood.data.device.type == "cuda"
+    p32 = nt.position_from_numpy(cf, pos)
+    assert all(v.device.type == "cuda" and v.dtype == torch.float32 for v in p32.values())
     native.reset_launches()
-    m32 = lh32.metric(
-        nt.position_from_numpy(cf, pos, device=cuda_device, dtype=torch.float32),
-        nt.position_from_numpy(cf, tan, device=cuda_device, dtype=torch.float32),
-    )
+    m32 = lh32.metric(p32, nt.position_from_numpy(cf, tan))
     for name in ("expand_gather", "expand_segment_sum", "hartley_rows", "hartley_cols"):
         assert native.launches[name] > 0, name
-    m64 = lh64.metric(nt.position_from_numpy(cf, pos), nt.position_from_numpy(cf, tan))
+    m64 = lh64.metric(nt.position_from_numpy(cf64, pos), nt.position_from_numpy(cf64, tan))
     num = sum(float(((m32[k].double().cpu() - m64[k]) ** 2).sum()) for k in m64)
     den = sum(float((m64[k] ** 2).sum()) for k in m64)
     assert (num / den) ** 0.5 <= 1e-4

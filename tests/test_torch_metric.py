@@ -42,7 +42,7 @@ def _cf(pkg, shape):
         loglogavgslope=(-3.0, 2e-1),
         flexibility=(1e0, 2e-1),
     )
-    return cfm.finalize()
+    return cfm.finalize() if pkg is nj else cfm.finalize(device="cpu", dtype=torch.float64)
 
 
 def _setup(shape, seed=0):
@@ -171,7 +171,9 @@ def test_tree_algebra():
     out = torch.func.jvp(lambda t: (t * 3.0).tree, (nt.Vector(a),), (nt.Vector(b),))[1]
     _close(flat(out), 3.0 * flat(b))
     g = torch.Generator().manual_seed(0)
-    r = nt.random_like(g, {"x": nt.ShapeWithDtype((4,)), "y": nt.ShapeWithDtype((2,), torch.float64)})
+    r = nt.random_like(
+        g, {"x": nt.ShapeWithDtype((4,)), "y": nt.ShapeWithDtype((2,), torch.float64)}, device="cpu"
+    )
     assert r["x"].shape == (4,) and r["y"].dtype == torch.float64
 
 

@@ -111,37 +111,140 @@ def test_hartley2d_function_is_linear_and_self_adjoint():
     assert (y - x).abs().max() < 1e-4
 
 
-@pytest.mark.parametrize("n", [256, 768, 1280, 1792, 4096, 10240])
-def test_dit_order_and_radix_plan_give_the_dft(n):
-    """A vectorised numpy model of the kernel's in-place mixed-radix FFT:
-    digit-reversed load by ``dit_input_order``, then one butterfly stage
-    per radix of ``radix_plan`` with the twiddle indices of
-    ``csrc/hartley.cu``.  It must reproduce the DFT."""
+def _register_dft(a, R):
+    """Numpy model of the kernel's register DFT along axis 0: radix 16 and
+    8 as 4-point DFTs over r1 (r = R2 r1 + r2), the twiddle w_R^{r2 q1},
+    then R2-point DFTs over r2 (q = q1 + 4 q2); other radices direct."""
+    if R in (8, 16):
+        R2 = R // 4
+        t = np.stack([_register_dft(a[[r2 + r1 * R2 for r1 in range(4)]], 4) for r2 in range(R2)])
+        w = np.exp(-2j * np.pi * np.outer(np.arange(R2), np.arange(4)) / R)
+        t = t * w.reshape(w.shape + (1,) * (a.ndim - 1))
+        out = np.empty_like(a)
+        for q1 in range(4):
+            u = _register_dft(t[:, q1], R2)
+            for q2 in range(R2):
+                out[q1 + 4 * q2] = u[q2]
+        return out
+    W = np.exp(-2j * np.pi * np.outer(np.arange(R), np.arange(R)) / R)
+    return np.tensordot(W, a, axes=(1, 0))
+
+
+def _kernel_fft_model(x, table_len=0):
+    """Numpy model of one sequence through the passes of ``fft_plan``, with
+    the index arithmetic of ``csrc/hartley.cu``: padded shared-memory
+    positions, j / m by the magic multiplier, in-place butterflies over
+    g L + k + r m, twiddles w^{q k tw_stride} from the two tables (of length
+    ``table_len``, default n), and the output read through
+    ``output_order``.  Checks each pass's invariants."""
+    n = x.size
+    table_len = table_len or n
+    lo, hi = cuda_fft.twiddle_tables(table_len)
+    pos = cuda_fft.smem_pos
+    buf = np.full(cuda_fft.buffer_len(n), np.nan + 0j)
+    buf[pos(np.arange(n))] = x
+    L = n
+    for R, m, magic, tws in cuda_fft.fft_plan(n, table_len):
+        assert m * R == L and tws * L == table_len
+        j = np.arange(n // R, dtype=np.uint64)
+        g = j if m == 1 else (j * np.uint64(magic)) >> np.uint64(32)  # __umulhi
+        g, j = g.astype(np.int64), j.astype(np.int64)
+        np.testing.assert_array_equal(g, j // m)
+        k = j - g * m
+        at = pos(g * L + k + np.arange(R)[:, None] * m)  # read and written in place
+        assert np.unique(at).size == n and at.max() < cuda_fft.buffer_len(n)
+        e = np.arange(R)[:, None] * k[None] * tws
+        assert 0 <= e.min() and e.max() < table_len  # the index stays inside the tables
+        tw = lambda e: hi[e >> 7] * lo[e & (cuda_fft.TW_LO - 1)]
+        if R in (8, 16):  # w^q = w^(q mod 4) w^(4 (q div 4)), as the kernel forms it
+            q = np.arange(R)[:, None]
+            w = tw((q % 4) * k[None] * tws) * tw(4 * (q // 4) * k[None] * tws)
+        else:
+            w = tw(e)
+        buf[at] = _register_dft(buf[at], R) * w
+        L = m
+    assert L == 1
+    return buf[pos(cuda_fft.output_order(n).astype(np.int64))]
+
+
+@pytest.mark.parametrize("n", [256, 768, 1280, 1792, 4096, 10240, 24576])
+def test_pass_schedule_composes_to_the_dft(n):
+    """The kernels' pass schedule, in-place exchange, twiddle indices,
+    output order and padded positions, modelled in numpy, reproduce
+    ``np.fft.fft``; 768, 1280, 1792 and 10240 take radices 3, 5, 7 and 8,
+    24576 radix 2."""
     rads = cuda_fft.radix_plan(n)
-    assert int(np.prod(rads)) == n
-    x = np.random.default_rng(n).standard_normal(n) + 0j
-    buf = x[cuda_fft.dit_input_order(n)]
-    tw = np.exp(-2j * np.pi * np.arange(n) / n)
-    m = 1
-    for R in rads:
-        L = m * R
-        b = np.arange(n // R)
-        g, k = b // m, b % m
-        base = g * L + k
-        a = np.stack([buf[base + r * m] * tw[r * k * (n // L)] for r in range(R)])
-        W = tw[(np.outer(np.arange(R), np.arange(R)) % R) * (n // R)]
-        out = W.T @ a
-        for q in range(R):
-            buf[base + q * m] = out[q]
-        m = L
-    _close(buf, np.fft.fft(x), 1e-10)
+    assert rads[-1] == 16 and int(np.prod(rads)) == n
+    order = cuda_fft.output_order(n)
+    assert np.array_equal(np.sort(order), np.arange(n))  # a permutation
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    _close(_kernel_fft_model(x), np.fft.fft(x), 1e-10)
 
 
-def test_column_tile_fits_shared_memory():
-    for n0 in (256, 1280, 4096, 10240, cuda_fft.MAX_AXIS):
-        tc = cuda_fft.column_tile(n0)
-        assert tc >= 1 and (tc == 1 or tc * cuda_fft.column_bytes(n0) <= 176 * 1024)
-        assert tc * cuda_fft.column_bytes(n0) <= 227 * 1024  # a block's shared-memory limit
+@pytest.mark.parametrize("n,C", [(256, 2), (1280, 2), (4096, 2), (1280, 4), (4096, 4), (10240, 4)])
+def test_cluster_cross_pass_and_part_transforms_give_the_dft(n, C):
+    """K4's clusters of C blocks: the radix-C pass across the parts of a
+    column (the register DFT of x[k], x[k + n/C], ..., output q times
+    w_n^{q k}), then in each part the passes of the length n/C plan with
+    the length-n tables; frequency C f + r is in part r at
+    ``output_order(n // C)[f]``."""
+    rng = np.random.default_rng(n + C)
+    x = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    lo, hi = cuda_fft.twiddle_tables(n)
+    part = n // C
+    k = np.arange(part)
+    y = _register_dft(x.reshape(C, part), C)
+    e = np.arange(C)[:, None] * k[None]
+    y = y * hi[e >> 7] * lo[e & (cuda_fft.TW_LO - 1)]
+    out = np.empty(n, complex)
+    for r in range(C):
+        out[r::C] = _kernel_fft_model(y[r], table_len=n)
+    _close(out, np.fft.fft(x), 1e-10)
+
+
+@pytest.mark.parametrize("R", [2, 3, 4, 5, 7, 8, 16])
+def test_register_dft_is_the_dft(R):
+    a = np.random.default_rng(R).standard_normal((R, 3)) + 0j
+    W = np.exp(-2j * np.pi * np.outer(np.arange(R), np.arange(R)) / R)
+    _close(_register_dft(a, R), W @ a, 1e-12)
+
+
+@pytest.mark.parametrize("n", [256, 768, 1280, 1792, 4096, 10240, 12288, cuda_fft.MAX_AXIS])
+def test_launch_shapes_fit_the_card(n):
+    """Every launch shape respects the kernels' thread bounds and a block's
+    227 KB of shared memory, and K4's last tile stays inside the padded
+    row pitch."""
+    T = cuda_fft.row_launch(n)
+    assert 1 <= T <= min(n // 16, cuda_fft.MAX_THREADS) and cuda_fft.MAX_THREADS == 640
+    assert cuda_fft.row_smem_bytes(n) <= cuda_fft.SMEM_LIMIT == 227 * 1024
+    T, tc, parts = cuda_fft.col_launch(n)
+    assert (tc, parts) in ((1, 0), (2, 0), (8, 2), (8, 4))
+    assert 1 <= T <= n // 16 and (tc + (parts > 0)) * T <= cuda_fft.MAX_THREADS
+    assert cuda_fft.col_smem_bytes(n, tc, parts) <= cuda_fft.SMEM_LIMIT
+    assert not parts or (n // parts) % parts == 0  # the cross pass splits evenly
+    # the last tile (and the extra column, which only tiles short of n1/2 read) stays
+    # inside the padded pitch
+    assert (-(-(n // 2 + 1) // tc)) * tc <= cuda_fft.half_spectrum_pitch(n)
+    if n <= 10240:  # clusters: 32-byte runs of 8 columns, the mirror aligned
+        assert parts and tc == 8
+    else:  # one block a tile: 2 columns at 12288, 1 at 24576 (both in test_torch_cuda.py)
+        assert not parts and tc == {12288: 2, cuda_fft.MAX_AXIS: 1}[n]
+
+
+def test_half_spectrum_pitch_and_padded_copy():
+    for n1 in (256, 1280, 4096, 10240):
+        pitch = cuda_fft.half_spectrum_pitch(n1)
+        assert pitch % 8 == 0 and pitch >= n1 // 2 + 8
+    rng = np.random.default_rng(12)
+    G = torch.from_numpy(rng.standard_normal((256, 129)) + 1j * rng.standard_normal((256, 129)))
+    Gp = cuda_fft.padded_half_spectrum(G)
+    assert Gp.shape == G.shape and Gp.stride() == (cuda_fft.half_spectrum_pitch(256), 1)
+    assert torch.equal(Gp, G)
+    full = Gp.as_strided((256, Gp.stride(0)), Gp.stride())
+    assert not full[:, 129:].abs().any()
+    _close(cuda_fft.hartley_cols(Gp, 256).numpy(), cuda_fft.hartley_cols_plain(G, 256).numpy(), 0)
+    assert cuda_fft.fft_plan(256 * 11) is None and cuda_fft.radix_plan(256 * 13) is None
 
 
 # --- mode expansion ----------------------------------------------------------
