@@ -10,13 +10,17 @@ JAX.  Phases, each printing one JSON line to stdout:
    and builds the 1280²- and 4096²-exact models on the card (f32) through
    the entry points, and the 1280² one on the CPU in f64 as the reference;
 3. kernels: each hand-written kernel against its plain PyTorch version on
-   the card, at the main path's shapes.  Times are device times: 20 calls
-   captured in one CUDA graph, replayed between CUDA events, so no host
-   dispatch is in them.  Beside each: ``bound_ms``, the least time the card
-   could take (the larger of the bytes moved, each input read once and
-   each output written once, over 3.35 TB/s and the flops over 67 TFLOP/s
+   the card, at the main path's shapes: K1 (table -> full grid) and K2
+   (full grid -> table) at 1280² and 4096², B = 1 and 4; K3/K4 at 1280²,
+   4096² and 10240².  Times are device times: 20 calls captured in one
+   CUDA graph, replayed between CUDA events, so no host dispatch is in
+   them.  Beside each: ``plain_ms`` (for K1/K2 the composition of layout
+   ops the kernel replaces), ``bound_ms``, the least time the card could
+   take (the larger of the bytes moved, each input read once and each
+   output written once, over 3.35 TB/s and the flops over 67 TFLOP/s
    f32), and ``library_ms``, the one PyTorch call that computes the same
-   function (``index_select``, ``index_add_``, ``rfft``; none for K4);
+   function (``index_select`` / ``index_add_`` over the full-grid int32
+   index, made once for them; ``rfft``; none for K4);
 4. main path: ``Poissonian(data).amend(ChainModel(torch.exp, cf))`` with
    the exact-spectrum correlated field at 1280² and 4096², f32 on the
    card: the Fisher-metric apply, its median time, and at 1280² its
@@ -31,8 +35,8 @@ line, the kernel summary and, last, ``{"ok": true, "device": ...}``.  Any
 failure raises, so the exit code is not 0 and no result line is printed.
 
 Tolerances (and why): K1 exact (a gather computes nothing); K2 relative
-1e-6 against a float64 segment sum (f32 sums over one bin in a fixed
-order); Hartley max|Δ|/max|ref| <= 1e-5 (f32 FFT rounding); metric
+1e-6 against its float64 plain version (f32 sums over one bin in a fixed
+order), and the same bits on two calls; Hartley max|Δ|/max|ref| <= 1e-5 (f32 FFT rounding); metric
 relative L2 <= 1e-4 against float64 on the CPU (f32 through exp and
 three Hartleys).  TF32 is off for matmuls and cuDNN, so no library call
 rounds to 10-bit mantissas behind the comparison.
@@ -124,46 +128,50 @@ def main() -> int:
     for n in SHAPES_MAIN:
         index_d = card[n][0].forward_model.inner.indexes[0]
         index = copy.deepcopy(index_d).to("cpu")
-        U, P = index.n_unique, index.n_packed
-        n_large = int(index.large_bins.numel())
-        max_bin = int(np.diff(index.offsets.numpy()).max())
+        full = (n, n)
+        U, P, N = index.n_unique, index.n_packed, n * n
+        # the yardsticks' full-grid int32 index, made once for them only
+        full_idx = ce.expand_to_grid_plain(
+            torch.arange(U, dtype=torch.float64), index, full).reshape(-1).to(dev, torch.int32)
         for B in (1, 4):
-            shape = (U,) if B == 1 else (U, B)
-            tab = torch.randn(shape, generator=g, device=dev)
-            out = ce.expand_gather(tab, index_d)
-            ref = ce.expand_gather_plain(tab, index_d)
-            if not torch.equal(out, ref):
-                fail(f"K1 differs from tab[idx] at {n}² B={B}")
-            # the plain versions of K1 and K2 are the one PyTorch call that
-            # computes their function (index_select, index_add_)
-            k1 = timing(device_ms(lambda: ce.expand_gather(tab, index_d)),
-                        device_ms(lambda: ce.expand_gather_plain(tab, index_d)),
-                        4 * U * B + 4 * P + 4 * P * B)
-            k1["library_ms"] = k1["plain_ms"]
-            cshape = (P,) if B == 1 else (P, B)
-            cot = torch.randn(cshape, generator=g, device=dev)
-            seg = ce.expand_segment_sum(cot, index_d)
-            seg2 = ce.expand_segment_sum(cot, index_d)
-            if not torch.equal(seg, seg2):
+            batch = () if B == 1 else (B,)
+            tab = torch.randn((U,) + batch, generator=g, device=dev)
+            out = ce.expand_to_grid(tab, index_d, full)
+            if not torch.equal(out, ce.expand_to_grid_plain(tab, index_d, full)):
+                fail(f"K1 differs from its plain version at {n}² B={B}")
+            if not torch.equal(out.reshape((N,) + batch), tab.index_select(0, full_idx)):
+                fail(f"K1 differs from tab[full_idx] at {n}² B={B}")
+            n_bytes = 4 * U * B + 4 * P + 4 * N * B  # table, packed index, grid
+            k1 = timing(device_ms(lambda: ce.expand_to_grid(tab, index_d, full)),
+                        device_ms(lambda: ce.expand_to_grid_plain(tab, index_d, full)),
+                        n_bytes,
+                        library_ms=device_ms(lambda: tab.index_select(0, full_idx)))
+            cot = torch.randn(full + batch, generator=g, device=dev)
+            seg = ce.collapse_from_grid(cot, index_d, full)
+            if not torch.equal(seg, ce.collapse_from_grid(cot, index_d, full)):
                 fail(f"K2 is not deterministic at {n}² B={B}")
-            seg_ref = ce.expand_segment_sum_plain(cot.double().cpu(), index)
+            seg_ref = ce.collapse_from_grid_plain(cot.double().cpu(), index, full)
             k2_err = rel_max(seg.double().cpu(), seg_ref)
             if not k2_err <= TOL["k2"]:
                 fail(f"K2 relative error {k2_err} > {TOL['k2']} at {n}² B={B}")
             k2_abs = float((seg.double().cpu() - seg_ref).abs().max())
-            # what a segment sum must move: cot and the index in, the table
-            # out (the CSR offsets and bin lists are this design's own data)
-            k2 = timing(device_ms(lambda: ce.expand_segment_sum(cot, index_d)),
-                        device_ms(lambda: ce.expand_segment_sum_plain(cot, index_d)),
-                        4 * P * B + 4 * P + 4 * U * B)
-            k2["library_ms"] = k2["plain_ms"]
-            emit({"phase": "kernels", "kernel": "K1+K2", "layout": f"{n}x{n}_exact", "B": B,
-                  "P": P, "U": U, "large_bins": n_large, "max_bin": max_bin,
+            cot_flat = cot.reshape((N,) + batch)
+            k2 = timing(device_ms(lambda: ce.collapse_from_grid(cot, index_d, full)),
+                        device_ms(lambda: ce.collapse_from_grid_plain(cot, index_d, full)),
+                        n_bytes,
+                        library_ms=device_ms(lambda: cot.new_zeros((U,) + batch).index_add_(
+                            0, full_idx, cot_flat)))
+            emit({"phase": "kernels", "kernel": "K1+K2", "layout": f"{n}x{n}_exact",
+                  "kind": index.layout.kind, "B": B, "P": P, "U": U, "N": N,
+                  "large_bins": int(index.large_bins.numel()),
                   "k1_exact": True, **{f"k1_{k}": v for k, v in k1.items()},
                   "k2_rel_err": k2_err, **{f"k2_{k}": v for k, v in k2.items()}})
             if B == 1:
                 record("K1", 0.0, k1)
                 record("K2", k2_abs, k2)
+            del out, cot, cot_flat, seg
+        del full_idx
+        torch.cuda.empty_cache()
 
     for n in SHAPES_HARTLEY:
         x = torch.randn((n, n), generator=g, device=dev)
@@ -270,7 +278,7 @@ def main() -> int:
         fail(f"CG residual did not fall: {last} after {CG_ITERS} iterations, {first} after 1")
 
     counts = dict(native.launches)
-    names = {"K1": "expand_gather", "K2": "expand_segment_sum",
+    names = {"K1": "expand_to_grid", "K2": "collapse_from_grid",
              "K3": "hartley_rows", "K4": "hartley_cols"}
     missing = [k for k, v in names.items() if counts.get(v, 0) == 0]
     if missing:

@@ -27,8 +27,9 @@ import sys
 sys.path.insert(0, os.getcwd())
 
 KINDS = (  # (kind, substrings of the kernel name), first match wins
-    ("K1 gather", ("gather_kernel",)),
-    ("K2 segsum", ("segsum",)),
+    # K1/K2: the grid kernels, and the packed ones of trees before them
+    ("K1 expand", ("expand_rfp2", "expand_flat", "gather_kernel")),
+    ("K2 collapse", ("collapse_fold", "segsum")),
     ("K3 hartley_rows", ("hartley_rows",)),
     ("K4 hartley_cols", ("hartley_cols",)),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
@@ -45,11 +46,34 @@ def kind_of(name: str) -> str:
     return "other"
 
 
-def main() -> int:
+def kernel_times(fn, calls, warmup=1):
+    """Trace ``calls`` calls of ``fn`` (after ``warmup`` untraced ones) with
+    ``torch.profiler``: wall ms per call under the profiler, and for each
+    kernel name its device ms and launches per call."""
     import time
 
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    kernels = {}
+    for ev in prof.key_averages():
+        dt = getattr(ev, "self_device_time_total", 0.0)
+        if ev.device_type == torch.autograd.DeviceType.CUDA and dt > 0:
+            kernels[ev.key] = (dt / 1e3 / calls, ev.count / calls)
+    return wall_ms, kernels
+
+
+def main() -> int:
+    import torch
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--sizes", type=int, nargs="+", default=[1280, 4096])
@@ -69,25 +93,13 @@ def main() -> int:
         lh, pos, tan = build_likelihood(n, dev, torch.float32)
         p = nt.position_from_numpy(lh.forward_model, pos)
         t = nt.position_from_numpy(lh.forward_model, tan)
-        for _ in range(3):
-            lh.metric(p, t)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(APPLIES):
-                lh.metric(p, t)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / APPLIES
-        by_kind, launches = {}, 0
-        for ev in prof.key_averages():
-            dt = getattr(ev, "self_device_time_total", 0.0)
-            if ev.device_type != torch.autograd.DeviceType.CUDA or dt <= 0:
-                continue
-            k = kind_of(ev.key)
-            d = by_kind.setdefault(k, {"ms": 0.0, "launches": 0})
-            d["ms"] += dt / 1e3 / APPLIES
-            d["launches"] += ev.count / APPLIES
-            launches += ev.count / APPLIES
+        wall_ms, kernels = kernel_times(lambda: lh.metric(p, t), APPLIES, warmup=3)
+        by_kind = {}
+        for name, (ms, count) in kernels.items():
+            d = by_kind.setdefault(kind_of(name), {"ms": 0.0, "launches": 0})
+            d["ms"] += ms
+            d["launches"] += count
+        launches = sum(d["launches"] for d in by_kind.values())
         device_ms = sum(d["ms"] for d in by_kind.values())
         print(json.dumps({"card": smi, "n": n, "applies": APPLIES,
                           "device_kernel_ms_per_apply": device_ms,

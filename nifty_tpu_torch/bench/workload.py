@@ -2,7 +2,18 @@
 
 from __future__ import annotations
 
-__all__ = ["build_likelihood"]
+__all__ = ["build_likelihood", "grid_index"]
+
+
+def grid_index(full):
+    """The exact correlated field's mode index of a Fourier grid of shape
+    ``full`` (on the CPU), as ``finalize()`` builds it."""
+    from nifty_tpu_torch.models.correlated_field import get_fourier_mode_distributor
+    from nifty_tpu_torch.ops import mode_expand as me
+
+    pd, um, _ = get_fourier_mode_distributor(tuple(full), 1.0)
+    core = pd[tuple(slice(0, n // 2 + 1) for n in full)]
+    return me.ExpandIndex(*me.build_expand_layout(core, um.size))
 
 
 def build_likelihood(n, device, dtype, seed=42):

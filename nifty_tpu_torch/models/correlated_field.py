@@ -6,8 +6,8 @@ amplitude spectrum (a power law in log|k| plus integrated-Wiener-process
 deviations, one value per unique |k|), scaled by a global zero mode and
 mapped to position space by the Hartley transform.  The mode binning is
 computed with numpy when the model is built; at run time only the
-expansion of the amplitude table (K1, its adjoint K2) and the Hartley
-(K3 + K4) touch the grid.
+expansion of the amplitude table onto the full grid (K1, its adjoint K2)
+and the Hartley (K3 + K4) touch the grid.
 
 The 64-knot form (``n_mode_knots``), spherical grids, Matérn amplitudes
 and field-sharded execution are not part of this port yet.
@@ -27,7 +27,7 @@ from .. import device as _device
 from ..model import Model, WrappedCall
 from ..num.stats_distributions import lognormal_prior, normal_prior
 from ..ops.fft import hartley
-from ..ops.mode_expand import ExpandIndex, build_expand_layout, mode_expand
+from ..ops.mode_expand import ExpandIndex, build_expand_layout, mode_expand_grid
 from ..utils.tree import ShapeWithDtype
 from .gauss_markov import IntegratedWienerProcess
 
@@ -103,21 +103,6 @@ def _log_modes(m_length):
 
 def _core_shape(shape):
     return tuple(n // 2 + 1 for n in shape)
-
-
-def _mirror_unfold(core, full_shape):
-    """Expand a core array (``n//2+1`` per axis) to the full Fourier grid:
-    position ``i >= n//2+1`` takes the value at ``n-i``."""
-    out = core
-    for axis, n in enumerate(full_shape):
-        if out.shape[axis] == n:
-            continue
-        h = n // 2 + 1
-        if out.shape[axis] != h:
-            raise ValueError(f"core shape {tuple(core.shape)} does not fit {full_shape}")
-        mirror = out.narrow(axis, 1, n - h).flip(axis)
-        out = torch.cat([out, mirror], dim=axis)
-    return out
 
 
 def make_grid(shape, distances, harmonic_type="fourier"):
@@ -253,9 +238,10 @@ class CorrelatedField(Model):
             a = amp(p)
             # divide the degenerate zero mode out of each amplitude
             a = torch.cat((a[:1], a[1:] * (1.0 / azm)))
-            # the table covers the (n//2+1)^d core, |k| being mirror
-            # symmetric per axis; mode_expand runs K1 (K2 as its adjoint)
-            ea = _mirror_unfold(mode_expand(a, index), fshape)
+            # the index covers the (n//2+1)^d core, |k| being mirror
+            # symmetric per axis; K1 expands the table onto the full grid
+            # (K2 is its adjoint)
+            ea = mode_expand_grid(a, index, fshape)
             # order matters: it must match the excitation axes
             outer = ea if outer is None else torch.tensordot(outer, ea, dims=0)
         out = azm * outer * p[self.xi_key]

@@ -47,8 +47,8 @@ launches: collections.Counter = collections.Counter()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "nt_expand_gather": (_P, _P, _P, ctypes.c_longlong, _I, _P),
-    "nt_expand_segment_sum": (_P, _P, _P, _P, _I, _P, _I, _P, _I, _P),
+    "nt_expand_to_grid": (_P, _P, _P, ctypes.POINTER(_I), _I, _P),
+    "nt_collapse_from_grid": (_P, _P, _P, _P, _I, _I, _P, _I, _P, ctypes.POINTER(_I), _I, _P),
     "nt_hartley_rows": (_P, _P, _I, _I, _I, _P, _P, ctypes.POINTER(_I), _I, _I, _P),
     "nt_hartley_cols": (_P, _P, _I, _I, _I, _P, _P, ctypes.POINTER(_I), _I, _I, _I, _I, _P),
 }

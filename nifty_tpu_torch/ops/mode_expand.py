@@ -2,18 +2,20 @@
 ``nifty_tpu/ops/mode_expand.py``).
 
 The exact correlated field stores one amplitude per unique |k| and expands
-it onto the non-redundant core of the harmonic grid.  On a square grid the
-core's |k| is symmetric under transposition, so the index is packed into
-the rectangular-full-packed ("rfp2") layout, which halves the entries to
-gather and to reduce; the unpack and its adjoint fold are plain layout ops.
+it onto the harmonic grid.  The index covers the non-redundant core
+(``n//2+1`` per axis); on a square grid the core's |k| is symmetric under
+transposition, so the index is packed into the rectangular-full-packed
+("rfp2") layout, which halves the index.  K1 expands the table straight
+onto the full grid (the packed lookup, the unpack and the mirror unfold in
+one kernel) and K2 is its adjoint (``cuda_expand.py``).
 
-:class:`ModeExpand` (gather, K1) and :class:`ModeCollapse` (segment sum,
-K2) are each other's adjoints: the backward of one is the other, and the
-jvp of each is itself (both are linear).  Backward and jvp re-enter the
-Function through ``apply``, so under ``torch.func`` transforms the kernel
-wrappers always receive plain tensors (``torch.func.jvp`` hands ``jvp`` a
-wrapped tangent, which has no data pointer).  Tables are ``(U,)`` or ``(U, B)``
-with a trailing sample axis.
+:class:`ModeExpandGrid` (K1) and :class:`ModeCollapseGrid` (K2) are each
+other's adjoints: the backward of one is the other, and the jvp of each is
+itself (both are linear).  Backward and jvp re-enter the Function through
+``apply``, so under ``torch.func`` transforms the kernel wrappers always
+receive plain tensors (``torch.func.jvp`` hands ``jvp`` a wrapped tangent,
+which has no data pointer).  Tables are ``(U,)`` or ``(U, B)`` with a
+trailing sample axis.
 """
 
 from __future__ import annotations
@@ -24,16 +26,17 @@ from collections import namedtuple
 import numpy as np
 import torch
 
-from .cuda_expand import ExpandIndex, expand_gather, expand_segment_sum
+from .cuda_expand import ExpandIndex, collapse_from_grid, expand_to_grid
 
 __all__ = [
     "ExpandIndex",
     "ExpandLayout",
-    "ModeCollapse",
-    "ModeExpand",
+    "ModeCollapseGrid",
+    "ModeExpandGrid",
     "build_expand_layout",
     "mode_collapse",
     "mode_expand",
+    "mode_expand_grid",
 ]
 
 ExpandLayout = namedtuple(
@@ -97,104 +100,58 @@ def build_expand_layout(core_idx: np.ndarray, n_unique: int):
     )
 
 
-def _sym_from_upper(up):
-    """(..., n, n) upper-triangular (incl. diagonal) -> symmetric."""
-    return up + torch.triu(up, 1).transpose(-2, -1)
+def _kernel_input(t):
+    t = t.contiguous()
+    if t.is_cuda and t.data_ptr() % 16:
+        t = t.clone()  # K1/K2 load 16-byte vectors at B % 4 == 0; a fresh buffer is aligned
+    return t
 
 
-def _upper_cot(cot):
-    """Adjoint of :func:`_sym_from_upper`."""
-    return torch.triu(cot) + torch.triu(cot.transpose(-2, -1), 1)
-
-
-def _unpack_rfp2(G, layout):
-    """(B, m+1, H) packed gather result -> (B, H, H) core."""
-    m = layout.core_shape[0] // 2
-    S = G[..., :, : m + 1]
-    rect = G[..., :, m + 1 :]
-    C11 = _sym_from_upper(torch.triu(S))
-    B2u = torch.tril(S, -1).transpose(-2, -1)  # [b, a] holds core[m+1+b, m+a]
-    C22 = _sym_from_upper(B2u[..., :m, 1:])
-    top = torch.cat([C11, rect], dim=-1)
-    bottom = torch.cat([rect.transpose(-2, -1), C22], dim=-1)
-    return torch.cat([top, bottom], dim=-2)
-
-
-def _fold_rfp2(cot, layout):
-    """Exact adjoint of :func:`_unpack_rfp2`: (B, H, H) -> (B, m+1, H)."""
-    m = layout.core_shape[0] // 2
-    u11 = cot[..., : m + 1, : m + 1]
-    u12 = cot[..., : m + 1, m + 1 :]
-    u21 = cot[..., m + 1 :, : m + 1]
-    u22 = cot[..., m + 1 :, m + 1 :]
-    rect_cot = u12 + u21.transpose(-2, -1)
-    tri_cot = torch.triu(_upper_cot(u11))
-    b2u_cot = torch.nn.functional.pad(_upper_cot(u22), (1, 0, 0, 1))
-    s_lower_cot = torch.tril(b2u_cot.transpose(-2, -1), -1)
-    return torch.cat([tri_cot + s_lower_cot, rect_cot], dim=-1)
-
-
-def _expand(tab, index: ExpandIndex):
-    layout = index.layout
-    single = tab.ndim == 1
-    flat = expand_gather(tab.contiguous(), index)
-    G = flat.reshape(layout.packed_shape + (() if single else (tab.shape[-1],)))
-    if layout.kind == "rfp2":
-        G2 = G[None] if single else torch.movedim(G, -1, 0)
-        core = _unpack_rfp2(G2, layout)
-        return core[0] if single else torch.movedim(core, 0, -1)
-    return G
-
-
-def _collapse(cot, index: ExpandIndex):
-    layout = index.layout
-    single = cot.ndim == len(layout.core_shape)
-    if layout.kind == "rfp2":
-        c2 = cot[None] if single else torch.movedim(cot, -1, 0)
-        R = _fold_rfp2(c2, layout)
-        cot = R[0] if single else torch.movedim(R, 0, -1)
-    flat = cot.reshape((-1,) if single else (-1, cot.shape[-1])).contiguous()
-    return expand_segment_sum(flat, index)
-
-
-class ModeExpand(torch.autograd.Function):
-    """``tab`` (U,) / (U, B) -> core grid (+ trailing B), through K1."""
+class ModeExpandGrid(torch.autograd.Function):
+    """``tab`` (U,) / (U, B) -> ``full_shape`` grid (+ trailing B), through K1."""
 
     @staticmethod
-    def forward(tab, index):
-        return _expand(tab, index)
+    def forward(tab, index, full_shape):
+        return expand_to_grid(_kernel_input(tab), index, full_shape)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.index = inputs[1]
+        ctx.index, ctx.full_shape = inputs[1], inputs[2]
 
     @staticmethod
     def backward(ctx, grad):
-        return ModeCollapse.apply(grad, ctx.index), None
+        return ModeCollapseGrid.apply(grad, ctx.index, ctx.full_shape), None, None
 
     @staticmethod
-    def jvp(ctx, tab_t, _):
-        return ModeExpand.apply(tab_t, ctx.index)
+    def jvp(ctx, tab_t, *_):
+        return ModeExpandGrid.apply(tab_t, ctx.index, ctx.full_shape)
 
 
-class ModeCollapse(torch.autograd.Function):
-    """Core-grid cotangent (+ trailing B) -> (U,) / (U, B), through K2."""
+class ModeCollapseGrid(torch.autograd.Function):
+    """``full_shape`` grid cotangent (+ trailing B) -> (U,) / (U, B), through K2."""
 
     @staticmethod
-    def forward(cot, index):
-        return _collapse(cot, index)
+    def forward(cot, index, full_shape):
+        return collapse_from_grid(_kernel_input(cot), index, full_shape)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.index = inputs[1]
+        ctx.index, ctx.full_shape = inputs[1], inputs[2]
 
     @staticmethod
     def backward(ctx, grad):
-        return ModeExpand.apply(grad, ctx.index), None
+        return ModeExpandGrid.apply(grad, ctx.index, ctx.full_shape), None, None
 
     @staticmethod
-    def jvp(ctx, cot_t, _):
-        return ModeCollapse.apply(cot_t, ctx.index)
+    def jvp(ctx, cot_t, *_):
+        return ModeCollapseGrid.apply(cot_t, ctx.index, ctx.full_shape)
+
+
+def mode_expand_grid(tab, index: ExpandIndex, full_shape):
+    """Expand per-unique-mode values onto the full harmonic grid: exactly
+    the core expansion :func:`mode_expand` followed by the mirror unfold
+    (position ``i >= n//2+1`` takes the value at ``n-i``)."""
+    return ModeExpandGrid.apply(tab, index, tuple(full_shape))
 
 
 def mode_expand(tab, index: ExpandIndex):
@@ -202,9 +159,9 @@ def mode_expand(tab, index: ExpandIndex):
 
     Exactly equal to ``tab[core_idx]``; its transpose is the segment sum
     over the mode bins (:func:`mode_collapse`)."""
-    return ModeExpand.apply(tab, index)
+    return ModeExpandGrid.apply(tab, index, tuple(index.layout.core_shape))
 
 
 def mode_collapse(cot, index: ExpandIndex):
     """The adjoint of :func:`mode_expand`."""
-    return ModeCollapse.apply(cot, index)
+    return ModeCollapseGrid.apply(cot, index, tuple(index.layout.core_shape))

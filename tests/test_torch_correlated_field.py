@@ -16,7 +16,7 @@ import nifty_tpu as nj
 import nifty_tpu_torch as nt
 from nifty_tpu.models.gauss_markov import integrated_wiener_process as jax_iwp
 from nifty_tpu.models.correlated_field import _mirror_unfold as jax_mirror_unfold
-from nifty_tpu_torch.models.correlated_field import _mirror_unfold
+from nifty_tpu_torch.ops.cuda_expand import mirror_unfold
 
 torch.set_num_threads(1)
 RTOL = 1e-10
@@ -140,7 +140,7 @@ def test_priors(prior):
 @pytest.mark.parametrize("core,full", [((5, 7), (8, 12)), ((4,), (7,)), ((3, 4, 5), (4, 6, 9))])
 def test_mirror_unfold(core, full):
     x = np.random.default_rng(9).standard_normal(core)
-    _close(_mirror_unfold(torch.from_numpy(x), full).numpy(), jax_mirror_unfold(jnp.asarray(x), full))
+    _close(mirror_unfold(torch.from_numpy(x), full).numpy(), jax_mirror_unfold(jnp.asarray(x), full))
 
 
 def test_mode_distributor_matches_jax():

@@ -22,6 +22,7 @@ import torch
 
 import nifty_tpu_torch as nt
 from nifty_tpu_torch import native
+from nifty_tpu_torch.bench.workload import grid_index
 from nifty_tpu_torch.ops import cuda_expand as ce
 from nifty_tpu_torch.ops import cuda_fft as cfft
 from nifty_tpu_torch.ops import mode_expand as me
@@ -44,46 +45,99 @@ def _rel(a, b):
 
 
 def _index(P, U, seed, big_bin=0):
+    """A random flat 1-D index (full shape = core shape (P,))."""
     rng = np.random.default_rng(seed)
     idx = rng.integers(0, U, P)
     idx[:U] = np.arange(U)  # every bin non-empty
     if big_bin:
         idx[U : U + big_bin] = 3  # one bin reduced by a warp
     layout = me.ExpandLayout("flat", (P,), (P,), U, "")
-    return idx, ce.ExpandIndex(idx, layout)
+    return ce.ExpandIndex(idx, layout), (P,)
 
 
-@pytest.mark.parametrize("B", [1, 4])
-@pytest.mark.parametrize("big_bin", [0, 5000])
-def test_gather_and_segment_sum(cuda_device, B, big_bin):
-    U = 90_001  # about 2 members a bin; big_bin adds one bin that a warp reduces
-    idx, index = _index(200_003, U, 0, big_bin)
-    assert (index.large_bins.numel() > 0) == bool(big_bin)
+def _grid_index(full):
+    return grid_index(full), full
+
+
+CASES = {
+    "rfp2_1280": lambda: _grid_index((1280, 1280)),
+    "rfp2_1292": lambda: _grid_index((1292, 1292)),  # n/2 = 2 mod 4: runs cut at the centre
+    "rfp2_1281": lambda: _grid_index((1281, 1281)),  # odd n: runs of one point
+    "flat_1282": lambda: _grid_index((1282, 1282)),  # n = 2 mod 4: H even, flat
+    "flat_768x1280": lambda: _grid_index((768, 1280)),
+    "flat_1d": lambda: _grid_index((100_002,)),
+    "flat_3d": lambda: _grid_index((48, 64, 90)),
+    "bin_of_5000": lambda: _index(200_003, 90_001, 0, big_bin=5000),
+}
+
+
+@pytest.mark.parametrize("B", [1, 4, 3])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_gather_and_segment_sum(cuda_device, case, B):
+    """K1 equals its plain version bit for bit; K2 is within 1e-6 of a
+    float64 plain version and gives the same bits twice."""
+    index, full = CASES[case]()
+    if case.startswith("rfp2"):
+        assert index.layout.kind == "rfp2"
+    if case == "bin_of_5000":
+        assert index.large_bins.tolist() == [3]
     index_d = copy.deepcopy(index).to(cuda_device)
-    shape = (U,) if B == 1 else (U, B)
-    g = torch.Generator(device=cuda_device).manual_seed(B + big_bin)  # the same data every run
-    tab = torch.randn(shape, device=cuda_device, generator=g)
-    out = ce.expand_gather(tab, index_d)
-    assert torch.equal(out, tab[torch.from_numpy(idx).to(cuda_device)])
-    cshape = (200_003,) if B == 1 else (200_003, B)
-    cot = torch.randn(cshape, device=cuda_device, generator=g)
-    seg = ce.expand_segment_sum(cot, index_d)
-    assert torch.equal(seg, ce.expand_segment_sum(cot, index_d))  # deterministic
-    ref = ce.expand_segment_sum_plain(cot.double().cpu(), index)
+    seed = B + (5000 if case == "bin_of_5000" else 0)  # the same data every run
+    g = torch.Generator(device=cuda_device).manual_seed(seed)
+    batch = () if B == 1 else (B,)
+    tab = torch.randn((index.n_unique,) + batch, device=cuda_device, generator=g)
+    native.reset_launches()
+    out = ce.expand_to_grid(tab, index_d, full)
+    assert native.launches["expand_to_grid"] == 1
+    assert torch.equal(out, ce.expand_to_grid_plain(tab, index_d, full))
+    cot = torch.randn(tuple(full) + batch, device=cuda_device, generator=g)
+    seg = ce.collapse_from_grid(cot, index_d, full)
+    assert native.launches["collapse_from_grid"] == 1
+    assert torch.equal(seg, ce.collapse_from_grid(cot, index_d, full))  # deterministic
+    ref = ce.collapse_from_grid_plain(cot.double().cpu(), index, full)
+    assert _rel(seg.double().cpu(), ref) <= 1e-6
+
+
+def test_grid_kernels_realign_an_offset_batch(cuda_device):
+    """At B = 4 K1 and K2 load 16-byte vectors: the wrappers refuse a
+    contiguous input that starts off a 16-byte boundary, and the autograd
+    pair hands them an aligned copy."""
+    index, full = CASES["rfp2_1280"]()
+    index_d = copy.deepcopy(index).to(cuda_device)
+    U, N, B = index.n_unique, full[0] * full[1], 4
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    tab = torch.randn(U * B + 1, device=cuda_device, generator=g)[1:].view(U, B)
+    cot = torch.randn(N * B + 1, device=cuda_device, generator=g)[1:].view(full + (B,))
+    for t in (tab, cot):
+        assert t.is_contiguous() and t.data_ptr() % 16
+    with pytest.raises(ValueError):
+        ce.expand_to_grid(tab, index_d, full)
+    with pytest.raises(ValueError):
+        ce.collapse_from_grid(cot, index_d, full)
+    native.reset_launches()
+    out = me.mode_expand_grid(tab, index_d, full)
+    seg = me.ModeCollapseGrid.apply(cot, index_d, full)
+    assert native.launches["expand_to_grid"] == 1 and native.launches["collapse_from_grid"] == 1
+    assert torch.equal(out, ce.expand_to_grid_plain(tab, index_d, full))
+    ref = ce.collapse_from_grid_plain(cot.double().cpu(), index, full)
     assert _rel(seg.double().cpu(), ref) <= 1e-6
 
 
 def test_wrappers_raise_on_bad_cuda_input(cuda_device):
-    _, index = _index(1000, 100, 1)
+    index, full = _index(1000, 100, 1)
     index_d = copy.deepcopy(index).to(cuda_device)
     with pytest.raises(TypeError):
-        ce.expand_gather(torch.zeros(100, device=cuda_device, dtype=torch.float64), index_d)
+        ce.expand_to_grid(torch.zeros(100, device=cuda_device, dtype=torch.float64), index_d, full)
     with pytest.raises(ValueError):
-        ce.expand_gather(torch.zeros(101, device=cuda_device), index_d)
+        ce.expand_to_grid(torch.zeros(101, device=cuda_device), index_d, full)
     with pytest.raises(ValueError):
-        ce.expand_segment_sum(torch.zeros((2, 1000), device=cuda_device).T, index_d)
+        ce.collapse_from_grid(torch.zeros((2, 1000), device=cuda_device).T, index_d, full)
+    with pytest.raises(TypeError):
+        ce.collapse_from_grid(torch.zeros(1000, device=cuda_device, dtype=torch.float64), index_d, full)
     with pytest.raises(ValueError):
-        ce.expand_gather(torch.zeros(100, device=cuda_device), index)  # index on CPU
+        ce.expand_to_grid(torch.zeros(100, device=cuda_device), index, full)  # index on CPU
+    with pytest.raises(ValueError):
+        ce.collapse_from_grid(torch.zeros(1000, device=cuda_device), index, full)
     with pytest.raises(TypeError):
         cfft.hartley_rows(torch.zeros((256, 256), device=cuda_device, dtype=torch.float64))
     with pytest.raises(ValueError):
@@ -178,7 +232,7 @@ def test_metric_on_card_matches_cpu_f64(cuda_device):
     assert all(v.device.type == "cuda" and v.dtype == torch.float32 for v in p32.values())
     native.reset_launches()
     m32 = lh32.metric(p32, nt.position_from_numpy(cf, tan))
-    for name in ("expand_gather", "expand_segment_sum", "hartley_rows", "hartley_cols"):
+    for name in ("expand_to_grid", "collapse_from_grid", "hartley_rows", "hartley_cols"):
         assert native.launches[name] > 0, name
     m64 = lh64.metric(nt.position_from_numpy(cf64, pos), nt.position_from_numpy(cf64, tan))
     num = sum(float(((m32[k].double().cpu() - m64[k]) ** 2).sum()) for k in m64)

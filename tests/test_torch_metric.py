@@ -196,8 +196,8 @@ def test_kernel_wrappers_get_plain_tensors_under_torch_func(monkeypatch):
 
         monkeypatch.setattr(module, name, wrapped)
 
-    spy(me, "expand_gather")
-    spy(me, "expand_segment_sum")
+    spy(me, "expand_to_grid")
+    spy(me, "collapse_from_grid")
     spy(cuda_fft, "hartley_rows")
     spy(cuda_fft, "hartley_cols")
     ct = _cf(nt, (256, 256)).to(dtype=torch.float32)
@@ -211,4 +211,4 @@ def test_kernel_wrappers_get_plain_tensors_under_torch_func(monkeypatch):
     lh.metric(pos, tan)
     lh.left_sqrt_metric(pos, torch.ones(256, 256))
     lh.right_sqrt_metric(pos, tan)
-    assert set(seen) == {"expand_gather", "expand_segment_sum", "hartley_rows", "hartley_cols"}
+    assert set(seen) == {"expand_to_grid", "collapse_from_grid", "hartley_rows", "hartley_cols"}

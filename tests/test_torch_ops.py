@@ -276,9 +276,9 @@ def test_expand_index_csr_is_a_stable_sort():
     off = index.offsets.numpy()
     np.testing.assert_array_equal(perm, np.argsort(idx, kind="stable"))
     np.testing.assert_array_equal(np.diff(off), np.bincount(idx, minlength=U))
-    bins = np.sort(np.concatenate([index.small_bins.numpy(), index.large_bins.numpy()]))
-    np.testing.assert_array_equal(bins, np.arange(U))
-    assert (np.diff(off)[index.large_bins.numpy()] > cuda_expand.LARGE_BIN).all()
+    np.testing.assert_array_equal(idx[perm], np.repeat(np.arange(U), np.diff(off)))
+    large = np.flatnonzero(np.diff(off) > cuda_expand.LARGE_BIN)
+    np.testing.assert_array_equal(index.large_bins.numpy(), large)
 
 
 def test_expand_index_rejects_out_of_range():
@@ -348,34 +348,235 @@ def test_mode_collapse_backward_is_expand():
 
 def test_expand_plain_matches_pallas_interpret_48():
     """The plain K1/K2 against the Pallas kernels (interpret mode) on the
-    48² exact layout."""
+    48² exact layout, followed by the JAX package's rfp2 unpack and mirror
+    unfold (K1) and preceded by their adjoints (K2)."""
+    from nifty_tpu.models.correlated_field import _mirror_unfold as jax_mirror_unfold
     from nifty_tpu.ops import pallas_expand as pe
     from nifty_tpu.ops.route import build_expand_plan
 
-    core, U = _layout((48, 48))
-    packed, layout = tme.build_expand_layout(core, U)
-    idx = packed.ravel()
-    plan = build_expand_plan(idx, U)
-    index = tme.ExpandIndex(packed, layout)
+    full = (48, 48)
+    core, U = _layout(full)
+    packed, layout = jme.build_expand_layout(core, U)
+    plan = build_expand_plan(np.asarray(packed).ravel(), U)
+    index = tme.ExpandIndex(*tme.build_expand_layout(core, U))
+    assert index.layout.kind == "rfp2"
+    unpack = lambda G: jax_mirror_unfold(
+        jme._unpack_rfp2(G.reshape(layout.packed_shape), layout, batched=False), full
+    )
     rng = np.random.default_rng(11)
     tab = rng.standard_normal(U).astype(np.float32)
-    want = np.asarray(pe.expand_forward(plan, jnp.asarray(tab), interpret=True))
-    got = cuda_expand.expand_gather(torch.from_numpy(tab), index).numpy()
+    G = pe.expand_forward(plan, jnp.asarray(tab), interpret=True)
+    want = np.asarray(unpack(G))
+    got = cuda_expand.expand_to_grid(torch.from_numpy(tab), index, full).numpy()
     np.testing.assert_array_equal(got, want)
-    cot = rng.standard_normal(idx.size).astype(np.float32)
-    want = np.asarray(pe.expand_transpose(plan, jnp.asarray(cot), interpret=True))
-    got = cuda_expand.expand_segment_sum(torch.from_numpy(cot), index).numpy()
+    cot = rng.standard_normal(full).astype(np.float32)
+    _, fold = jax.vjp(unpack, G)
+    want = np.asarray(pe.expand_transpose(plan, fold(jnp.asarray(cot))[0], interpret=True))
+    got = cuda_expand.collapse_from_grid(torch.from_numpy(cot), index, full).numpy()
     assert np.abs(got - want).max() / np.abs(want).max() < 1e-6
 
 
 def test_wrappers_refuse_other_devices():
     core, U = _layout((16, 16))
     index = tme.ExpandIndex(*tme.build_expand_layout(core, U))
-    meta = torch.zeros(U, device="meta")
     with pytest.raises(ValueError):
-        cuda_expand.expand_gather(meta, index)
+        cuda_expand.expand_to_grid(torch.zeros(U, device="meta"), index, (16, 16))
+    with pytest.raises(ValueError):
+        cuda_expand.collapse_from_grid(torch.zeros((16, 16), device="meta"), index, (16, 16))
     with pytest.raises(ValueError):
         cuda_fft.hartley_rows(torch.zeros((256, 256), device="meta"))
+
+
+# --- K1 / K2 on the full grid --------------------------------------------------
+
+
+def _full_layout(full):
+    core, U = _layout(full)
+    packed, layout = tme.build_expand_layout(core, U)
+    return core, U, packed, layout
+
+
+def _images(x, c, n):
+    """The full-grid images of core point x on an axis, in the kernels'
+    order: x, then n - x on a mirrored axis' upper half."""
+    return [x, n - x] if 1 <= x <= n - c else [x]
+
+
+def _packed_images(geom):
+    """Numpy model of the kernels' addressing: for each packed position,
+    the full-grid points it covers, in the order K2 sums them.  rfp2: core
+    point (a, b), a <= b, at R[a, b] if a <= m else R[b-m, a-m-1], then its
+    transpose; flat: the core point at its row-major position.  On each
+    core point the mirror images, slabs, rows, then columns."""
+    n0, n1, n2, c0, c1, c2, m = geom
+    out = {}
+    if m < 0:
+        for x0, x1, x2 in np.ndindex(c0, c1, c2):
+            out[(x0 * c1 + x1) * c2 + x2] = [
+                (s, r, c) for s in _images(x0, c0, n0) for r in _images(x1, c1, n1)
+                for c in _images(x2, c2, n2)
+            ]
+        return out
+    H = c2
+    for a, b in np.ndindex(H, H):
+        if a <= b:
+            p = (b - m) * H + (a - m - 1) if a > m else a * H + b
+            out[p] = [
+                (0, r, c) for x1, x2 in (((a, b), (b, a)) if a < b else ((a, b),))
+                for r in _images(x1, c1, n1) for c in _images(x2, c2, n2)
+            ]
+    return out
+
+
+@pytest.mark.parametrize(
+    "full,kind",
+    [((8, 8), "rfp2"), ((9, 9), "rfp2"), ((64, 64), "rfp2"), ((10, 10), "flat"),
+     ((66, 66), "flat"), ((12, 20), "flat"), ((17,), "flat"), ((6, 8, 10), "flat")],
+)
+def test_kernel_addressing_model(full, kind):
+    """The kernels' packed point -> core point(s) -> full-grid images map
+    (``csrc/expand.cu``) covers the grid once and reproduces the packed
+    index after ``_rfp_index_table`` and the mirror unfold (K1); summed in
+    its order it gives the plain mirror fold + rfp2 fold (K2).  8² and 64²
+    are n = 0 mod 4 (H odd, rfp2), 10² and 66² n = 2 mod 4 (H even, flat),
+    9² an odd n."""
+    core, U, packed, layout = _full_layout(full)
+    assert layout.kind == kind
+    if kind == "rfp2":
+        np.testing.assert_array_equal(tme._rfp_index_table(core), packed)
+    geom = cuda_expand.grid_geometry(layout, full)
+    cover = _packed_images(geom)
+    assert sorted(cover) == list(range(packed.size))  # every packed point, once
+    # K1: each packed point's index written to its images gives the core
+    # index after the mirror unfold, every grid point written once
+    grid = np.full(geom[:3], -1)
+    for p, pts in cover.items():
+        for pt in pts:
+            assert grid[pt] == -1
+            grid[pt] = packed.ravel()[p]
+    want = cuda_expand.mirror_unfold(torch.from_numpy(core), full).numpy()
+    np.testing.assert_array_equal(grid.reshape(full), want)
+    # K2: the images summed in order give the plain mirror fold + rfp2 fold
+    cot = np.random.default_rng(sum(full)).standard_normal(full)
+    c3 = cot.reshape(geom[:3])
+    folded = np.array([sum(c3[pt] for pt in cover[p]) for p in range(packed.size)])
+    plain = cuda_expand.mirror_fold(torch.from_numpy(cot), layout.core_shape)
+    if kind == "rfp2":
+        plain = cuda_expand._fold_rfp2(plain, layout)
+    _close(folded, plain.numpy().ravel(), 1e-12)
+    # launch 2 sums each bin's members in CSR order
+    index = tme.ExpandIndex(packed, layout)
+    perm, off = index.perm.numpy(), index.offsets.numpy()
+    seg = np.array([folded[perm[off[u] : off[u + 1]]].sum() for u in range(U)])
+    _close(cuda_expand.collapse_from_grid(torch.from_numpy(cot), index, full).numpy(), seg, 1e-12)
+
+
+def _expand_rfp2_runs(geom, V):
+    """Numpy model of K1's rfp2 stores (``csrc/expand.cu:expand_row``): for
+    each tile pair (I, J), I <= J, thread row r, run q and the transpose
+    flag, the points written, as (I, J, shared cell, grid point, the run's
+    first column, whether the run is whole)."""
+    _, n1, n2, _, c1, c2, _ = geom
+    T = -(-c2 // 32)
+    for I, J, r, q in np.ndindex(T, T, 32, 32 // V):
+        for tr in (False, True) if I < J else ((False,) if I == J else ()):
+            a, cb = (32 * J + r, 32 * I) if tr else (32 * I + r, 32 * J)
+            if a >= c1:
+                continue
+            c0 = V * q
+            hi = min(V, c2 - cb - c0)  # direct columns cb + c0 + k, k < hi
+            lo = max(0, cb + 32 - c0 - (n2 - c2))  # mirror images of cb + 32 - c0 - k, k >= lo
+            runs = [(cb + c0, [(k, c0 + k) for k in range(max(hi, 0))], hi == V),
+                    (n2 - cb - 32 + c0, [(k, 32 - c0 - k) for k in range(lo, V)], lo == 0)]
+            for j0, points, whole in runs:
+                for k, col in points:
+                    for i in _images(a, c1, n1):
+                        yield I, J, ((col, r) if tr else (r, col)), (i, j0 + k), j0, whole
+
+
+@pytest.mark.parametrize(
+    "n,full,V",
+    [(8, (8, 8), 4), (40, (40, 40), 4), (68, (68, 68), 4), (96, (96, 96), 4),
+     (64, (64, 64), 1), (9, (9, 9), 1), (65, (65, 65), 1), (64, (33, 33), 4), (64, (64, 33), 1)],
+)
+def test_expand_rfp2_store_runs(n, full, V):
+    """K1's rfp2 write schedule on the core of an n² grid: the direct run
+    of columns cb .. cb+31 and the mirror run of cb+1 .. cb+32 cover the
+    grid once with the mirror unfold of the core, read only the 33 x 33
+    shared tile, and a whole run starts on a multiple of V wherever the
+    row pitch is one (16-byte stores).  68² has n/2 = 2 mod 4 (runs cut at
+    the centre), 9² and 65² odd n, 33² no mirror, 64×33 a mirror on rows
+    only."""
+    core, U = _layout((n, n))
+    packed, layout = tme.build_expand_layout(core, U)
+    assert layout.kind == "rfp2"
+    H = layout.core_shape[0]
+    geom = cuda_expand.grid_geometry(layout, full)
+    grid = np.full(full, -1)
+    for I, J, (r, c), (i, j), j0, whole in _expand_rfp2_runs(geom, V):
+        x, y = 32 * I + r, 32 * J + c
+        assert r <= 32 and c <= 32 and x < H and y < H  # a cell the block loaded
+        assert grid[i, j] == -1
+        grid[i, j] = core[x, y]
+        if whole and full[1] % V == 0:
+            assert j0 % V == 0
+    np.testing.assert_array_equal(grid, cuda_expand.mirror_unfold(torch.from_numpy(core), full).numpy())
+
+
+def test_grid_geometry_pads_to_three_axes_and_checks_shapes():
+    _, _, _, layout = _full_layout((64, 64))
+    assert cuda_expand.grid_geometry(layout, (64, 64)) == (1, 64, 64, 1, 33, 33, 33 // 2)
+    assert cuda_expand.grid_geometry(layout, (33, 33)) == (1, 33, 33, 1, 33, 33, 16)
+    assert cuda_expand.grid_geometry(layout, (65, 65))[:3] == (1, 65, 65)
+    _, _, _, flat = _full_layout((6, 8, 10))
+    assert cuda_expand.grid_geometry(flat, (6, 8, 10)) == (6, 8, 10, 4, 5, 6, -1)
+    for bad in ((64, 66), (64,), (68, 68), (64, 64, 1)):
+        with pytest.raises(ValueError):
+            cuda_expand.grid_geometry(layout, bad)
+
+
+@pytest.mark.parametrize("full", [(48, 48), (50, 50), (48, 64), (40,), (6, 8, 10)])
+@pytest.mark.parametrize("B", [None, 3])
+def test_expand_to_grid_matches_jax(full, B):
+    """K1 (plain) against the JAX ``mode_expand`` + ``_mirror_unfold`` in
+    f64: exactly; K2 against the JAX composite's vjp to 1e-10."""
+    from nifty_tpu.models.correlated_field import _mirror_unfold as jax_mirror_unfold
+
+    core, U = _layout(full)
+    packed, layout = jme.build_expand_layout(core, U)
+    index = tme.ExpandIndex(*tme.build_expand_layout(core, U))
+    tab, _ = _tables(U, B, 12)
+    fj = lambda t: jax_mirror_unfold(jme.mode_expand(t, packed, layout), full)
+    want = np.asarray(fj(jnp.asarray(tab)))
+    got = cuda_expand.expand_to_grid(torch.from_numpy(tab), index, full).numpy()
+    np.testing.assert_array_equal(got, want)
+    cot = np.random.default_rng(13).standard_normal(want.shape)
+    _, vj = jax.vjp(fj, jnp.asarray(tab))
+    got = cuda_expand.collapse_from_grid(torch.from_numpy(cot), index, full).numpy()
+    _close(got, np.asarray(vj(jnp.asarray(cot))[0]), 1e-10)
+
+
+@pytest.mark.parametrize("full", [(48, 48), (48, 64)])
+@pytest.mark.parametrize("B", [None, 3])
+def test_mode_expand_grid_adjoint_and_transforms(full, B):
+    """⟨K1 t, c⟩ = ⟨t, K2 c⟩; under ``torch.func`` the jvp of K1 is K1 and
+    its vjp is K2 (and the other way round)."""
+    core, U = _layout(full)
+    index = tme.ExpandIndex(*tme.build_expand_layout(core, U))
+    tab, tan = (torch.from_numpy(a) for a in _tables(U, B, 14))
+    c = torch.from_numpy(np.random.default_rng(15).standard_normal(full + (() if B is None else (B,))))
+    f = lambda t: tme.mode_expand_grid(t, index, full)
+    g = lambda x: tme.ModeCollapseGrid.apply(x, index, full)
+    lhs, rhs = float((f(tab) * c).sum()), float((tab * g(c)).sum())
+    assert abs(lhs - rhs) <= 1e-12 * max(abs(lhs), 1.0)
+    _, jt = torch.func.jvp(f, (tab,), (tan,))
+    np.testing.assert_array_equal(jt.numpy(), f(tan).numpy())
+    _, vjp_fn = torch.func.vjp(f, tab)
+    np.testing.assert_array_equal(vjp_fn(c)[0].numpy(), g(c).numpy())
+    _, jt = torch.func.jvp(g, (c,), (c,))
+    np.testing.assert_array_equal(jt.numpy(), g(c).numpy())
+    _, vjp_fn = torch.func.vjp(g, c)
+    np.testing.assert_array_equal(vjp_fn(tab)[0].numpy(), f(tab).numpy())
 
 
 def test_port_never_imports_jax():
