@@ -11,10 +11,10 @@ JAX.  Phases, each printing one JSON line to stdout:
    the entry points, and the 1280² one on the CPU in f64 as the reference;
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the main path's shapes: K1 (table -> full grid) and K2
-   (full grid -> table) at 1280² and 4096², B = 1 and 4; K3/K4 at 1280²,
-   4096² and 10240².  Times are device times: 20 calls captured in one
-   CUDA graph, replayed between CUDA events, so no host dispatch is in
-   them.  Beside each: ``plain_ms`` (for K1/K2 the composition of layout
+   (full grid -> table) at 1280² and 4096², B = 1 and 4; K3/K4 at 1024²
+   (the VI phase), 1280², 4096² and 10240².  Times are device times: 20
+   calls captured in one CUDA graph, replayed between CUDA events, so no
+   host dispatch is in them.  Beside each: ``plain_ms`` (for K1/K2 the composition of layout
    ops the kernel replaces), ``bound_ms``, the least time the card could
    take (the larger of the bytes moved, each input read once and each
    output written once, over 3.35 TB/s and the flops over 67 TFLOP/s
@@ -27,12 +27,24 @@ JAX.  Phases, each printing one JSON line to stdout:
    agreement with the same model in f64 on the CPU;
 5. cg: 20 conjugate-gradient iterations on (M + 1) x = b at 1280², the
    inner solve of an MGVI sample draw; the residual must fall below its
-   value after the first iteration.
+   value after the first iteration;
+6. knot: the 64-knot model of ``bench.py:78-88`` at 1280², 4096² and
+   10240², f32 on the card: the metric apply's median over 10 (CUDA
+   events), peak memory, and at 1280² its agreement with the same model in
+   f64 on the CPU; K3/K4 must launch and K1/K2 must not (no table);
+7. vi: one MGVI and one geoVI iteration (``OptimizeVI.update``) at 1024²
+   knot64 with ``bench_extra.py``'s settings (2 mirrored sample pairs,
+   the draw's static CG 20 iterations, geoVI Newton-CG 2 steps of CG 5,
+   the KL one Newton step of CG 10), seconds per iteration the median of
+   3 after one warm-up; every sample and the new position finite and on
+   the card, the sample-averaged KL after the Newton step not above its
+   value before, K3/K4 launched.
 
-The launch counters are set to 0 just before phase 4 and read after
-phase 5: every kernel must have launched there.  Then it prints the card
-line, the kernel summary and, last, ``{"ok": true, "device": ...}``.  Any
-failure raises, so the exit code is not 0 and no result line is printed.
+The launch counters are set to 0 just before each of phases 4-7 and read
+just after it: K1-K4 must launch in phases 4 and 5, K3/K4 (and not K1/K2)
+in 6 and 7.  Then it prints the card line, the kernel summary (launches per
+phase) and, last, ``{"ok": true, "device": ...}``.  Any failure raises, so
+the exit code is not 0 and no result line is printed.
 
 Tolerances (and why): K1 exact (a gather computes nothing); K2 relative
 1e-6 against its float64 plain version (f32 sums over one bin in a fixed
@@ -53,8 +65,13 @@ import time
 
 DEVICE = "cuda:0"
 SHAPES_MAIN = (1280, 4096)
-SHAPES_HARTLEY = (1280, 4096, 10240)
+SHAPES_KNOT = (1280, 4096, 10240)
+KNOTS = 64
+VI_SHAPE = 1024
+SHAPES_HARTLEY = (VI_SHAPE, 1280, 4096, 10240)  # ascending: the summary keeps 4096²'s times
 CG_ITERS = 20
+NAMES = {"K1": "expand_to_grid", "K2": "collapse_from_grid",
+         "K3": "hartley_rows", "K4": "hartley_cols"}
 TOL = {"k2": 1e-6, "hartley": 1e-5, "metric": 1e-4}  # K1 must be exact
 
 
@@ -83,7 +100,7 @@ def main() -> int:
     from nifty_tpu_torch import native
     from nifty_tpu_torch.ops import cuda_expand as ce
     from nifty_tpu_torch.bench.timing import bound, device_ms, fft_flops
-    from nifty_tpu_torch.bench.workload import build_likelihood
+    from nifty_tpu_torch.bench.workload import build_likelihood, build_vi_likelihood, vi_settings
     from nifty_tpu_torch.ops import cuda_fft as cfft
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -200,17 +217,20 @@ def main() -> int:
               "k3_rel_err": e3, "k4_rel_err": e4, "hartley_rel_err": e_full,
               "inverse_rel_err": e_inv, **{f"k3_{k}": v for k, v in k3.items()},
               **{f"k4_{k}": v for k, v in k4.items()}})
-        if n in SHAPES_MAIN:
+        if n in SHAPES_MAIN or n == VI_SHAPE:
             record("K3", float((G - Gp).abs().max()), k3)
             record("K4", float((H - Hp).abs().max()), k4)
         del x, G, Gp, Gp_pad, H, Hp, full
         torch.cuda.empty_cache()
 
     # -- 4. main path -----------------------------------------------------
-    native.reset_launches()
-    apply_ms = {}
-    for n in SHAPES_MAIN:
-        lh, pos_np, tan_np = card[n]
+    def rel_l2(got, ref):
+        num = sum(float(((got[k].double().cpu() - ref[k]) ** 2).sum()) for k in ref)
+        return (num / sum(float((ref[k] ** 2).sum()) for k in ref)) ** 0.5
+
+    def metric_phase(phase, variant, n, lh, pos_np, tan_np, lh64=None):
+        """Apply the metric once (checked) and 10 times (timed) and emit the
+        line; return the position and tangent on the card."""
         torch.cuda.reset_peak_memory_stats()
         p = nt.position_from_numpy(lh.forward_model, pos_np)  # the model's device and dtype
         t = nt.position_from_numpy(lh.forward_model, tan_np)
@@ -218,7 +238,7 @@ def main() -> int:
         torch.cuda.synchronize()
         for k, v in m.items():
             if v.shape != t[k].shape or v.device != dev or not bool(torch.isfinite(v).all()):
-                fail(f"metric leaf {k} at {n}²: shape {tuple(v.shape)}, {v.device} or non-finite")
+                fail(f"{variant} metric leaf {k} at {n}²: shape {tuple(v.shape)}, {v.device} or non-finite")
         times = []
         for _ in range(10):
             s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -227,28 +247,38 @@ def main() -> int:
             e.record()
             torch.cuda.synchronize()
             times.append(s.elapsed_time(e))
-        apply_ms[n] = float(np.median(times))
-        line = {"phase": "main_path", "shape": [n, n], "variant": "exact", "dtype": "float32",
-                "metric_apply_ms_median": apply_ms[n], "metric_apply_ms_all": times,
+        line = {"phase": phase, "shape": [n, n], "variant": variant, "dtype": "float32",
+                "metric_apply_ms_median": float(np.median(times)), "metric_apply_ms_all": times,
                 "peak_mem_bytes": torch.cuda.max_memory_allocated()}
-        if n == SHAPES_MAIN[0]:
-            lh64, _, _ = ref64
-            p64 = nt.position_from_numpy(lh64.forward_model, pos_np)
-            t64 = nt.position_from_numpy(lh64.forward_model, tan_np)
-            ref = lh64.metric(p64, t64)
-            num = sum(float(((m[k].double().cpu() - ref[k]) ** 2).sum()) for k in ref)
-            den = sum(float((ref[k] ** 2).sum()) for k in ref)
-            rel_l2 = (num / den) ** 0.5
-            line["rel_l2_vs_cpu_f64"] = rel_l2
-            if not rel_l2 <= TOL["metric"]:
-                fail(f"metric at {n}²: relative L2 {rel_l2} > {TOL['metric']} against CPU f64")
+        if lh64 is not None:
+            ref = lh64.metric(nt.position_from_numpy(lh64.forward_model, pos_np),
+                              nt.position_from_numpy(lh64.forward_model, tan_np))
+            line["rel_l2_vs_cpu_f64"] = err = rel_l2(m, ref)
+            if not err <= TOL["metric"]:
+                fail(f"{variant} metric at {n}²: relative L2 {err} > {TOL['metric']} against CPU f64")
         emit(line)
-        if n != SHAPES_MAIN[0]:
-            del lh, p, t, m
-            card.pop(n)
-            torch.cuda.empty_cache()
-        else:
+        return p, t
+
+    launches = {}  # phase -> {kernel wrapper: launches}
+
+    def read_launches(phase, need, refuse=()):
+        launches[phase] = counts = dict(native.launches)
+        missing = [k for k in need if counts.get(NAMES[k], 0) == 0]
+        stray = [k for k in refuse if counts.get(NAMES[k], 0)]
+        if missing or stray:
+            fail(f"{phase}: kernels not launched {missing}, launched but off the path {stray} "
+                 f"(counts {counts})")
+
+    native.reset_launches()
+    for n in SHAPES_MAIN:
+        lh, pos_np, tan_np = card.pop(n)
+        ref = ref64[0] if n == SHAPES_MAIN[0] else None
+        p, t = metric_phase("main_path", "exact", n, lh, pos_np, tan_np, ref)
+        if n == SHAPES_MAIN[0]:
             lh_small, p_small, t_small = lh, p, t
+        del lh, p, t
+        torch.cuda.empty_cache()
+    read_launches("main_path", NAMES)
 
     # -- 5. a few CG steps: (M + 1) x = b at 1280² -------------------------
     def mat(x):
@@ -266,32 +296,79 @@ def main() -> int:
     # CG guarantees a falling energy (cg raises if it rises); the residual
     # norm of an ill-conditioned system first jumps and then falls, so it
     # is held against the residual after the first iteration
+    native.reset_launches()
     first = residual(1)
     t0 = time.perf_counter()
     last = residual(CG_ITERS)
     torch.cuda.synchronize()
     cg_s = time.perf_counter() - t0
+    read_launches("cg", NAMES)
     emit({"phase": "cg", "shape": [SHAPES_MAIN[0]] * 2, "iterations": CG_ITERS,
           "residual_over_rhs_after_1": first, f"residual_over_rhs_after_{CG_ITERS}": last,
           "seconds": cg_s})
     if not last < first:
         fail(f"CG residual did not fall: {last} after {CG_ITERS} iterations, {first} after 1")
+    del lh_small, p_small, t_small, b
+    torch.cuda.empty_cache()
 
-    counts = dict(native.launches)
-    names = {"K1": "expand_to_grid", "K2": "collapse_from_grid",
-             "K3": "hartley_rows", "K4": "hartley_cols"}
-    missing = [k for k, v in names.items() if counts.get(v, 0) == 0]
-    if missing:
-        fail(f"kernels not launched on the main path: {missing} (counts {counts})")
+    # -- 6. the 64-knot metric apply ------------------------------------------
+    knot64 = build_likelihood(SHAPES_KNOT[0], "cpu", torch.float64, n_mode_knots=KNOTS)[0]
+    native.reset_launches()
+    for n in SHAPES_KNOT:
+        t0 = time.perf_counter()
+        lh, pos_np, tan_np = build_likelihood(n, dev, torch.float32, n_mode_knots=KNOTS)
+        emit({"phase": "knot_build", "shape": [n, n], "seconds": time.perf_counter() - t0})
+        ref = knot64 if n == SHAPES_KNOT[0] else None
+        metric_phase("knot", f"knot{KNOTS}", n, lh, pos_np, tan_np, ref)
+        del lh, pos_np, tan_np
+        torch.cuda.empty_cache()
+    read_launches("knot", ("K3", "K4"), refuse=("K1", "K2"))
+    del knot64
+
+    # -- 7. one MGVI and one geoVI iteration at 1024² knot64 -------------------
+    lh_vi, start_np = build_vi_likelihood(VI_SHAPE, dev, torch.float32, KNOTS)
+    start = nt.Samples(pos=nt.position_from_numpy(lh_vi.forward_model, start_np))
+    seed = int(np.random.default_rng(3).integers(2**62))
+    opt_vi = nt.OptimizeVI(lh_vi, 1)
+    native.reset_launches()
+    for mode in ("linear_resample", "nonlinear_resample"):
+        state = opt_vi.init_state(torch.Generator(device=dev).manual_seed(seed),
+                                  sample_mode=mode, **vi_settings())
+        seconds = []
+        for _ in range(4):  # one warm-up, then 3 timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            samples, new_state = opt_vi.update(start, state)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        trees = [("position", samples.pos)] + [(f"sample {i}", s) for i, s in enumerate(samples)]
+        for what, tree in trees:
+            for k, v in tree.items():
+                if v.device != dev or not bool(torch.isfinite(v).all()):
+                    fail(f"vi {mode}: {what} leaf {k} on {v.device} or non-finite")
+        kl_before = float(opt_vi.kl_value_and_grad(start.pos, primals_samples=samples)[0])
+        kl_after = float(new_state.minimization_state.fun)
+        emit({"phase": "vi", "mode": mode, "shape": [VI_SHAPE] * 2, "knots": KNOTS,
+              "samples": len(samples), "s_per_iteration_median": float(np.median(seconds[1:])),
+              "s_per_iteration_all": seconds, "kl_before": kl_before, "kl_after": kl_after,
+              "kl_status": int(new_state.minimization_state.status),
+              "sample_state": str(new_state.sample_state)[:200],
+              "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+        if not kl_after <= kl_before:
+            fail(f"vi {mode}: the KL rose over the Newton step ({kl_before} -> {kl_after})")
+    read_launches("vi", ("K3", "K4"), refuse=("K1", "K2"))
 
     sources = {"K1": ("nifty_tpu_torch/csrc/expand.cu", "nifty_tpu/ops/pallas_expand.py:108"),
                "K2": ("nifty_tpu_torch/csrc/expand.cu", "nifty_tpu/ops/pallas_expand.py:161"),
                "K3": ("nifty_tpu_torch/csrc/hartley.cu", "nifty_tpu/ops/pallas_fft.py:169"),
                "K4": ("nifty_tpu_torch/csrc/hartley.cu", "nifty_tpu/ops/pallas_fft.py:246")}
     kernels = [
-        {"name": f"{k} {names[k]}", "route": "cuda", "source": sources[k][0],
-         "replaces": sources[k][1], "launches": counts[names[k]], **summary[k]}
-        for k in names
+        {"name": f"{k} {NAMES[k]}", "route": "cuda", "source": sources[k][0],
+         "replaces": sources[k][1],
+         "launches": sum(c.get(NAMES[k], 0) for c in launches.values()),
+         "launches_by_phase": {ph: c.get(NAMES[k], 0) for ph, c in launches.items()},
+         **summary[k]}
+        for k in NAMES
     ]
     print(smi)
     emit({"kernels": kernels})

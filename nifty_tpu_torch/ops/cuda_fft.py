@@ -345,15 +345,22 @@ def hartley2d(x):
 
 
 class Hartley2d(torch.autograd.Function):
-    """The 2-D Hartley as a differentiable linear map: H is symmetric
-    (Hᵀ = H), so its backward and its jvp are the transform itself."""
+    """The 2-D Hartley over the trailing two axes as a differentiable linear
+    map: H is symmetric (Hᵀ = H), so its backward and its jvp are the
+    transform itself.  Leading axes are a batch: each slice is one K3 + K4
+    launch pair on the card."""
 
     @staticmethod
     def forward(x):
         x = x.contiguous()
         if x.is_cuda and x.data_ptr() % 16:
             x = x.clone()  # K3 loads 16-byte vectors; a fresh buffer is aligned
-        return hartley2d(x)
+        if x.ndim == 2:
+            return hartley2d(x)
+        # a slice of a contiguous batch starts n0 n1 floats (a multiple of
+        # 256²) after the previous one, so it stays 16-byte aligned
+        flat = x.reshape((-1,) + tuple(x.shape[-2:]))
+        return torch.stack([hartley2d(s) for s in flat]).reshape(x.shape)
 
     @staticmethod
     def setup_context(ctx, inputs, output):

@@ -1,13 +1,14 @@
 """Harmonic transforms on regular grids (counterpart of ``nifty_tpu/ops/fft.py``).
 
 The Hartley transform H(x) = Re F(x) - Im F(x), the real self-inverse
-workhorse of the correlated field (H(H(x)) = N x).  Real 2-D f32 arrays in
-the domain of the hand-written kernel pair (:mod:`.cuda_fft`: both axes
-multiples of 256) go through :class:`~.cuda_fft.Hartley2d`, which runs K3 +
-K4 on the card and their plain versions on the CPU.  Everything else runs
-the plain version: ``rfftn`` plus the hermitian extension of the half
-spectrum, as the reference's generic branch does.  The choice is made by
-shape and dtype alone.
+workhorse of the correlated field (H(H(x)) = N x).  A real f32 transform
+over the trailing two axes, both in the domain of the hand-written kernel
+pair (:mod:`.cuda_fft`: multiples of 256), goes through
+:class:`~.cuda_fft.Hartley2d`, which runs K3 + K4 on the card (one launch
+pair per slice of a leading batch) and their plain versions on the CPU.
+Everything else runs the plain version: ``rfftn`` plus the hermitian
+extension of the half spectrum, as the reference's generic branch does.
+The choice is made by shape, axes and dtype alone.
 """
 
 from __future__ import annotations
@@ -53,8 +54,8 @@ def hartley(x, axes: Optional[Sequence[int]] = None):
     axes = tuple(range(x.ndim)) if axes is None else tuple(a % x.ndim for a in axes)
     if (
         not x.is_complex()
-        and sorted(axes) == [0, 1]
-        and cuda_hartley_supported(x.shape, x.dtype)
+        and sorted(axes) == [x.ndim - 2, x.ndim - 1]
+        and cuda_hartley_supported(x.shape[-2:], x.dtype)
     ):
         return Hartley2d.apply(x)
     return hartley_plain(x, axes)

@@ -18,11 +18,19 @@ from .. import device as _device
 __all__ = [
     "ShapeWithDtype",
     "Vector",
+    "get_map",
+    "lmap",
+    "mean",
+    "mean_and_std",
     "norm",
     "random_like",
     "size",
+    "stack",
+    "tree_add",
     "tree_axpy",
     "tree_map",
+    "tree_sub",
+    "unstack",
     "vdot",
     "zeros_like",
 ]
@@ -161,3 +169,84 @@ def random_like(generator, primals, *, device=None, dtype=None):
     return pytree.tree_map(
         draw, primals, is_leaf=lambda x: isinstance(x, ShapeWithDtype)
     )
+
+
+def tree_add(a, b):
+    return tree_map(operator.add, a, b)
+
+
+def tree_sub(a, b):
+    return tree_map(operator.sub, a, b)
+
+
+# --- forests: trees with a leading sample axis ---------------------------------
+
+
+def stack(trees):
+    """Stack equal-structure trees along a new leading axis."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def unstack(tree):
+    """The trees of :func:`stack`'s leading axis, as a tuple."""
+    leaves = _leaves(tree)
+    n = leaves[0].shape[0] if leaves else 0
+    return tuple(tree_map(lambda x, i=i: x[i], tree) for i in range(n))
+
+
+def mean(forest):
+    """Mean over a sequence of trees or over the leading axis of one tree."""
+    if isinstance(forest, (list, tuple)):
+        forest = stack(forest)
+    return tree_map(lambda x: x.mean(dim=0), forest)
+
+
+def mean_and_std(forest, correct_bias=True):
+    """Mean and standard deviation (``ddof=1`` when ``correct_bias``) over a
+    sequence of trees or over the leading axis of one tree."""
+    if isinstance(forest, (list, tuple)):
+        forest = stack(forest)
+    m = tree_map(lambda x: x.mean(dim=0), forest)
+    s = tree_map(lambda x: x.std(dim=0, correction=1 if correct_bias else 0), forest)
+    return m, s
+
+
+def lmap(fun, in_axes=0):
+    """``fun`` mapped over the leading axis of its arguments by a Python loop
+    (vmap's semantics: ``in_axes`` 0 maps an argument, None passes it
+    whole); the outputs are stacked.  Every call sees one sample, so the
+    kernels run on the shapes they were written for."""
+    def mapped(*args):
+        axes = in_axes if isinstance(in_axes, tuple) else (in_axes,)
+        axes = axes + (axes[-1],) * (len(args) - len(axes))
+        if any(a not in (0, None) for a in axes):
+            raise NotImplementedError("lmap maps the leading axis (in_axes 0 or None) only")
+        n = {_leaves(a)[0].shape[0] for a, ax in zip(args, axes) if ax == 0}
+        if len(n) != 1:
+            raise ValueError(f"inconsistent mapped lengths {n}")
+        outs = [
+            fun(*(a if ax is None else tree_map(lambda x, i=i: x[i], a) for a, ax in zip(args, axes)))
+            for i in range(n.pop())
+        ]
+        return stack(outs)
+
+    return mapped
+
+
+def get_map(map_spec):
+    """A map over samples: ``"lmap"`` or ``"smap"`` (a loop, :func:`lmap`) or
+    a callable ``map(fun, in_axes=...)``.  ``"vmap"`` and ``"pmap"`` need
+    batching rules for the kernel Functions and sharding, which are not
+    ported (ROADMAP.md, section A, the queue after slice 4)."""
+    if callable(map_spec):
+        return map_spec
+    spec = str(map_spec).lower()
+    if spec in ("lmap", "smap"):
+        return lmap
+    if spec in ("vmap", "pmap"):
+        raise NotImplementedError(
+            f"map {map_spec!r}: batched sample maps need vmap rules for the kernel "
+            "Functions and sharding (ROADMAP.md, section A: vmap or batched sample "
+            "kernels, multi-GPU); use 'lmap'"
+        )
+    raise ValueError(f"unknown map {map_spec!r}")

@@ -151,9 +151,11 @@ def test_mode_distributor_matches_jax():
 
 
 def test_knot_form_is_refused():
+    """The knot form is ported (tests/test_torch_knot.py); it refuses fewer
+    than two knots, as the JAX package does."""
     cfm = nt.CorrelatedFieldMaker("cf")
-    with pytest.raises(NotImplementedError):
-        cfm.add_fluctuations((16, 16), 1 / 16, (1.0, 5e-1), (-3.0, 2e-1), n_mode_knots=8)
+    with pytest.raises(ValueError, match="two spectral knots"):
+        cfm.add_fluctuations((16, 16), 1 / 16, (1.0, 5e-1), (-3.0, 2e-1), n_mode_knots=1)
 
 
 def test_position_from_numpy_checks_keys_and_shapes():

@@ -11,7 +11,8 @@ On the card the port's entry points build on the card by default
 Tolerances: K1 exact (a gather computes nothing); K2 relative 1e-6 against
 a float64 segment sum (f32 sums over one bin in a fixed order); the
 Hartley max|Δ|/max|ref| <= 1e-5 (f32 FFT rounding); the metric relative L2
-<= 1e-4 against float64 on the CPU (f32 through exp and three Hartleys).
+<= 1e-4 against float64 on the CPU (f32 through exp and three Hartleys),
+for the exact and the 64-knot form.
 """
 
 import copy
@@ -22,7 +23,7 @@ import torch
 
 import nifty_tpu_torch as nt
 from nifty_tpu_torch import native
-from nifty_tpu_torch.bench.workload import grid_index
+from nifty_tpu_torch.bench.workload import build_likelihood, build_vi_likelihood, grid_index
 from nifty_tpu_torch.ops import cuda_expand as ce
 from nifty_tpu_torch.ops import cuda_fft as cfft
 from nifty_tpu_torch.ops import mode_expand as me
@@ -238,3 +239,72 @@ def test_metric_on_card_matches_cpu_f64(cuda_device):
     num = sum(float(((m32[k].double().cpu() - m64[k]) ** 2).sum()) for k in m64)
     den = sum(float((m64[k] ** 2).sum()) for k in m64)
     assert (num / den) ** 0.5 <= 1e-4
+
+
+def test_batched_hartley_runs_the_kernel_pair_per_slice(cuda_device):
+    """A (3, 1280, 1280) grid transformed over its trailing axes runs K3 and
+    K4 once per slice, not torch.fft, and equals the plain transform."""
+    x = torch.randn((3, 1280, 1280), device=cuda_device)
+    native.reset_launches()
+    out = nt.hartley(x, axes=(1, 2))
+    assert native.launches["hartley_rows"] == 3 and native.launches["hartley_cols"] == 3
+    ref = nt.ops.fft.hartley_plain(x.double().cpu(), axes=(1, 2))
+    assert _rel(out.double().cpu(), ref) <= 1e-5
+
+
+def _rel_l2(got, ref):
+    num = sum(float(((got[k].double().cpu() - ref[k]) ** 2).sum()) for k in ref)
+    return (num / sum(float((ref[k] ** 2).sum()) for k in ref)) ** 0.5
+
+
+def test_knot_metric_on_card_matches_cpu_f64(cuda_device):
+    """The 64-knot Poisson metric at 256² on the card against float64 on
+    the CPU; it runs K3/K4 and no table kernel."""
+    lh32, pos, tan = build_likelihood(256, cuda_device, torch.float32, n_mode_knots=64)
+    lh64, _, _ = build_likelihood(256, "cpu", torch.float64, n_mode_knots=64)
+    native.reset_launches()
+    m32 = lh32.metric(nt.position_from_numpy(lh32.forward_model, pos),
+                      nt.position_from_numpy(lh32.forward_model, tan))
+    torch.cuda.synchronize()
+    assert native.launches["hartley_rows"] > 0 and native.launches["hartley_cols"] > 0
+    assert native.launches["expand_to_grid"] == 0 and native.launches["collapse_from_grid"] == 0
+    m64 = lh64.metric(nt.position_from_numpy(lh64.forward_model, pos),
+                      nt.position_from_numpy(lh64.forward_model, tan))
+    assert _rel_l2(m32, m64) <= 1e-4
+
+
+def test_draw_linear_residual_on_card(cuda_device):
+    """One MGVI residual of the 256² knot-64 VI model on the card, from an
+    integer key: finite, on the card, through K3/K4."""
+    lh, start = build_vi_likelihood(256, cuda_device, torch.float32, 64)
+    pos = nt.position_from_numpy(lh.forward_model, start)
+    native.reset_launches()
+    res, info = nt.draw_linear_residual(lh, pos, 7, cg_kwargs=dict(maxiter=10))
+    assert int(info) in range(0, 11)
+    assert native.launches["hartley_rows"] > 0 and native.launches["hartley_cols"] > 0
+    for k, v in res.items():
+        assert v.device.type == "cuda" and v.shape == pos[k].shape and bool(torch.isfinite(v).all())
+
+
+def test_vi_state_and_samples_pickle_on_card(cuda_device, tmp_path):
+    """``optimize_kl(odir=...)`` pickles the samples and the state, whose key
+    is a CUDA generator: one iteration at 256² knot-64 writes them, and the
+    pickle gives back tensors on the card and a generator in the same
+    state."""
+    import pickle
+
+    lh, start = build_vi_likelihood(256, cuda_device, torch.float32, 64)
+    pos = nt.position_from_numpy(lh.forward_model, start)
+    key = torch.Generator(device=cuda_device).manual_seed(5)
+    samples, state = nt.optimize_kl(
+        lh, pos, key=key, n_total_iterations=1, n_samples=1, sample_mode="linear_resample",
+        draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=3)),
+        kl_kwargs=dict(minimize_kwargs=dict(maxiter=1, cg_kwargs=dict(maxiter=3))),
+        odir=str(tmp_path),
+    )
+    with open(tmp_path / "last.pkl", "rb") as f:
+        s2, st2 = pickle.load(f)
+    assert st2.nit == 1 and st2.key.device.type == "cuda"
+    assert torch.equal(st2.key.get_state(), key.get_state())
+    assert all(v.device.type == "cuda" for v in s2.pos.values())
+    assert torch.equal(s2._samples["cfxi"], samples._samples["cfxi"])

@@ -12,6 +12,7 @@ algorithms in double precision); float32 Hartleys to 1e-5 of max|ref|
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -580,10 +581,19 @@ def test_mode_expand_grid_adjoint_and_transforms(full, B):
 
 
 def test_port_never_imports_jax():
+    """Importing every module of the port, and chip_smoke.py, loads no jax
+    and nothing of nifty_tpu; no import statement in chip_smoke.py names
+    them either (its imports run inside main)."""
+    import pkgutil
+
+    import nifty_tpu_torch
+
+    modules = sorted(
+        m.name for m in pkgutil.walk_packages(nifty_tpu_torch.__path__, "nifty_tpu_torch.")
+    )
+    assert {"nifty_tpu_torch.evi", "nifty_tpu_torch.optimize_kl", "nifty_tpu_torch.ops.pwl"} <= set(modules)
     code = (
-        "import sys, nifty_tpu_torch, nifty_tpu_torch.interop, "
-        "nifty_tpu_torch.ops.cuda_fft, nifty_tpu_torch.ops.cuda_expand, "
-        "nifty_tpu_torch.native; "
+        f"import sys, importlib, chip_smoke; [importlib.import_module(m) for m in {modules!r}]; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'nifty_tpu.'))"
         " or m == 'nifty_tpu']; print(bad); sys.exit(1 if bad else 0)"
     )
@@ -592,3 +602,6 @@ def test_port_never_imports_jax():
         [sys.executable, "-c", code], capture_output=True, text=True, timeout=120, cwd=root
     )
     assert res.returncode == 0, res.stdout + res.stderr
+    with open(os.path.join(root, "chip_smoke.py")) as f:
+        src = f.read()
+    assert not re.search(r"^\s*(from|import)\s+(jax|nifty_tpu)\b", src, re.M)
