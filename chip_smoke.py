@@ -11,8 +11,11 @@ JAX.  Phases, each printing one JSON line to stdout:
    the entry points, and the 1280² one on the CPU in f64 as the reference;
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the main path's shapes: K1 (table -> full grid) and K2
-   (full grid -> table) at 1280² and 4096², B = 1 and 4; K3/K4 at 1024²
-   (the VI phase), 1280², 4096² and 10240².  Times are device times: 20
+   (full grid -> table) at 1024² (phase 8's geoVI grid), 1280² and 4096²,
+   B = 1, 2 and 4 (the batches of the VI phases: 2 keys, 4 mirrored
+   samples); K3/K4 at 1024² (the VI grid), 1280², 4096² and 10240², and
+   batches of B = 2 and 4 at 1024² and 1280² (one K3 and one K4 launch
+   for the batch).  Times are device times: 20
    calls captured in one CUDA graph, replayed between CUDA events, so no
    host dispatch is in them.  Beside each: ``plain_ms`` (for K1/K2 the composition of layout
    ops the kernel replaces), ``bound_ms``, the least time the card could
@@ -35,16 +38,42 @@ JAX.  Phases, each printing one JSON line to stdout:
 7. vi: one MGVI and one geoVI iteration (``OptimizeVI.update``) at 1024²
    knot64 with ``bench_extra.py``'s settings (2 mirrored sample pairs,
    the draw's static CG 20 iterations, geoVI Newton-CG 2 steps of CG 5,
-   the KL one Newton step of CG 10), seconds per iteration the median of
-   3 after one warm-up; every sample and the new position finite and on
-   the card, the sample-averaged KL after the Newton step not above its
-   value before, K3/K4 launched.
+   the KL one Newton step of CG 10), samples mapped by the default
+   ``vmap``; seconds per iteration the median of 3 after one warm-up;
+   every sample and the new position finite and on the card, the
+   sample-averaged KL after the Newton step not above its value before,
+   K3/K4 launched.  Beside it one MGVI iteration mapped by ``lmap`` from
+   the same seed (seconds and launches of one iteration side by side;
+   under ``vmap`` K3 and K4 run at most half as often an iteration);
+   the KL's value, gradient and metric under ``vmap`` against ``lmap`` at
+   the same samples (relative 1e-5, f32 and no solve in between; the
+   value relative to the sum of its terms' magnitudes); and one
+   KL step by ``trust_ncg``, which must not raise the KL;
+8. exact_vi: the exact-spectrum VI with ``vmap`` (``bench_extra.py``'s
+   exact rows): one MGVI iteration at 1280² and one geoVI iteration at
+   1024², median of 2 after one warm-up, checked as in phase 7, and one
+   MGVI iteration at 1280² mapped by ``lmap``: under ``vmap`` each of
+   K1-K4 runs at most half as often an iteration (one launch per batch of
+   2 or 4 samples);
+9. elbo: ``estimate_evidence_lower_bound`` at phase 8's 1280² MGVI
+   posterior, 32 eigenvalues in 4 Lanczos batches, f32: every eigenvalue
+   >= 1 - 1e-3 (the Hamiltonian metric is the likelihood's plus the
+   identity), each Ritz pair's residual ||M v - λ v|| <= 1e-2 λ (a Ritz
+   pair of a 42-step Lanczos with full reorthogonalisation in f32, after
+   the deflation of earlier batches, is not an exact eigenpair: 1e-2 λ is
+   the accuracy that still makes log λ, all the ELBO uses, good to 1 %),
+   the stats finite.
 
-The launch counters are set to 0 just before each of phases 4-7 and read
-just after it: K1-K4 must launch in phases 4 and 5, K3/K4 (and not K1/K2)
-in 6 and 7.  Then it prints the card line, the kernel summary (launches per
-phase) and, last, ``{"ok": true, "device": ...}``.  Any failure raises, so
-the exit code is not 0 and no result line is printed.
+The launch counters are set to 0 just before each of phases 4-6 and 9,
+and before each VI run of phases 7 and 8 (``vi_mgvi_vmap``,
+``vi_geovi_vmap``, ``vi_mgvi_lmap``, ``vi_kl``, ``exact_mgvi_vmap``,
+``exact_mgvi_lmap``, ``exact_geovi_vmap``), and read just after it: K1-K4
+must launch in phases 4, 5, 8 and 9, K3/K4 (and not K1/K2) in 6 and 7,
+and each VI run's kernels in its last iteration too; under ``vmap`` each
+must have launched on a batch of samples (``native.batched_launches``),
+under ``lmap`` none.  Then it prints the card line, the kernel summary
+(launches per phase) and, last, ``{"ok": true, "device": ...}``.  Any
+failure raises, so the exit code is not 0 and no result line is printed.
 
 Tolerances (and why): K1 exact (a gather computes nothing); K2 relative
 1e-6 against its float64 plain version (f32 sums over one bin in a fixed
@@ -61,6 +90,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 DEVICE = "cuda:0"
@@ -69,10 +99,14 @@ SHAPES_KNOT = (1280, 4096, 10240)
 KNOTS = 64
 VI_SHAPE = 1024
 SHAPES_HARTLEY = (VI_SHAPE, 1280, 4096, 10240)  # ascending: the summary keeps 4096²'s times
+SHAPES_HARTLEY_BATCH = (VI_SHAPE, 1280)  # the VI grids: B = 4 samples in one K3 + K4 pair
+EXACT_VI = {"linear_resample": 1280, "nonlinear_resample": 1024}  # bench_extra.py's exact rows
+ELBO = dict(n_eigenvalues=32, n_batches=4)
 CG_ITERS = 20
 NAMES = {"K1": "expand_to_grid", "K2": "collapse_from_grid",
          "K3": "hartley_rows", "K4": "hartley_cols"}
-TOL = {"k2": 1e-6, "hartley": 1e-5, "metric": 1e-4}  # K1 must be exact
+TOL = {"k2": 1e-6, "hartley": 1e-5, "metric": 1e-4, "kl_maps": 1e-5,  # K1 must be exact
+       "eigenvalue": 1e-3, "ritz": 1e-2}
 
 
 def emit(obj):
@@ -100,8 +134,11 @@ def main() -> int:
     from nifty_tpu_torch import native
     from nifty_tpu_torch.ops import cuda_expand as ce
     from nifty_tpu_torch.bench.timing import bound, device_ms, fft_flops
-    from nifty_tpu_torch.bench.workload import build_likelihood, build_vi_likelihood, vi_settings
+    from nifty_tpu_torch.bench.workload import (
+        build_likelihood, build_vi_likelihood, grid_index, vi_settings)
+    from nifty_tpu_torch.evidence_lower_bound import _ravel_metric
     from nifty_tpu_torch.ops import cuda_fft as cfft
+    from nifty_tpu_torch.optimize_kl import _kl_met, _kl_vg
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -132,25 +169,29 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(0)
     summary = {}
 
-    def record(key, err, times):
+    def record(key, err, times=None):
         s = summary.setdefault(key, {"max_abs_err": 0.0})
         s["max_abs_err"] = max(s["max_abs_err"], err)
-        s.update(times)  # the last (largest) main-path shape's times
+        s.update(times or {})  # the last (largest) main-path shape's times at B = 1
 
     def timing(ms, plain_ms, n_bytes, flops=0.0, library_ms=None):
         b_ms, b_by = bound(n_bytes, flops)
         return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": library_ms}
 
-    for n in SHAPES_MAIN:
-        index_d = card[n][0].forward_model.inner.indexes[0]
-        index = copy.deepcopy(index_d).to("cpu")
+    for n in (VI_SHAPE,) + SHAPES_MAIN:  # ascending: the summary keeps 4096²'s times
         full = (n, n)
+        if n in card:
+            index_d = card[n][0].forward_model.inner.indexes[0]
+            index = copy.deepcopy(index_d).to("cpu")
+        else:  # the exact geoVI grid of phase 8, as its model's finalize() builds it
+            index = grid_index(full)
+            index_d = copy.deepcopy(index).to(dev)
         U, P, N = index.n_unique, index.n_packed, n * n
         # the yardsticks' full-grid int32 index, made once for them only
         full_idx = ce.expand_to_grid_plain(
             torch.arange(U, dtype=torch.float64), index, full).reshape(-1).to(dev, torch.int32)
-        for B in (1, 4):
+        for B in (1, 2, 4):
             batch = () if B == 1 else (B,)
             tab = torch.randn((U,) + batch, generator=g, device=dev)
             out = ce.expand_to_grid(tab, index_d, full)
@@ -183,11 +224,10 @@ def main() -> int:
                   "large_bins": int(index.large_bins.numel()),
                   "k1_exact": True, **{f"k1_{k}": v for k, v in k1.items()},
                   "k2_rel_err": k2_err, **{f"k2_{k}": v for k, v in k2.items()}})
-            if B == 1:
-                record("K1", 0.0, k1)
-                record("K2", k2_abs, k2)
+            record("K1", 0.0, k1 if B == 1 else None)
+            record("K2", k2_abs, k2 if B == 1 else None)
             del out, cot, cot_flat, seg
-        del full_idx
+        del full_idx, index_d
         torch.cuda.empty_cache()
 
     for n in SHAPES_HARTLEY:
@@ -221,6 +261,35 @@ def main() -> int:
             record("K3", float((G - Gp).abs().max()), k3)
             record("K4", float((H - Hp).abs().max()), k4)
         del x, G, Gp, Gp_pad, H, Hp, full
+        torch.cuda.empty_cache()
+
+    for n, B in ((n, B) for n in SHAPES_HARTLEY_BATCH for B in (2, 4)):
+        # the batches of the VI phases (2 keys, 4 samples): one launch pair for B grids
+        x = torch.randn((B, n, n), generator=g, device=dev)
+        G = cfft.hartley_rows(x)
+        Gp = cfft.hartley_rows_plain(x)
+        e3 = rel_max(G, Gp)
+        Gp_pad = cfft.padded_half_spectrum(Gp)
+        H = cfft.hartley_cols(Gp_pad, n)
+        Hp = cfft.hartley_cols_plain(Gp, n)
+        e4 = rel_max(H, Hp)
+        for what, err in (("batched K3", e3), ("batched K4", e4)):
+            if not err <= TOL["hartley"]:
+                fail(f"{what} relative error {err} > {TOL['hartley']} at {B}x{n}²")
+        h = n // 2 + 1
+        io_bytes = B * (4 * n * n + 8 * n * h)
+        rfft_ms = device_ms(lambda: cfft.hartley_rows_plain(x))
+        k3 = timing(device_ms(lambda: cfft.hartley_rows(x)), rfft_ms,
+                    io_bytes, fft_flops(n, B * n // 2), library_ms=rfft_ms)
+        k4 = timing(device_ms(lambda: cfft.hartley_cols(Gp_pad, n)),
+                    device_ms(lambda: cfft.hartley_cols_plain(Gp, n)),
+                    io_bytes, fft_flops(n, B * h))
+        emit({"phase": "kernels", "kernel": "K3+K4", "shape": [B, n, n],
+              "k3_rel_err": e3, "k4_rel_err": e4, **{f"k3_{k}": v for k, v in k3.items()},
+              **{f"k4_{k}": v for k, v in k4.items()}})
+        record("K3", float((G - Gp).abs().max()))
+        record("K4", float((H - Hp).abs().max()))
+        del x, G, Gp, Gp_pad, H, Hp
         torch.cuda.empty_cache()
 
     # -- 4. main path -----------------------------------------------------
@@ -259,15 +328,20 @@ def main() -> int:
         emit(line)
         return p, t
 
-    launches = {}  # phase -> {kernel wrapper: launches}
+    launches, batched = {}, {}  # phase -> {kernel wrapper: launches (with a batch > 1)}
 
-    def read_launches(phase, need, refuse=()):
+    def read_launches(phase, need, refuse=(), batch=()):
+        """The phase's launches since the counters were last set to 0: every
+        kernel of ``need`` launched, none of ``refuse``, and every kernel
+        of ``batch`` launched on a batch of samples at least once."""
         launches[phase] = counts = dict(native.launches)
+        batched[phase] = dict(native.batched_launches)
         missing = [k for k in need if counts.get(NAMES[k], 0) == 0]
         stray = [k for k in refuse if counts.get(NAMES[k], 0)]
-        if missing or stray:
-            fail(f"{phase}: kernels not launched {missing}, launched but off the path {stray} "
-                 f"(counts {counts})")
+        unbatched = [k for k in batch if batched[phase].get(NAMES[k], 0) == 0]
+        if missing or stray or unbatched:
+            fail(f"{phase}: kernels not launched {missing}, launched but off the path {stray}, "
+                 f"never on a batch {unbatched} (counts {counts}, batched {batched[phase]})")
 
     native.reset_launches()
     for n in SHAPES_MAIN:
@@ -326,37 +400,160 @@ def main() -> int:
     del knot64
 
     # -- 7. one MGVI and one geoVI iteration at 1024² knot64 -------------------
-    lh_vi, start_np = build_vi_likelihood(VI_SHAPE, dev, torch.float32, KNOTS)
-    start = nt.Samples(pos=nt.position_from_numpy(lh_vi.forward_model, start_np))
-    seed = int(np.random.default_rng(3).integers(2**62))
-    opt_vi = nt.OptimizeVI(lh_vi, 1)
-    native.reset_launches()
-    for mode in ("linear_resample", "nonlinear_resample"):
+    def count():
+        return {k: native.launches.get(NAMES[k], 0) for k in NAMES}
+
+    def vi_phase(phase, need, refuse, opt_vi, start, mode, seed, runs, maps, **extra):
+        """``runs`` iterations of ``opt_vi.update`` from ``start`` (the first a
+        warm-up when there are more), each checked; emits the line and
+        returns the last samples and the last iteration's launches.  The
+        launch counters are set to 0 just before and read just after: the
+        kernels of ``need`` must have launched in this run, and in its last
+        iteration, under ``vmap`` on batches of samples, under ``lmap`` on
+        one sample at a time."""
+        native.reset_launches()
         state = opt_vi.init_state(torch.Generator(device=dev).manual_seed(seed),
                                   sample_mode=mode, **vi_settings())
-        seconds = []
-        for _ in range(4):  # one warm-up, then 3 timed
+        seconds, launched = [], []
+        for _ in range(runs):
+            before = count()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             samples, new_state = opt_vi.update(start, state)
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
+            launched.append({k: v - before[k] for k, v in count().items()})
         trees = [("position", samples.pos)] + [(f"sample {i}", s) for i, s in enumerate(samples)]
         for what, tree in trees:
             for k, v in tree.items():
                 if v.device != dev or not bool(torch.isfinite(v).all()):
-                    fail(f"vi {mode}: {what} leaf {k} on {v.device} or non-finite")
+                    fail(f"{phase} {mode}: {what} leaf {k} on {v.device} or non-finite")
         kl_before = float(opt_vi.kl_value_and_grad(start.pos, primals_samples=samples)[0])
         kl_after = float(new_state.minimization_state.fun)
-        emit({"phase": "vi", "mode": mode, "shape": [VI_SHAPE] * 2, "knots": KNOTS,
-              "samples": len(samples), "s_per_iteration_median": float(np.median(seconds[1:])),
-              "s_per_iteration_all": seconds, "kl_before": kl_before, "kl_after": kl_after,
+        timed = seconds[1:] or seconds
+        emit({"phase": phase, "mode": mode, "samples": len(samples),
+              "s_per_iteration_median": float(np.median(timed)), "s_per_iteration_all": seconds,
+              "launches_per_iteration": launched[-1], "kl_before": kl_before, "kl_after": kl_after,
               "kl_status": int(new_state.minimization_state.status),
               "sample_state": str(new_state.sample_state)[:200],
-              "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+              "peak_mem_bytes": torch.cuda.max_memory_allocated(), "maps": maps, **extra})
         if not kl_after <= kl_before:
-            fail(f"vi {mode}: the KL rose over the Newton step ({kl_before} -> {kl_after})")
-    read_launches("vi", ("K3", "K4"), refuse=("K1", "K2"))
+            fail(f"{phase} {mode}: the KL rose over the Newton step ({kl_before} -> {kl_after})")
+        read_launches(phase, need, refuse, need if maps == "vmap" else ())
+        if maps == "lmap" and any(batched[phase].values()):
+            fail(f"{phase}: a batch of samples under lmap, a loop of one ({batched[phase]})")
+        idle = [k for k in need if launched[-1][k] == 0]
+        if idle:
+            fail(f"{phase}: {idle} not launched in the last iteration ({launched[-1]})")
+        return samples, launched[-1]
+
+    def rel_tree(got, ref):
+        num = sum(float(((got[k].double() - ref[k].double()) ** 2).sum()) for k in ref)
+        return (num / sum(float((ref[k].double() ** 2).sum()) for k in ref)) ** 0.5
+
+    def fewer_launches(phase, per_vmap, per_lmap, kernels):
+        """One launch per batch: under vmap each kernel of ``kernels`` runs at
+        most half as often an iteration as under lmap (batches of 2 and 4)."""
+        for k in kernels:
+            if not 0 < 2 * per_vmap[k] <= per_lmap[k]:
+                fail(f"{phase}: {k} launched {per_vmap[k]} times an iteration under vmap, "
+                     f"{per_lmap[k]} under lmap: a batch is not one launch")
+
+    knot_only = dict(need=("K3", "K4"), refuse=("K1", "K2"))
+    lh_vi, start_np = build_vi_likelihood(VI_SHAPE, dev, torch.float32, KNOTS)
+    start = nt.Samples(pos=nt.position_from_numpy(lh_vi.forward_model, start_np))
+    seed = int(np.random.default_rng(3).integers(2**62))
+    opt_vi = nt.OptimizeVI(lh_vi, 1)  # the defaults: kl_map and residual_map "vmap"
+    info = {"shape": [VI_SHAPE] * 2, "knots": KNOTS}
+    mgvi, per_vmap = vi_phase("vi_mgvi_vmap", **knot_only, opt_vi=opt_vi, start=start,
+                              mode="linear_resample", seed=seed, runs=4, maps="vmap", **info)
+    vi_phase("vi_geovi_vmap", **knot_only, opt_vi=opt_vi, start=start,
+             mode="nonlinear_resample", seed=seed, runs=4, maps="vmap", **info)
+    opt_lmap = nt.OptimizeVI(lh_vi, 1, kl_map="lmap", residual_map="lmap")
+    _, per_lmap = vi_phase("vi_mgvi_lmap", **knot_only, opt_vi=opt_lmap, start=start,
+                           mode="linear_resample", seed=seed, runs=1, maps="lmap", **info)
+    fewer_launches("vi", per_vmap, per_lmap, ("K3", "K4"))
+    # the KL under both maps at the MGVI iteration's samples and position:
+    # no solve, so f32 rounding only
+    native.reset_launches()
+    tan = nt.position_from_numpy(lh_vi.forward_model, {
+        k: np.random.default_rng(4).standard_normal(v.shape) for k, v in start_np.items()})
+    kl = {m: (_kl_vg(lh_vi, mgvi.pos, mgvi, map=m), _kl_met(lh_vi, mgvi.pos, tan, mgvi, map=m))
+          for m in ("vmap", "lmap")}
+    (vv, gv), mv = kl["vmap"]
+    (vl, gl), ml = kl["lmap"]
+    # the KL is a sum over pixels and samples of terms of both signs: f32
+    # rounds it to the scale of the terms' magnitudes, not of the sum
+    with torch.no_grad():
+        scale = float(np.mean([
+            float(lam.sum() + (lh_vi.likelihood.data * torch.log(lam)).abs().sum()
+                  + 0.5 * sum((v.double() ** 2).sum() for v in smp.values()))
+            for smp in mgvi for lam in [lh_vi.forward_model(smp)]]))
+    errs = {"value": abs(float(vv) - float(vl)) / scale, "gradient": rel_tree(gv, gl),
+            "metric": rel_tree(mv, ml)}
+    # one KL step by trust-NCG (Steihaug CG 10): a step is taken only if it lowers the KL
+    t0 = time.perf_counter()
+    tr = opt_vi.kl_minimize(mgvi, minimize=nt.trust_ncg, minimize_kwargs=dict(
+        maxiter=1, subproblem_kwargs=dict(maxiter=10, miniter=10)))
+    torch.cuda.synchronize()
+    emit({"phase": "vi_kl", "check": "kl_maps_and_trust_ncg", "rel_err_vmap_vs_lmap": errs,
+          "trust_ncg_kl_before": float(vv), "trust_ncg_kl_after": float(tr.fun),
+          "trust_ncg_status": int(tr.status), "trust_ncg_s": time.perf_counter() - t0})
+    bad = {k: e for k, e in errs.items() if not e <= TOL["kl_maps"]}
+    if bad:
+        fail(f"vi: the KL under vmap and lmap differ: {bad} > {TOL['kl_maps']}")
+    if not float(tr.fun) <= float(vv):
+        fail(f"vi: trust_ncg raised the KL ({float(vv)} -> {float(tr.fun)})")
+    read_launches("vi_kl", **knot_only, batch=knot_only["need"])
+    del lh_vi, start, opt_vi, opt_lmap, mgvi, kl, gv, gl, mv, ml, tr
+    torch.cuda.empty_cache()
+
+    # -- 8. the exact-spectrum VI: MGVI at 1280², geoVI at 1024² ----------------
+    exact = {}
+    for mode, n in EXACT_VI.items():
+        lh_x, start_np = build_vi_likelihood(n, dev, torch.float32, None)
+        start = nt.Samples(pos=nt.position_from_numpy(lh_x.forward_model, start_np))
+        info = {"shape": [n, n], "knots": None}
+        name = "mgvi" if mode == "linear_resample" else "geovi"
+        smpls, per_vmap = vi_phase(f"exact_{name}_vmap", NAMES, (), nt.OptimizeVI(lh_x, 1), start,
+                                   mode, seed, 3, maps="vmap", **info)
+        if mode == "linear_resample":
+            _, per_lmap = vi_phase(
+                f"exact_{name}_lmap", NAMES, (),
+                nt.OptimizeVI(lh_x, 1, kl_map="lmap", residual_map="lmap"), start, mode, seed, 1,
+                maps="lmap", **info)
+            fewer_launches("exact_vi", per_vmap, per_lmap, NAMES)
+            exact = {"likelihood": lh_x, "samples": smpls}
+        del lh_x, start, smpls
+        torch.cuda.empty_cache()
+
+    # -- 9. the ELBO at the 1280² exact MGVI posterior ----------------------------
+    lh_x, post = exact["likelihood"], exact["samples"]
+    with tempfile.TemporaryDirectory() as tmp:  # the eigensystem, saved as users save it
+        native.reset_launches()
+        t0 = time.perf_counter()
+        elbo_samples, stats = nt.estimate_evidence_lower_bound(
+            lh_x, post, key=torch.Generator(device=dev).manual_seed(42), verbose=False,
+            output_directory=tmp, **ELBO)
+        torch.cuda.synchronize()
+        elbo_s = time.perf_counter() - t0
+        read_launches("elbo", NAMES)
+        with np.load(os.path.join(tmp, "metric_eigsys.npz")) as f:
+            evals, evecs = f["eigenvalues"], torch.from_numpy(f["eigenvectors"]).to(dev)
+    met, _, _, _ = _ravel_metric(nt.StandardHamiltonian(lh_x).metric, post.pos)
+    ritz = [float(torch.linalg.vector_norm(met(v) - float(lam) * v)) / float(lam)
+            for lam, v in zip(evals, evecs)]
+    emit({"phase": "elbo", "shape": [EXACT_VI["linear_resample"]] * 2, **ELBO,
+          "n_found": int(evals.size), "eigenvalues": evals.tolist(),
+          "ritz_residual_over_lambda": ritz, "stats": stats, "elbo_samples": elbo_samples.tolist(),
+          "seconds": elbo_s})
+    if evals.size == 0 or not float(evals.min()) >= 1.0 - TOL["eigenvalue"]:
+        fail(f"elbo: eigenvalues {evals.tolist()} not all >= 1 - {TOL['eigenvalue']}")
+    if not max(ritz) <= TOL["ritz"]:
+        fail(f"elbo: Ritz residuals {ritz} above {TOL['ritz']} of their eigenvalues")
+    if not all(np.isfinite(v) for v in stats.values()):
+        fail(f"elbo: stats not finite: {stats}")
+    del exact, lh_x, post, evecs
 
     sources = {"K1": ("nifty_tpu_torch/csrc/expand.cu", "nifty_tpu/ops/pallas_expand.py:108"),
                "K2": ("nifty_tpu_torch/csrc/expand.cu", "nifty_tpu/ops/pallas_expand.py:161"),
@@ -367,6 +564,7 @@ def main() -> int:
          "replaces": sources[k][1],
          "launches": sum(c.get(NAMES[k], 0) for c in launches.values()),
          "launches_by_phase": {ph: c.get(NAMES[k], 0) for ph, c in launches.items()},
+         "batched_launches_by_phase": {ph: c.get(NAMES[k], 0) for ph, c in batched.items()},
          **summary[k]}
         for k in NAMES
     ]

@@ -2,26 +2,33 @@
 
 The correlated field in its exact and 64-knot forms, the Poisson and
 Gaussian likelihoods with their Fisher metrics, conjugate gradient,
-Newton-CG and the MGVI/geoVI loop (``optimize_kl``), running on one NVIDIA
-H100 through hand-written CUDA kernels (``csrc/``) for the mode-table
-expansion (K1), its adjoint (K2) and the 2-D Hartley (K3 + K4).  On CPU
-tensors every kernel wrapper runs its plain PyTorch version.
+Newton-CG, trust-region Newton-CG, the MGVI/geoVI loop (``optimize_kl``,
+samples mapped as one batch by default), the Wiener filter and the
+evidence lower bound (Lanczos), running on one NVIDIA H100 through
+hand-written CUDA kernels (``csrc/``) for the mode-table expansion (K1),
+its adjoint (K2) and the 2-D Hartley (K3 + K4), each batched over the
+samples under ``torch.func.vmap``.  On CPU tensors every kernel wrapper
+runs its plain PyTorch version.
 
 The package imports torch and never jax.
 """
 
 from . import config
-from .conjugate_gradient import CGResults, cg, static_cg
+from .conjugate_gradient import CGResults, SteihaugResults, cg, cg_steihaug, static_cg
 from .evi import (
     Samples,
     WhiteNoise,
     concatenate_zip,
     draw_linear_residual,
+    draw_linear_residuals,
     draw_residual,
     nonlinearly_update_residual,
+    nonlinearly_update_residuals,
     sample_likelihood,
     white_noise,
+    wiener_filter_posterior,
 )
+from .evidence_lower_bound import estimate_evidence_lower_bound
 from .interop import position_from_numpy, samples_from_numpy
 from .likelihood import Likelihood, LikelihoodPartial, LikelihoodWithModel, StandardHamiltonian
 from .likelihood_impl import Gaussian, Poissonian
@@ -35,9 +42,10 @@ from .models.correlated_field import (
     make_grid,
 )
 from .models.gauss_markov import IntegratedWienerProcess, integrated_wiener_process
+from .num.lanczos import lanczos_tridiag, stochastic_logdet_from_lanczos, stochastic_lq_logdet
 from .num.stats_distributions import lognormal_moments, lognormal_prior, normal_prior
 from .ops.fft import hartley
-from .optimize import OptimizeResults, minimize, newton_cg, static_newton_cg
+from .optimize import OptimizeResults, minimize, newton_cg, static_newton_cg, trust_ncg
 from .optimize_kl import OptimizeVI, OptimizeVIState, optimize_kl
 from .utils.tree import (
     ShapeWithDtype,
@@ -48,9 +56,13 @@ from .utils.tree import (
     mean_and_std,
     norm,
     random_like,
+    sample_norm,
+    sample_vdot,
     stack,
     tree_axpy,
     unstack,
     vdot,
+    vmap,
+    where,
     zeros_like,
 )

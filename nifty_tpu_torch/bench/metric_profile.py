@@ -18,8 +18,12 @@ kernels, also counted in their kinds), from a profiler range around
 ``ops.pwl.pwl_features``/``pwl_transpose`` that only this script opens.
 With ``--vi`` it profiles one MGVI and one geoVI iteration
 (``OptimizeVI.update`` with ``chip_smoke.py`` phase 7's settings, after
-one warm-up) at each size instead.  Run from the root of another tree of
-the port with this folder, it times that tree.
+one warm-up) at each size instead, the samples mapped by ``--maps``
+(``vmap``, the default, or ``lmap``), with ``--knots`` knots (64 unless
+given; 0 for the exact form).  Copies (the layout change of a batch
+between K1's trailing sample axis and the Hartley's leading one, among
+others) are their own kind.  Run from the root of another tree of the
+port with this folder, it times that tree.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ KINDS = (  # (kind, substrings of the kernel name), first match wins
     ("K2 collapse", ("collapse_fold", "segsum")),
     ("K3 hartley_rows", ("hartley_rows",)),
     ("K4 hartley_cols", ("hartley_cols",)),
+    ("copy", ("copy_kernel",)),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
     ("cat", ("CatArray", "cat_")),
     ("reductions", ("reduce", "Reduce")),
@@ -138,7 +143,9 @@ def main() -> int:
     ap.add_argument("--knots", type=int, default=None, help="the knot form with this many knots")
     ap.add_argument("--vi", action="store_true",
                     help="profile one MGVI and one geoVI iteration (chip_smoke.py phase 7) "
-                         "instead of metric applies; with --knots (default 64)")
+                         "instead of metric applies; with --knots (default 64, 0 exact)")
+    ap.add_argument("--maps", choices=("vmap", "lmap"), default="vmap",
+                    help="--vi: how the samples are mapped")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("metric_profile: no CUDA device", file=sys.stderr)
@@ -151,8 +158,8 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda:0")
-    if args.vi and args.knots is None:
-        args.knots = 64
+    if args.vi:
+        args.knots = 64 if args.knots is None else args.knots or None
     ranges = ()
     if args.knots is not None:
         _annotate_pwl()
@@ -162,7 +169,8 @@ def main() -> int:
         if args.vi:
             lh, start_np = workload.build_vi_likelihood(n, dev, torch.float32, args.knots)
             start = nt.Samples(pos=nt.position_from_numpy(lh.forward_model, start_np))
-            opt = nt.OptimizeVI(lh, 1)
+            opt = nt.OptimizeVI(lh, 1, kl_map=args.maps, residual_map=args.maps)
+            head["maps"] = args.maps
             for mode in ("linear_resample", "nonlinear_resample"):
                 state = opt.init_state(torch.Generator(device=dev).manual_seed(0),
                                        sample_mode=mode, **workload.vi_settings())

@@ -56,6 +56,11 @@
 //    the extra column c0+8: columns c0+1 .. c0+8 give the aligned mirror
 //    run H[-i, n1-c0-8 .. n1-c0-1].  Longer columns fit 2 or 1 per block
 //    (hartley_cols_kernel), with scalar mirror stores.
+// 5. Batches (the samples of a VI iteration, mapped by torch.func.vmap):
+//    K3's rows are independent, so a contiguous (B, n0, n1) batch is B n0
+//    rows of one launch; K4's launch grid gets the batch as its y extent,
+//    each slice's half spectra `batch_pitch` apart, and its clusters stay
+//    within one slice.
 // A launch raises the kernel's dynamic shared-memory limit once per size
 // and reports any refusal through the returned error code.
 
@@ -332,12 +337,14 @@ __device__ __forceinline__ void store4(float* dst, const float (&w)[4]) {
 // K4 for long columns (the clusters below do not fit): a block takes the tile
 // of TC = 1 or 2 half-spectrum columns c0 .. c0 + TC - 1 (interleaved) and
 // stores H[i, c0 .. c0 + TC - 1] and the mirror H[-i, n1 - c0 - TC + 1 ..
-// n1 - c0] of each row.  Block of T * TC threads: T for each column.
+// n1 - c0] of each row.  Block of T * TC threads: T for each column; the
+// grid's y index is the batch slice (half spectra `batch_pitch` apart).
 template <int TC>
 __global__ void __launch_bounds__(kMaxThreads)
     hartley_cols_kernel(const float2* __restrict__ G, float* __restrict__ H, int n1,
-                        int pitch, int T, const float2* __restrict__ tables,
-                        const short* __restrict__ rev, const __grid_constant__ Plan plan) {
+                        int pitch, long long batch_pitch, int T,
+                        const float2* __restrict__ tables, const short* __restrict__ rev,
+                        const __grid_constant__ Plan plan) {
   extern __shared__ __align__(16) float2 smem[];
   const int n0 = plan.n;
   const int tid = threadIdx.x, nthreads = blockDim.x;
@@ -346,7 +353,10 @@ __global__ void __launch_bounds__(kMaxThreads)
   float2* tile = smem + kTwLo + n0 / kTwLo;
   const int c0 = blockIdx.x * TC;
   const int half = n1 / 2;
-  const float2* src = G + c0;
+  // the batch slice folds into the source pointer and H's row index, so the
+  // parameters stay in the constant bank instead of taking registers
+  const long long hb = (long long)blockIdx.y * n0;
+  const float2* src = G + blockIdx.y * batch_pitch + c0;
   for (int i = tid; i < n0; i += nthreads) {
     if constexpr (TC == 1)
       cp_async8(tile + pad(i), src + (long long)i * pitch);
@@ -361,8 +371,8 @@ __global__ void __launch_bounds__(kMaxThreads)
 
   for (int i = tid; i < n0; i += nthreads) {  // a thread a row
     const int p = pad(__ldg(rev + i));
-    float* hl = H + (long long)i * n1 + c0;
-    float* hm = H + (long long)(i == 0 ? 0 : n0 - i) * n1 + n1 - c0;
+    float* hl = H + (hb + i) * n1 + c0;
+    float* hm = H + (hb + (i == 0 ? 0 : n0 - i)) * n1 + n1 - c0;
     float2 v[TC];
 #pragma unroll
     for (int c = 0; c < TC; ++c) v[c] = tile[p * TC + c];
@@ -391,18 +401,22 @@ __global__ void __launch_bounds__(kMaxThreads)
 // of length n0/C, twiddles from the n0 tables).  A row takes two aligned
 // 32-byte runs, H[i, c0 .. c0 + 7] and the mirror
 // H[-i, n1 - c0 - 8 .. n1 - c0 - 1], two lanes a run, so a warp's stores
-// are whole sectors.  Block of 9 T threads: T for each column.
+// are whole sectors.  Block of 9 T threads: T for each column.  The grid's
+// y index is the batch slice (half spectra `batch_pitch` apart); a cluster
+// lies within one slice.
 template <int C>
 __global__ void __launch_bounds__(kMaxThreads)
     hartley_cols_cluster_kernel(const float2* __restrict__ G, float* __restrict__ H, int n1,
-                                int pitch, int T, const float2* __restrict__ tables,
-                                const short* __restrict__ rev, const __grid_constant__ Plan plan) {
+                                int pitch, long long batch_pitch, int T,
+                                const float2* __restrict__ tables, const short* __restrict__ rev,
+                                const __grid_constant__ Plan plan) {
   extern __shared__ __align__(16) float2 smem[];
   constexpr int TC = 8;
   cg::cluster_group cluster = cg::this_cluster();
   const int r = (int)cluster.block_rank();
   const int hn = plan.n;  // n0 / C rows a block
   const int n0 = C * hn;
+  const long long hb = (long long)blockIdx.y * n0;  // the slice's first row of H
   const int tid = threadIdx.x, nthreads = blockDim.x;
   float2* tlo = smem;
   float2* thi = smem + kTwLo;
@@ -411,7 +425,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int c0 = (blockIdx.x / C) * TC;
   const int half = n1 / 2;
   const bool mirror_all = c0 + TC < half;  // columns 1 .. 8 of the run all mirror
-  const float2* src = G + (long long)r * hn * pitch + c0;
+  const float2* src = G + blockIdx.y * batch_pitch + (long long)r * hn * pitch + c0;
   for (int e = tid; e < hn * (TC / 2); e += nthreads) {
     const int i = e >> 2, q = e & 3;
     cp_async16(tile + pad(i) * TC + 2 * q, src + (long long)i * pitch + 2 * q);
@@ -461,8 +475,8 @@ __global__ void __launch_bounds__(kMaxThreads)
       const float2 w = m == TC ? extra[p] : tile[p * TC + m];
       right[c] = w.x + w.y;
     }
-    float* hl = H + (long long)i * n1 + c0 + 4 * u;
-    float* hm = H + (long long)(i == 0 ? 0 : n0 - i) * n1 + (n1 - c0 - TC + 4 * u);
+    float* hl = H + (hb + i) * n1 + c0 + 4 * u;
+    float* hm = H + (hb + (i == 0 ? 0 : n0 - i)) * n1 + (n1 - c0 - TC + 4 * u);
     if (c0 + TC <= h) {
       store4(hl, left);
     } else {
@@ -547,10 +561,12 @@ extern "C" int nt_hartley_rows(const void* x, void* G, int n0, int n1, int pitch
 
 // parts 0: blocks over tiles of tc = 1 or 2 columns; 2 or 4: clusters of
 // that many blocks over tc = 8 columns and the extra one (passes and rev of
-// length n0 / parts).
+// length n0 / parts).  `batch` half spectra, `batch_pitch` complex apart,
+// into `batch` dense (n0, n1) arrays: the launch grid's y extent.
 extern "C" int nt_hartley_cols(const void* G, void* H, int n0, int n1, int pitch,
-                               const void* tables, const void* rev, const int* passes,
-                               int n_passes, int T, int tc, int parts, void* stream) {
+                               long long batch_pitch, int batch, const void* tables,
+                               const void* rev, const int* passes, int n_passes, int T, int tc,
+                               int parts, void* stream) {
   if (parts != 0 && parts != 2 && parts != 4) return (int)cudaErrorInvalidValue;
   Plan plan;
   int err = make_plan(&plan, parts ? n0 / parts : n0, n0, passes, n_passes);
@@ -558,7 +574,8 @@ extern "C" int nt_hartley_cols(const void* G, void* H, int n0, int n1, int pitch
   const bool ok_tc = parts ? tc == 8 : tc == 1 || tc == 2;
   const int cols = tc + (parts != 0);  // the tile and the extra column
   if (!ok_tc || T < 1 || T * cols > kMaxThreads || n1 <= 0 || n1 % 256 || pitch % 8 ||
-      pitch < n1 / 2 + tc || (parts && (n0 / parts) % parts))
+      pitch < n1 / 2 + tc || (parts && (n0 / parts) % parts) || batch < 1 || batch > 65535 ||
+      batch_pitch % 8 || (batch > 1 && batch_pitch < (long long)n0 * pitch))
     return (int)cudaErrorInvalidValue;
   const size_t smem = tables_bytes(n0) + (size_t)cols * buffer_bytes(parts ? n0 / parts : n0);
   if (smem > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
@@ -572,7 +589,7 @@ extern "C" int nt_hartley_cols(const void* G, void* H, int n0, int n1, int pitch
     err = allow_smem(kernel, smem, &cols_smem_done[parts == 2 ? 2 : 3]);
     if (err) return err;
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(parts * grid);
+    cfg.gridDim = dim3(parts * grid, batch);
     cfg.blockDim = dim3(T * cols);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = s;
@@ -583,7 +600,7 @@ extern "C" int nt_hartley_cols(const void* G, void* H, int n0, int n1, int pitch
     attr.val.clusterDim.z = 1;
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
-    err = (int)cudaLaunchKernelEx(&cfg, kernel, g, (float*)H, n1, pitch, T,
+    err = (int)cudaLaunchKernelEx(&cfg, kernel, g, (float*)H, n1, pitch, batch_pitch, T,
                                   tab, rv, plan);
     if (err) return err;
     return (int)cudaGetLastError();
@@ -591,11 +608,13 @@ extern "C" int nt_hartley_cols(const void* G, void* H, int n0, int n1, int pitch
   if (tc == 2) {
     err = allow_smem(hartley_cols_kernel<2>, smem, &cols_smem_done[1]);
     if (err) return err;
-    hartley_cols_kernel<2><<<grid, T * cols, smem, s>>>(g, (float*)H, n1, pitch, T, tab, rv, plan);
+    hartley_cols_kernel<2><<<dim3(grid, batch), T * cols, smem, s>>>(g, (float*)H, n1, pitch,
+                                                                      batch_pitch, T, tab, rv, plan);
   } else {
     err = allow_smem(hartley_cols_kernel<1>, smem, &cols_smem_done[0]);
     if (err) return err;
-    hartley_cols_kernel<1><<<grid, T * cols, smem, s>>>(g, (float*)H, n1, pitch, T, tab, rv, plan);
+    hartley_cols_kernel<1><<<dim3(grid, batch), T * cols, smem, s>>>(g, (float*)H, n1, pitch,
+                                                                      batch_pitch, T, tab, rv, plan);
   }
   return (int)cudaGetLastError();
 }

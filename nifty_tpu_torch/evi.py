@@ -14,6 +14,19 @@ same key as the linear residual.  Every sampler also
 takes the draws themselves (``white=``), so a test can hand both packages
 the same numbers.  Positions are dicts of tensors; point estimates are
 keys held fixed, whose residuals are zeros.
+
+Many samples at once: :func:`draw_linear_residuals` and
+:func:`nonlinearly_update_residuals` take one key per sample and map the
+samples by ``residual_map``.  They draw every sample's white noise first,
+from its key, so every map gives the same samples.  There is one
+implementation of each sampler, on an explicit leading sample axis: the
+control flow is the batched :func:`~.conjugate_gradient.static_cg` or
+:func:`~.optimize.static_newton_cg` (per-sample scalars, masked updates),
+and only the operators, the metric and the energy with its gradient, go
+through ``torch.func.vmap``, so each kernel runs once per batch.
+``"vmap"`` (the default) runs all samples as one batch; ``"lmap"`` loops
+over batches of one, which are what the single-sample
+:func:`draw_linear_residual` and :func:`nonlinearly_update_residual` run.
 """
 
 from __future__ import annotations
@@ -21,22 +34,40 @@ from __future__ import annotations
 from functools import partial
 from typing import Any, Callable, NamedTuple, Optional
 
+import inspect
+
+import numpy as np
 import torch
 from torch.utils._pytree import tree_leaves
 
 from . import conjugate_gradient, optimize
-from .likelihood import Likelihood, frozen_keys
-from .utils.tree import ShapeWithDtype, random_like, stack, tree_add, tree_map, tree_sub, vdot
+from .interop import position_from_numpy
+from .likelihood import Likelihood, LikelihoodWithModel, frozen_keys
+from .utils.tree import (
+    ShapeWithDtype,
+    get_map,
+    random_like,
+    stack,
+    tree_add,
+    tree_map,
+    tree_sub,
+    vdot,
+    vmap,
+)
 
 __all__ = [
     "Samples",
     "WhiteNoise",
     "concatenate_zip",
     "draw_linear_residual",
+    "draw_linear_residuals",
     "draw_residual",
     "nonlinearly_update_residual",
+    "nonlinearly_update_residuals",
     "sample_likelihood",
+    "seeds",
     "white_noise",
+    "wiener_filter_posterior",
 ]
 
 
@@ -60,16 +91,55 @@ def white_noise(likelihood: Likelihood, pos, key, point_estimates=()) -> WhiteNo
     return WhiteNoise(data, prior)
 
 
+def seeds(generator: torch.Generator, n: int) -> list:
+    """``n`` integer seeds from ``generator``, one a sample (pair)."""
+    return torch.randint(0, 2**62, (n,), generator=generator, device=generator.device).tolist()
+
+
+def _white_noises(likelihood, pos, keys, point_estimates) -> WhiteNoise:
+    """The :func:`white_noise` of each key, stacked along a leading axis."""
+    return stack([white_noise(likelihood, pos, k, point_estimates) for k in keys])
+
+
 def _strip(tree, point_estimates):
     """``tree`` without the point-estimated keys."""
     frozen = frozen_keys(point_estimates)
     return {k: v for k, v in tree.items() if k not in frozen}
 
 
-def _with_zeros(tree, pos):
+def _with_zeros(tree, pos, batch=()):
     """``tree`` with zero residuals at the keys of ``pos`` it lacks (the
-    point estimates)."""
-    return {k: tree[k] if k in tree else torch.zeros_like(v) for k, v in pos.items()}
+    point estimates), with the leading axes ``batch`` for a forest."""
+    return {
+        k: tree[k] if k in tree else v.new_zeros(tuple(batch) + tuple(v.shape))
+        for k, v in pos.items()
+    }
+
+
+def _is_vmap(residual_map) -> bool:
+    """Whether ``residual_map`` asks for one batch of all samples."""
+    return isinstance(residual_map, str) and residual_map.lower() == "vmap"
+
+
+def _batched_solver(fn, what):
+    """Raise unless the solver ``fn`` has a batched form (a ``batched``
+    keyword): the samplers run the samples' control flow on a sample axis,
+    a batch of one under a loop."""
+    if "batched" not in inspect.signature(fn).parameters:
+        raise TypeError(
+            f"the samplers need a {what} with a batched form (a `batched` keyword, as "
+            f"the static_* solvers have); {getattr(fn, '__name__', fn)!r} solves one "
+            "sample at a time"
+        )
+
+
+def _batch_of_one(tree):
+    return tree_map(lambda x: x.unsqueeze(0), tree)
+
+
+def _only(tree):
+    """The one sample of a batch of one (empty fields stay empty)."""
+    return tree_map(lambda x: None if x is None else x[0], tree)
 
 
 def sample_likelihood(likelihood: Likelihood, point_estimates, primals, white_data):
@@ -82,6 +152,22 @@ def sample_likelihood(likelihood: Likelihood, point_estimates, primals, white_da
 def _ham_metric(likelihood, point_estimates, primals, tangents):
     lh, p_liquid = likelihood.freeze(primals=primals, point_estimates=point_estimates)
     return tree_add(lh.metric(p_liquid, tangents), tangents)
+
+
+def _draw_linear(likelihood, pos, white, *, from_inverse, point_estimates, cg, cg_name,
+                 cg_kwargs):
+    """The MGVI residuals of the stacked draws ``white`` as one batch:
+    ``(residuals, CG infos)``, each with a leading sample axis."""
+    n = tree_leaves(white.data)[0].shape[0]
+    smpl = tree_add(vmap(partial(sample_likelihood, likelihood, point_estimates, pos))(white.data),
+                    white.prior)
+    info = torch.zeros(n, dtype=torch.int32, device=tree_leaves(pos)[0].device)
+    if from_inverse:
+        _batched_solver(cg, "cg")
+        met = vmap(partial(_ham_metric, likelihood, point_estimates, pos))
+        res = cg(met, smpl, x0=white.prior, name=cg_name, batched=True, **(cg_kwargs or {}))
+        smpl, info = res.x, res.info
+    return _with_zeros(smpl, pos, (n,)), info
 
 
 def draw_linear_residual(
@@ -97,18 +183,43 @@ def draw_linear_residual(
     cg_kwargs: Optional[dict] = None,
 ):
     """One MGVI residual at ``pos``: ``(residual, CG info)``; with
-    ``from_inverse=False`` the metric sample t itself (info 0)."""
+    ``from_inverse=False`` the metric sample t itself (info 0).  A batch of
+    one of :func:`draw_linear_residuals`."""
     if not isinstance(likelihood, Likelihood):
         raise TypeError(f"`likelihood` of invalid type {type(likelihood)!r}")
     if white is None:
         white = white_noise(likelihood, pos, key, point_estimates)
-    smpl = tree_add(sample_likelihood(likelihood, point_estimates, pos, white.data), white.prior)
-    info = 0
-    if from_inverse:
-        met = partial(_ham_metric, likelihood, point_estimates, pos)
-        res = cg(met, smpl, x0=white.prior, name=cg_name, **(cg_kwargs or {}))
-        smpl, info = res.x, res.info
-    return _with_zeros(smpl, pos), info
+    return _only(_draw_linear(
+        likelihood, pos, _batch_of_one(white), from_inverse=from_inverse,
+        point_estimates=point_estimates, cg=cg, cg_name=cg_name, cg_kwargs=cg_kwargs,
+    ))
+
+
+def draw_linear_residuals(
+    likelihood: Likelihood,
+    pos,
+    keys=None,
+    *,
+    white: Optional[WhiteNoise] = None,
+    residual_map="vmap",
+    from_inverse: bool = True,
+    point_estimates=(),
+    cg: Callable = conjugate_gradient.static_cg,
+    cg_name: Optional[str] = None,
+    cg_kwargs: Optional[dict] = None,
+):
+    """MGVI residuals at ``pos``, one a key (or a sample of the stacked
+    draws ``white``): ``(residuals, CG infos)``, each with a leading sample
+    axis.  ``residual_map="vmap"`` solves the samples as one batch;
+    ``"lmap"`` or a callable map maps :func:`draw_linear_residual` over
+    them.  ``cg`` needs a batched form."""
+    if white is None:
+        white = _white_noises(likelihood, pos, keys, point_estimates)
+    draw = partial(_draw_linear, likelihood, pos, from_inverse=from_inverse,
+                   point_estimates=point_estimates, cg=cg, cg_name=cg_name, cg_kwargs=cg_kwargs)
+    if _is_vmap(residual_map):
+        return draw(white)
+    return get_map(residual_map)(lambda w: _only(draw(_batch_of_one(WhiteNoise(*w)))))(white)
 
 
 def _nonlinear_residual_vg(likelihood, point_estimates, e, lh_trafo_at_p, ms_at_p, x):
@@ -136,6 +247,44 @@ def _nonlinear_residual_sampnorm(likelihood, point_estimates, e, natgrad):
     return torch.sqrt(vdot(natgrad, natgrad).real + vdot(fpp, fpp).real)
 
 
+def _update_nonlinear(likelihood, pos, residuals, white, signs, *, point_estimates, minimize,
+                      minimize_kwargs):
+    """The geoVI update of the forest ``residuals`` as one batch, the metric
+    samples from the stacked draws ``white`` times ``signs``: ``(residuals,
+    OptimizeResults)``, each field with a leading sample axis (``x`` and
+    ``jac`` dropped)."""
+    minimize_kwargs = dict(minimize_kwargs or {})
+    n = tree_leaves(residuals)[0].shape[0]
+    sample = _strip(tree_add(pos, residuals), point_estimates)
+    metric_sample, _ = _draw_linear(likelihood, pos, white, from_inverse=False,
+                                    point_estimates=point_estimates, cg=None, cg_name=None,
+                                    cg_kwargs=None)
+    metric_sample = _strip(
+        tree_map(lambda x: signs.to(x).reshape((n,) + (1,) * (x.ndim - 1)) * x, metric_sample),
+        point_estimates,
+    )
+    if minimize_kwargs.get("maxiter") == 0:
+        opt_state = optimize.OptimizeResults(
+            sample, torch.ones(n, dtype=torch.bool), torch.zeros(n, dtype=torch.int32), None, None
+        )
+    else:
+        _batched_solver(minimize, "minimize")
+        lh, e_liquid = likelihood.freeze(primals=pos, point_estimates=point_estimates)
+        at = (likelihood, point_estimates, pos)
+        vg = vmap(partial(_nonlinear_residual_vg, *at, lh.transformation(e_liquid)))
+        opt_state = minimize(
+            None,
+            x0=sample,
+            **minimize_kwargs,
+            fun_and_grad=partial(vg, metric_sample),
+            hessp=vmap(partial(_nonlinear_residual_metric, *at)),
+            custom_gradnorm=vmap(partial(_nonlinear_residual_sampnorm, *at)),
+            batched=True,
+        )
+    residual = tree_sub(opt_state.x, _strip(pos, point_estimates))
+    return _with_zeros(residual, pos, (n,)), opt_state._replace(x=None, jac=None)
+
+
 def nonlinearly_update_residual(
     likelihood: Likelihood,
     pos,
@@ -151,33 +300,50 @@ def nonlinearly_update_residual(
     """The geoVI update of a linear residual: ``(residual, OptimizeResults)``
     (its ``x`` and ``jac`` dropped).  The metric sample is drawn from
     ``metric_sample_key`` (or ``white``), the draws of the linear residual,
-    times ``metric_sample_sign``."""
-    minimize_kwargs = dict(minimize_kwargs or {})
-    sample = _strip(tree_add(pos, residual_sample), point_estimates)
-    metric_sample, _ = draw_linear_residual(
-        likelihood, pos, metric_sample_key, white=white, from_inverse=False,
-        point_estimates=point_estimates,
-    )
-    metric_sample = _strip(
-        tree_map(lambda x: metric_sample_sign * x, metric_sample), point_estimates
-    )
-    if minimize_kwargs.get("maxiter") == 0:
-        opt_state = optimize.OptimizeResults(sample, True, 0, None, None)
+    times ``metric_sample_sign``.  A batch of one of
+    :func:`nonlinearly_update_residuals`."""
+    if white is None:
+        white = white_noise(likelihood, pos, metric_sample_key, point_estimates)
+    return _only(_update_nonlinear(
+        likelihood, pos, _batch_of_one(residual_sample), _batch_of_one(white),
+        torch.tensor([float(metric_sample_sign)], dtype=torch.float64),
+        point_estimates=point_estimates, minimize=minimize, minimize_kwargs=minimize_kwargs,
+    ))
+
+
+def nonlinearly_update_residuals(
+    likelihood: Likelihood,
+    pos,
+    residuals,
+    keys=None,
+    signs=None,
+    *,
+    white: Optional[WhiteNoise] = None,
+    residual_map="vmap",
+    point_estimates=(),
+    minimize: Callable = optimize.static_newton_cg,
+    minimize_kwargs: Optional[dict] = None,
+):
+    """The geoVI update of each residual of the forest ``residuals``, its
+    metric sample drawn from its key (or its sample of the stacked
+    ``white``) times its sign: ``(residuals, [OptimizeResults of each
+    sample])``.  ``residual_map="vmap"`` runs the Newton-CGs as one batch;
+    ``"lmap"`` or a callable map maps :func:`nonlinearly_update_residual`
+    over them.  ``minimize`` needs a batched form."""
+    n = tree_leaves(residuals)[0].shape[0]
+    if white is None:
+        white = _white_noises(likelihood, pos, keys, point_estimates)
+    signs = torch.as_tensor([1.0] * n if signs is None else signs, dtype=torch.float64)
+    update = partial(_update_nonlinear, likelihood, pos, point_estimates=point_estimates,
+                     minimize=minimize, minimize_kwargs=minimize_kwargs)
+    if _is_vmap(residual_map):
+        out, state = update(residuals, white, signs)
     else:
-        lh, e_liquid = likelihood.freeze(primals=pos, point_estimates=point_estimates)
-        at = (likelihood, point_estimates, pos)
-        opt_state = minimize(
-            None,
-            x0=sample,
-            **minimize_kwargs,
-            fun_and_grad=partial(
-                _nonlinear_residual_vg, *at, lh.transformation(e_liquid), metric_sample
-            ),
-            hessp=partial(_nonlinear_residual_metric, *at),
-            custom_gradnorm=partial(_nonlinear_residual_sampnorm, *at),
-        )
-    residual = tree_sub(opt_state.x, _strip(pos, point_estimates))
-    return _with_zeros(residual, pos), opt_state._replace(x=None, jac=None)
+        def one(r, w, sign):
+            return _only(update(_batch_of_one(r), _batch_of_one(WhiteNoise(*w)), sign.reshape(1)))
+
+        out, state = get_map(residual_map)(one)(residuals, white, signs)
+    return out, [tree_map(lambda x, i=i: None if x is None else x[i], state) for i in range(n)]
 
 
 def draw_residual(
@@ -265,3 +431,65 @@ class Samples:
             return Samples(pos=pos, samples=self._samples, keys=self._keys)
         smpls = tree_map(lambda p, s: s - p.unsqueeze(0), old_pos, self.samples)
         return Samples(pos=pos, samples=smpls, keys=self._keys)
+
+
+def wiener_filter_posterior(
+    likelihood: LikelihoodWithModel,
+    position=None,
+    *,
+    key: Optional[torch.Generator] = None,
+    n_samples: int = 0,
+    residual_map="vmap",
+    draw_linear_kwargs: Optional[dict] = None,
+    model_is_linear: bool = True,
+):
+    """The exact Gaussian posterior (the Wiener filter) of a linear model,
+    or of the model linearised at ``position`` (``model_is_linear=False``):
+    ``(Samples, (CG info of the mean, CG infos of the samples))``.
+
+    The mean solves ``(Rᵀ N⁻¹ R + 1) m = Rᵀ N⁻¹ d`` by ``cg`` (the host
+    :func:`~.conjugate_gradient.cg` unless ``draw_linear_kwargs`` names one,
+    with its ``cg_kwargs``); ``n_samples`` mirrored pairs are drawn around
+    it by :func:`draw_linear_residuals` (seeds from ``key``, or the stacked
+    draws ``white`` among ``draw_linear_kwargs``), mapped by
+    ``residual_map``, with the rest of ``draw_linear_kwargs``.  ``position``
+    defaults to zeros over the model's domain."""
+    if not isinstance(likelihood, LikelihoodWithModel):
+        raise TypeError("likelihood must be a LikelihoodWithModel")
+    kw = dict(draw_linear_kwargs or {})
+    model = likelihood.forward_model
+    if position is None:
+        position = position_from_numpy(
+            model, {k: np.zeros(v.shape) for k, v in model.domain.items()}
+        )
+    data = likelihood.likelihood.data
+    if model_is_linear:
+        forward_lin = model
+    else:
+        def forward_lin(t):
+            return torch.func.jvp(model, (position,), (t,))[1]
+
+        data = data - model(position) + forward_lin(position)
+    _, fwd_T = torch.func.vjp(forward_lin, position)
+    n_inv = partial(likelihood.likelihood.metric, model(position))
+    (j,) = fwd_T(n_inv(data))
+
+    def post_cov_inv(tangents):
+        return tree_add(fwd_T(n_inv(forward_lin(tangents)))[0], tangents)
+
+    cg = kw.pop("cg", conjugate_gradient.cg)
+    res = cg(post_cov_inv, j, **kw.pop("cg_kwargs", {}))
+    post_mean = res.x
+    if n_samples > 0:
+        keys = None if "white" in kw else seeds(key, n_samples)
+        smpls, smpls_info = draw_linear_residuals(
+            likelihood, post_mean, keys, residual_map=residual_map, **kw
+        )
+        samples = Samples(
+            pos=post_mean,
+            samples=concatenate_zip(smpls, tree_map(torch.neg, smpls)),
+            keys=keys,
+        )
+    else:
+        samples, smpls_info = Samples(pos=post_mean), None
+    return samples, (res.info, smpls_info)

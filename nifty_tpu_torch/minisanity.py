@@ -30,7 +30,7 @@ def _leaf_stats(x):
     return torch.stack((x.sum() / x.numel(), torch.vdot(x.reshape(-1), x.reshape(-1)).real / ndof))
 
 
-def reduced_residual_stats(position_or_samples, func=None, *, map="lmap"):
+def reduced_residual_stats(position_or_samples, func=None, *, map="vmap"):
     """A tree of :class:`ChiSqStats`, shaped like ``func(x)`` (or ``x``),
     over the samples (or the one position)."""
     map = get_map(map)
@@ -65,7 +65,7 @@ def _pretty(tree, indent=0, key="") -> str:
     return "  " * indent + (tree if isinstance(tree, str) else pprint.pformat(tree)) + "\n"
 
 
-def minisanity(position_or_samples, func=None, *, map="lmap"):
+def minisanity(position_or_samples, func=None, *, map="vmap"):
     """``(stats, table)``: :func:`reduced_residual_stats` and a printable
     table of it."""
     stat_tree = reduced_residual_stats(position_or_samples, func=func, map=map)

@@ -9,7 +9,10 @@ launches on the caller's CUDA stream and returns ``cudaGetLastError()``;
 
 :data:`launches` counts kernel launches by wrapper name.  A wrapper adds
 one where it launches its kernel on the card, and nowhere else, so a run
-can show which kernels its path went through.
+can show which kernels its path went through; :data:`batched_launches`
+counts, in the same places, the launches that took a batch of more than
+one sample, so a run can show that its samples went through a kernel
+together.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ __all__ = [
     "build",
     "build_log",
     "check",
+    "batched_launches",
     "int_array",
     "launches",
     "lib",
@@ -43,6 +47,7 @@ NVCC_FLAGS = (
 )
 
 launches: collections.Counter = collections.Counter()
+batched_launches: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,7 +55,9 @@ _SIGNATURES = {
     "nt_expand_to_grid": (_P, _P, _P, ctypes.POINTER(_I), _I, _P),
     "nt_collapse_from_grid": (_P, _P, _P, _P, _I, _I, _P, _I, _P, ctypes.POINTER(_I), _I, _P),
     "nt_hartley_rows": (_P, _P, _I, _I, _I, _P, _P, ctypes.POINTER(_I), _I, _I, _P),
-    "nt_hartley_cols": (_P, _P, _I, _I, _I, _P, _P, ctypes.POINTER(_I), _I, _I, _I, _I, _P),
+    "nt_hartley_cols": (
+        _P, _P, _I, _I, _I, ctypes.c_longlong, _I, _P, _P, ctypes.POINTER(_I), _I, _I, _I, _I, _P
+    ),
 }
 
 _lock = threading.Lock()
@@ -61,6 +68,7 @@ _build_log = ""
 def reset_launches() -> None:
     """Set every launch count to 0."""
     launches.clear()
+    batched_launches.clear()
 
 
 def _nvcc() -> str:

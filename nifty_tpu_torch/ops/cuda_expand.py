@@ -236,6 +236,7 @@ def expand_to_grid(tab, index: ExpandIndex, full_shape):
     )
     native.check(err, "expand_to_grid")
     native.launches["expand_to_grid"] += 1
+    native.batched_launches["expand_to_grid"] += B > 1
     return out
 
 
@@ -256,4 +257,5 @@ def collapse_from_grid(cot, index: ExpandIndex, full_shape):
     )
     native.check(err, "collapse_from_grid")
     native.launches["collapse_from_grid"] += 1
+    native.batched_launches["collapse_from_grid"] += B > 1
     return out

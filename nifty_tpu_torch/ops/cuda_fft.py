@@ -235,35 +235,37 @@ def hartley_rows_plain(x):
 
 
 def hartley_cols_plain(G, n1: int):
-    """Plain version of K4: column FFT of the half spectrum ``G`` and the
-    hermitian fold to the full ``(n0, n1)`` Hartley array."""
-    C = torch.fft.fft(G, dim=0)
-    n0 = C.shape[0]
+    """Plain version of K4: column FFT of the half spectrum ``G`` (``(n0,
+    n1/2 + 1)``, or a leading batch of them) and the hermitian fold to the
+    full ``(n0, n1)`` Hartley array."""
+    C = torch.fft.fft(G, dim=-2)
+    n0 = C.shape[-2]
     left = C.real - C.imag
     neg = (-torch.arange(n0, device=G.device)) % n0
-    right = (C.real + C.imag).index_select(0, neg)[:, 1 : n1 // 2]
-    return torch.cat([left, right.flip(1)], dim=1)
+    right = (C.real + C.imag).index_select(-2, neg)[..., 1 : n1 // 2]
+    return torch.cat([left, right.flip(-1)], dim=-1)
 
 
 def padded_half_spectrum(G):
-    """A copy of the half spectrum ``G`` (``(n0, n1/2 + 1)``) in the padded
-    row pitch that K4 reads: the ``(n0, n1/2 + 1)`` view of an
-    ``(n0, half_spectrum_pitch(n1))`` buffer, padding zeroed."""
-    n0, h = G.shape
-    buf = G.new_zeros((n0, half_spectrum_pitch(2 * (h - 1))))
-    view = buf[:, :h]
+    """A copy of the half spectrum ``G`` (``(n0, n1/2 + 1)``, or a leading
+    batch of them) in the padded row pitch that K4 reads: the view of a
+    buffer with rows of :func:`half_spectrum_pitch`, padding zeroed."""
+    h = G.shape[-1]
+    buf = G.new_zeros(tuple(G.shape[:-1]) + (half_spectrum_pitch(2 * (h - 1)),))
+    view = buf[..., :h]
     view.copy_(G)
     return view
 
 
 def _launch_rows(x, G, threads):
-    """Launch K3 with ``threads`` a block on the checked ``x`` into the
-    ``(n0, pitch)`` buffer ``G``; the one place that knows its arguments
-    (the launch-shape sweep calls it too, so it counts nothing)."""
-    n0, n1 = x.shape
+    """Launch K3 with ``threads`` a block on the checked rows ``x`` (``(rows,
+    n1)``) into the ``(rows, pitch)`` buffer ``G``; the one place that knows
+    its arguments (the launch-shape sweep calls it too, so it counts
+    nothing)."""
+    rows, n1 = x.shape
     tab, rev, plan = _fft_tables(n1, str(x.device))
     err = native.lib().nt_hartley_rows(
-        x.data_ptr(), G.data_ptr(), n0, n1, G.stride(0), tab.data_ptr(), rev.data_ptr(),
+        x.data_ptr(), G.data_ptr(), rows, n1, G.stride(0), tab.data_ptr(), rev.data_ptr(),
         native.int_array(plan), len(plan) // 4, threads, native.stream_of(x),
     )
     native.check(err, "hartley_rows")
@@ -271,44 +273,55 @@ def _launch_rows(x, G, threads):
 
 def _launch_cols(G, H, T, tc, parts):
     """Launch K4 at the launch shape ``(T, tc, parts)`` (:func:`col_launch`)
-    on the checked half spectrum ``G`` into ``H``; counts nothing, as
+    on the checked half spectra ``G`` (``(n0, h)`` or ``(B, n0, h)``) into
+    ``H``, one batch index a row of the launch grid; counts nothing, as
     :func:`_launch_rows`."""
-    n0, n1 = H.shape
+    n0, n1 = H.shape[-2:]
+    batch = H.numel() // (n0 * n1)
+    pitch = G.stride(-2)
+    batch_pitch = G.stride(0) if G.ndim == 3 else n0 * pitch
     tab, rev, plan = _fft_tables(n0, str(G.device), max(parts, 1))
     err = native.lib().nt_hartley_cols(
-        G.data_ptr(), H.data_ptr(), n0, n1, G.stride(0), tab.data_ptr(), rev.data_ptr(),
-        native.int_array(plan), len(plan) // 4, T, tc, parts, native.stream_of(G),
+        G.data_ptr(), H.data_ptr(), n0, n1, pitch, batch_pitch, batch, tab.data_ptr(),
+        rev.data_ptr(), native.int_array(plan), len(plan) // 4, T, tc, parts,
+        native.stream_of(G),
     )
     native.check(err, "hartley_cols")
 
 
 def hartley_rows(x):
     """K3: real ``(n0, n1)`` -> row half spectra ``(n0, n1/2 + 1)``, a view
-    with the row pitch :func:`half_spectrum_pitch`."""
+    with the row pitch :func:`half_spectrum_pitch`.  A batch ``(B, n0, n1)``
+    is ``B n0`` independent rows, one launch."""
     if x.device.type == "cpu":
         return hartley_rows_plain(x)
-    native.require_cuda(x, "hartley_rows", torch.float32, cuda_hartley_supported(x.shape, x.dtype))
+    native.require_cuda(x, "hartley_rows", torch.float32,
+                        x.ndim in (2, 3) and cuda_hartley_supported(x.shape[-2:], x.dtype))
     if x.data_ptr() % 16:
         raise ValueError("hartley_rows: tensor must start on a 16-byte boundary")
-    n0, n1 = x.shape
-    G = torch.empty((n0, half_spectrum_pitch(n1)), dtype=torch.complex64, device=x.device)
-    _launch_rows(x, G, row_launch(n1))
+    n1 = x.shape[-1]
+    G = torch.empty(tuple(x.shape[:-1]) + (half_spectrum_pitch(n1),), dtype=torch.complex64,
+                    device=x.device)
+    _launch_rows(x.view(-1, n1), G.view(-1, G.shape[-1]), row_launch(n1))
     native.launches["hartley_rows"] += 1
-    return G[:, : n1 // 2 + 1]
+    native.batched_launches["hartley_rows"] += x.ndim == 3 and x.shape[0] > 1
+    return G[..., : n1 // 2 + 1]
 
 
 def hartley_cols(G, n1: int):
-    """K4: half spectra ``(n0, n1/2 + 1)`` -> Hartley array ``(n0, n1)``.
-    On the card ``G`` must have unit column stride and a row pitch that is
-    a multiple of 8 complex with room for the last tile, as
-    :func:`hartley_rows` and :func:`padded_half_spectrum` give it; any
-    other layout raises (no copy is made)."""
+    """K4: half spectra ``(n0, n1/2 + 1)`` -> Hartley array ``(n0, n1)``; a
+    batch ``(B, n0, n1/2 + 1)`` -> ``(B, n0, n1)`` in one launch.  On the
+    card ``G`` must have unit column stride, a row pitch that is a multiple
+    of 8 complex with room for the last tile and a batch pitch that keeps
+    every slice on a 16-byte boundary, as :func:`hartley_rows` and
+    :func:`padded_half_spectrum` give it; any other layout raises (no copy
+    is made)."""
     if G.device.type == "cpu":
         return hartley_cols_plain(G, n1)
-    n0 = G.shape[0]
+    n0 = G.shape[-2]
     ok = (
-        G.ndim == 2
-        and G.shape[1] == n1 // 2 + 1
+        G.ndim in (2, 3)
+        and G.shape[-1] == n1 // 2 + 1
         and cuda_hartley_supported((n0, n1), torch.float32)
     )
     if G.device.type != "cuda":
@@ -318,13 +331,17 @@ def hartley_cols(G, n1: int):
     if not ok:
         raise ValueError(f"hartley_cols: shape {tuple(G.shape)} outside the kernel's domain")
     T, tc, parts = col_launch(n0)
-    pitch = G.stride(0)
+    pitch = G.stride(-2)
+    batch = G.shape[0] if G.ndim == 3 else 1
+    batch_pitch = G.stride(0) if G.ndim == 3 else n0 * pitch
     room = G.untyped_storage().nbytes() // 8 - G.storage_offset()
     if (
-        G.stride(1) != 1
+        G.stride(-1) != 1
         or pitch % 8
         or pitch < n1 // 2 + tc
-        or room < n0 * pitch
+        or batch_pitch % 8
+        or (batch > 1 and batch_pitch < n0 * pitch)
+        or room < (batch - 1) * batch_pitch + n0 * pitch
         or G.data_ptr() % 16
     ):
         raise ValueError(
@@ -332,23 +349,26 @@ def hartley_cols(G, n1: int):
             f"complex, at least {n1 // 2 + tc}, from a 16-byte boundary "
             "(the layout of hartley_rows or padded_half_spectrum)"
         )
-    H = torch.empty((n0, n1), dtype=torch.float32, device=G.device)
+    H = torch.empty(tuple(G.shape[:-1]) + (n1,), dtype=torch.float32, device=G.device)
     _launch_cols(G, H, T, tc, parts)
     native.launches["hartley_cols"] += 1
+    native.batched_launches["hartley_cols"] += batch > 1
     return H
 
 
 def hartley2d(x):
-    """Unnormalised 2-D Hartley transform ``Re F - Im F`` of a real array,
-    through K3 then K4 (their plain versions for a CPU tensor)."""
-    return hartley_cols(hartley_rows(x), x.shape[1])
+    """Unnormalised 2-D Hartley transform ``Re F - Im F`` of a real array
+    ``(n0, n1)`` or a batch ``(B, n0, n1)``, through K3 then K4 (their plain
+    versions for a CPU tensor)."""
+    return hartley_cols(hartley_rows(x), x.shape[-1])
 
 
 class Hartley2d(torch.autograd.Function):
     """The 2-D Hartley over the trailing two axes as a differentiable linear
     map: H is symmetric (Hᵀ = H), so its backward and its jvp are the
-    transform itself.  Leading axes are a batch: each slice is one K3 + K4
-    launch pair on the card."""
+    transform itself.  Leading axes are a batch, and so is the axis that
+    ``torch.func.vmap`` maps (moved to the front): one K3 and one K4 launch
+    for the whole batch on the card."""
 
     @staticmethod
     def forward(x):
@@ -359,8 +379,7 @@ class Hartley2d(torch.autograd.Function):
             return hartley2d(x)
         # a slice of a contiguous batch starts n0 n1 floats (a multiple of
         # 256²) after the previous one, so it stays 16-byte aligned
-        flat = x.reshape((-1,) + tuple(x.shape[-2:]))
-        return torch.stack([hartley2d(s) for s in flat]).reshape(x.shape)
+        return hartley2d(x.reshape((-1,) + tuple(x.shape[-2:]))).reshape(x.shape)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -375,3 +394,9 @@ class Hartley2d(torch.autograd.Function):
         # through apply: torch.func.jvp passes a wrapped tangent, which has
         # no data pointer; apply hands forward a plain tensor
         return Hartley2d.apply(tangent)
+
+    @staticmethod
+    def vmap(info, in_dims, x):
+        # the mapped axis leads; forward copies it to a contiguous batch
+        # when it lay elsewhere (after K1, whose sample axis is last)
+        return Hartley2d.apply(x.movedim(in_dims[0], 0)), 0

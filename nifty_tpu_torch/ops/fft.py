@@ -4,8 +4,9 @@ The Hartley transform H(x) = Re F(x) - Im F(x), the real self-inverse
 workhorse of the correlated field (H(H(x)) = N x).  A real f32 transform
 over the trailing two axes, both in the domain of the hand-written kernel
 pair (:mod:`.cuda_fft`: multiples of 256), goes through
-:class:`~.cuda_fft.Hartley2d`, which runs K3 + K4 on the card (one launch
-pair per slice of a leading batch) and their plain versions on the CPU.
+:class:`~.cuda_fft.Hartley2d`, which runs K3 + K4 on the card and their
+plain versions on the CPU.  A leading batch of B grids is one K3 launch
+over its B·n0 rows and one K4 launch with the batch in its launch grid.
 Everything else runs the plain version: ``rfftn`` plus the hermitian
 extension of the half spectrum, as the reference's generic branch does.
 The choice is made by shape, axes and dtype alone.
@@ -32,7 +33,9 @@ def _hermitian_extend(ft_half, shape, axes):
         return ft_half
     dev = ft_half.device
     missing = ft_half.index_select(last, torch.arange(1, n - n_half + 1, device=dev))
-    missing = torch.conj_physical(missing.flip(last))
+    missing = missing.flip(last)
+    # conj spelt out: conj_physical has no batching rule under torch.func.vmap
+    missing = torch.complex(missing.real, -missing.imag)
     for ax in axes[:-1]:
         m = missing.shape[ax]
         missing = missing.index_select(ax, (-torch.arange(m, device=dev)) % m)

@@ -107,8 +107,20 @@ def _kernel_input(t):
     return t
 
 
+def _batched_apply(fn, x, bdim, n_lead, index, full_shape):
+    """The vmap rule of K1 and K2: the mapped axis ``bdim`` of ``x`` joins
+    the kernels' trailing sample axis, so a batch is one launch.  ``x`` has
+    ``n_lead`` axes before its own sample axis (if any); the result has the
+    mapped axis last."""
+    x = x.movedim(bdim, -1)
+    batch = tuple(x.shape[n_lead:])
+    out = fn(x.reshape(tuple(x.shape[:n_lead]) + (-1,)), index, full_shape)
+    return out.reshape(tuple(out.shape[:-1]) + batch), -1
+
+
 class ModeExpandGrid(torch.autograd.Function):
-    """``tab`` (U,) / (U, B) -> ``full_shape`` grid (+ trailing B), through K1."""
+    """``tab`` (U,) / (U, B) -> ``full_shape`` grid (+ trailing B), through K1.
+    Under ``torch.func.vmap`` the mapped axis becomes K1's ``B``."""
 
     @staticmethod
     def forward(tab, index, full_shape):
@@ -126,9 +138,14 @@ class ModeExpandGrid(torch.autograd.Function):
     def jvp(ctx, tab_t, *_):
         return ModeExpandGrid.apply(tab_t, ctx.index, ctx.full_shape)
 
+    @staticmethod
+    def vmap(info, in_dims, tab, index, full_shape):
+        return _batched_apply(ModeExpandGrid.apply, tab, in_dims[0], 1, index, full_shape)
+
 
 class ModeCollapseGrid(torch.autograd.Function):
-    """``full_shape`` grid cotangent (+ trailing B) -> (U,) / (U, B), through K2."""
+    """``full_shape`` grid cotangent (+ trailing B) -> (U,) / (U, B), through K2.
+    Under ``torch.func.vmap`` the mapped axis becomes K2's ``B``."""
 
     @staticmethod
     def forward(cot, index, full_shape):
@@ -145,6 +162,12 @@ class ModeCollapseGrid(torch.autograd.Function):
     @staticmethod
     def jvp(ctx, cot_t, *_):
         return ModeCollapseGrid.apply(cot_t, ctx.index, ctx.full_shape)
+
+    @staticmethod
+    def vmap(info, in_dims, cot, index, full_shape):
+        return _batched_apply(
+            ModeCollapseGrid.apply, cot, in_dims[0], len(full_shape), index, full_shape
+        )
 
 
 def mode_expand_grid(tab, index: ExpandIndex, full_shape):

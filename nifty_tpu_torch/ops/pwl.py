@@ -56,7 +56,12 @@ class PwlFeatures(torch.autograd.Function):
     """:func:`pwl_features` as a differentiable map of ``coef``: its backward
     is :func:`pwl_transpose` (``None`` for ``x`` and ``knots``), its jvp the
     map itself applied to the tangent of ``coef``.  ``x`` and ``knots`` are
-    treated as constants: no derivative flows to them."""
+    treated as constants: no derivative flows to them.  All three are plain
+    PyTorch, so ``torch.func.vmap`` batches them itself: under a batch of
+    ``coef`` (``B`` samples) each chunk product becomes ``(pixels, 4) @ (4,
+    B)``."""
+
+    generate_vmap_rule = True
 
     @staticmethod
     def forward(x, knots, coef):

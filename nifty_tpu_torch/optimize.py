@@ -16,7 +16,13 @@ halving, turning to steepest descent after 5 failed halvings.
 
 A line search reads each trial's energy on the host; that is one device
 read per energy evaluation, which the search needs anyway.
-``trust_ncg`` and ``optax_wrapper`` are not ported (ROADMAP.md, section A).
+
+:func:`trust_ncg` is the trust-region Newton-CG (Nocedal & Wright,
+algorithm 4.1) over :func:`~.conjugate_gradient.cg_steihaug`, with the JAX
+package's status codes (0 converged, 1 the iteration limit, 2 a bad
+gradient or a model that predicts no decrease); the host reads the status
+once an iteration.  ``optax_wrapper`` is not ported (a ``torch.optim``
+counterpart is queued in ROADMAP.md, section A).
 """
 
 from __future__ import annotations
@@ -26,13 +32,23 @@ from functools import partial
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
+from torch.utils._pytree import tree_leaves
 
 from . import conjugate_gradient
 from .logger import logger
 from .utils.tree import norm as tree_norm
-from .utils.tree import size, tree_axpy, tree_map, vdot
+from .utils.tree import (
+    sample_norm,
+    sample_vdot,
+    size,
+    tree_axpy,
+    tree_map,
+    vdot,
+    where,
+    zeros_like,
+)
 
-__all__ = ["OptimizeResults", "minimize", "newton_cg", "static_newton_cg"]
+__all__ = ["OptimizeResults", "minimize", "newton_cg", "static_newton_cg", "trust_ncg"]
 
 
 class OptimizeResults(NamedTuple):
@@ -80,18 +96,18 @@ def value_and_grad(fun):
     return vg
 
 
-def _cg_tolerances(g, cg_kwargs):
+def _cg_tolerances(g, cg_kwargs, nrm=tree_norm):
     """The inner CG's residual norm: min(0.5, √|g|) |g|, |g| the 1-norm
     (or the CG's own ``norm_ord``) of the gradient."""
-    mag_g = tree_norm(g, ord=cg_kwargs.get("norm_ord", 1))
+    mag_g = nrm(g, ord=cg_kwargs.get("norm_ord", 1))
     return torch.clamp_max(torch.sqrt(mag_g), 0.5) * mag_g
 
 
-def _steepest_descent(g, hessp, pos):
+def _steepest_descent(g, hessp, pos, dot=vdot):
     """The gradient scaled by ⟨g, g⟩ / ⟨g, H g⟩: the line search's reset."""
-    gam = vdot(g, g).real
-    curv = vdot(g, hessp(pos, g)).real
-    return tree_map(lambda x: (gam / curv) * x, g)
+    gam = dot(g, g).real
+    curv = dot(g, hessp(pos, g)).real
+    return tree_axpy(gam / curv, g, zeros_like(g))
 
 
 def newton_cg(
@@ -210,25 +226,47 @@ def static_newton_cg(
     cg: Callable = conjugate_gradient.static_cg,
     cg_kwargs: Optional[dict] = None,
     custom_gradnorm: Optional[Callable] = None,
+    batched: bool = False,
 ) -> OptimizeResults:
     """Newton-CG with the JAX package's ``lax`` semantics: status 0
     converged, ``maxiter`` at the iteration limit, -1 after a failed line
-    search (the position is kept)."""
+    search (the position is kept); ``status``, ``fun`` and ``nit`` are 0-d
+    tensors.
+
+    ``batched``: ``x0`` is a forest of B independent problems;
+    ``fun_and_grad`` returns the B energies and the forest of gradients,
+    ``hessp`` and ``custom_gradnorm`` map forests sample by sample, and
+    ``cg`` must take ``batched=True`` (:func:`~.conjugate_gradient.static_cg`
+    does).  Every sample has its own line search (at most 9 trials, the
+    steepest-descent reset at trial 6), its own status and iteration count;
+    a sample that has stopped is frozen by a mask while the others go on,
+    as under ``jax.vmap`` of the JAX package's loop.  As lanes do there, a
+    stopped sample still costs its CG and its line-search trials while
+    others run; the search ends once every running sample has accepted a
+    trial.  The host reads one flag a line-search trial and one a Newton
+    step (all accepted, all stopped)."""
+    dot, nrm = (sample_vdot, sample_norm) if batched else (vdot, tree_norm)
+    lead = tuple(tree_leaves(x0)[0].shape[:1]) if batched else ()
     norm_ord = 1 if norm_ord is None else norm_ord
     miniter = 0 if miniter is None else miniter
     maxiter = 200 if maxiter is None else maxiter
-    xtol = xtol * size(x0)
+    xtol = xtol * (size(x0) // (lead[0] if lead else 1))
     cg_kwargs = {} if cg_kwargs is None else dict(cg_kwargs)
-    gradnorm = partial(tree_norm, ord=norm_ord) if custom_gradnorm is None else custom_gradnorm
+    if batched:
+        cg_kwargs["batched"] = True
+    gradnorm = partial(nrm, ord=norm_ord) if custom_gradnorm is None else custom_gradnorm
     fun, fun_and_grad, hessp = _prepare_vag_hessp(fun, jac, hessp, fun_and_grad)
 
     pos = x0
     energy, g = fun_and_grad(pos)
     old = torch.full_like(energy, math.nan if old_fval is None else float(old_fval))
     fallback = -math.inf if absdelta is None else absdelta / 100.0
-    status, i = -2, 0
-    while status == -2:
+    status = torch.full(lead, -2, dtype=torch.int32, device=energy.device)  # -2: go on
+    nit = torch.zeros(lead, dtype=torch.int32, device=energy.device)
+    i = 0
+    while bool((status == -2).any()):
         i += 1
+        running = status == -2
         # no earlier energy (NaN): the fallback disables or fixes the forcing term
         cg_absdelta = (
             torch.where(torch.isnan(old), fallback, energy_reduction_factor * (old - energy))
@@ -240,46 +278,155 @@ def static_newton_cg(
             g,
             **{
                 "absdelta": cg_absdelta,
-                "resnorm": _cg_tolerances(g, cg_kwargs),
+                "resnorm": _cg_tolerances(g, cg_kwargs, nrm),
                 "norm_ord": 1,
                 "_raise_nonposdef": False,
                 **cg_kwargs,
             },
         )
-        dd, scale = cg_res.x, 1.0
+        # the line search: successive halving along -dd, each sample its own
+        dd = cg_res.x
+        scale = torch.ones_like(energy)
+        accepted = torch.zeros(lead, dtype=torch.bool, device=energy.device)
+        new_pos, new_energy, new_g = pos, energy, g
+        n_tried = torch.zeros(lead, dtype=torch.int32, device=energy.device)
         for ls_it in range(9):
             if ls_it == 6:
-                dd, scale = _steepest_descent(g, hessp, pos), 1.0
+                dd = where(accepted, dd, _steepest_descent(g, hessp, pos, dot))
+                scale = torch.where(accepted, scale, 1.0)
             trial = tree_axpy(-scale, dd, pos)
             trial_energy, trial_g = fun_and_grad(trial)
-            accepted = bool(trial_energy <= energy)
-            if accepted:
-                break
-            scale_tried, scale = scale, scale / 2.0
-        n_tried = ls_it + 1
-        accepted_scale = scale if accepted else scale_tried
-        descent_norm = accepted_scale * gradnorm(dd)
-        if accepted:
-            energy_diff = energy - trial_energy
-            old, pos, energy, g = energy, trial, trial_energy, trial_g
-        else:
-            energy_diff = torch.zeros_like(energy)
-            old = energy
-            status = -1
-        if name is not None:
-            logger.info(f"{name}: it {i} E {float(energy):+.6e} dE {float(energy_diff):.3e}")
-        if status == -2 and i > miniter:
-            conv_abs = (
-                absdelta is not None
-                and 0.0 <= float(energy_diff) < absdelta
-                and n_tried <= 2
+            took = ~accepted & (trial_energy <= energy)
+            new_pos, new_energy, new_g = where(
+                took, (trial, trial_energy, trial_g), (new_pos, new_energy, new_g)
             )
-            if conv_abs or bool(descent_norm <= xtol):
-                status = 0
-        if status == -2 and i >= maxiter:
-            status = i
+            n_tried = torch.where(accepted, n_tried, ls_it + 1).to(torch.int32)
+            accepted = accepted | took
+            if bool((accepted | ~running).all()):
+                break
+            # a failed sample keeps the last scale it tried
+            scale = torch.where(accepted | (ls_it == 8), scale, scale / 2.0)
+        descent_norm = scale * gradnorm(dd)
+        energy_diff = torch.where(accepted, energy - new_energy, 0.0)
+        pos, g, old, energy = where(
+            running, (new_pos, new_g, energy, new_energy), (pos, g, old, energy)
+        )
+        step_status = torch.where(accepted, status, -1)
+        if name is not None:
+            logger.info(
+                f"{name}: it {i} E {energy.tolist()} dE {energy_diff.tolist()}"
+            )
+        if i > miniter:
+            conv = descent_norm <= xtol
+            if absdelta is not None:
+                conv = conv | ((energy_diff >= 0.0) & (energy_diff < absdelta) & (n_tried <= 2))
+            step_status = torch.where(conv & (step_status == -2), 0, step_status)
+        if i >= maxiter:
+            step_status = torch.where(step_status == -2, i, step_status)
+        status = torch.where(running, step_status, status).to(torch.int32)
+        nit = torch.where(running, i, nit).to(torch.int32)
     return OptimizeResults(
-        x=pos, success=status >= 0, status=status, fun=energy, jac=g, nit=i
+        x=pos, success=status >= 0, status=status, fun=energy, jac=g, nit=nit
+    )
+
+
+def trust_ncg(
+    fun=None,
+    x0=None,
+    *,
+    maxiter: Optional[int] = None,
+    energy_reduction_factor: float = 0.1,
+    old_fval=math.nan,
+    absdelta: Optional[float] = None,
+    gtol: float = 1e-4,
+    max_trust_radius: float = 1000.0,
+    initial_trust_radius: float = 1.0,
+    eta: float = 0.15,
+    jac: Optional[Callable] = None,
+    fun_and_grad: Optional[Callable] = None,
+    hessp: Optional[Callable] = None,
+    subproblem: Callable = conjugate_gradient.cg_steihaug,
+    subproblem_kwargs: Optional[dict] = None,
+    name: Optional[str] = None,
+) -> OptimizeResults:
+    """Trust-region Newton-CG: each iteration solves the subproblem in the
+    trust radius (``subproblem``, Steihaug's CG, with the forcing term and
+    residual norm of :func:`static_newton_cg`), takes the step when the
+    actual decrease is more than ``eta`` of the predicted one, and shrinks
+    the radius below a quarter of it or doubles it (up to
+    ``max_trust_radius``) above three quarters on the boundary.  Converged
+    (status 0) when the energy stops changing, the gradient's norm falls
+    below ``gtol`` or an accepted decrease below ``absdelta``."""
+    maxiter = 200 if maxiter is None else maxiter
+    if not 0 <= eta < 0.25:
+        raise ValueError("invalid acceptance stringency `eta`")
+    if gtol < 0.0 or max_trust_radius <= 0.0 or initial_trust_radius <= 0.0:
+        raise ValueError("tolerances and radii must be positive")
+    if initial_trust_radius >= max_trust_radius:
+        raise ValueError("the initial trust radius must be below the maximum")
+    subproblem_kwargs = {} if subproblem_kwargs is None else dict(subproblem_kwargs)
+    fun, fun_and_grad, hessp = _prepare_vag_hessp(fun, jac, hessp, fun_and_grad)
+    eps = 6.0 * torch.finfo(tree_leaves(x0)[0].dtype).eps
+    grad_norm = partial(tree_norm, ord=subproblem_kwargs.get("norm_ord", 1))
+    fallback = -math.inf if absdelta is None else absdelta / 100.0
+
+    pos = x0
+    energy, g = fun_and_grad(pos)
+    g_mag = grad_norm(g)
+    old = torch.full_like(energy, math.nan if old_fval is None else float(old_fval))
+    radius = torch.full_like(energy, initial_trust_radius)
+    status = torch.where(torch.isfinite(g_mag), -2 if maxiter > 0 else 1, 2).to(torch.int32)
+    nit = nhev = torch.zeros_like(status)
+    i = 0
+    while bool(status == -2):
+        i += 1
+        cg_absdelta = (
+            torch.where(torch.isnan(old), fallback, energy_reduction_factor * (old - energy))
+            if energy_reduction_factor
+            else fallback
+        )
+        sub = subproblem(
+            partial(hessp, pos),
+            g,
+            **{
+                "trust_radius": radius,
+                "cur_val": energy,
+                "absdelta": cg_absdelta,
+                "resnorm": torch.clamp_max(torch.sqrt(g_mag), 0.5) * g_mag,
+                "norm_ord": 1,
+                **subproblem_kwargs,
+            },
+        )
+        trial = tree_map(torch.add, pos, sub.step)
+        trial_energy, trial_g = fun_and_grad(trial)
+        actual_red = energy - trial_energy
+        pred_red = energy - sub.pred_f
+        rho = actual_red / pred_red
+        new_radius = torch.where(rho < 0.25, 0.25 * radius, radius)
+        new_radius = torch.where(
+            (rho > 0.75) & sub.hits_boundary,
+            torch.clamp_max(2.0 * radius, max_trust_radius),
+            new_radius,
+        )
+        accept = rho > eta
+        old = energy
+        pos, energy, g, g_mag = where(
+            accept, (trial, trial_energy, trial_g, grad_norm(trial_g)), (pos, energy, g, g_mag)
+        )
+        energy_eps = eps * energy.abs()
+        converged = ((actual_red <= energy_eps) & (actual_red > -energy_eps)) | (g_mag < gtol)
+        if absdelta is not None:
+            converged = converged | (accept & (actual_red > 0.0) & (actual_red < absdelta))
+        status = torch.where(converged & (status == -2), 0, status)
+        status = torch.where((i >= maxiter) & (status == -2), 1, status)
+        status = torch.where(pred_red <= 0, 2, status).to(torch.int32)
+        radius = new_radius
+        nit = torch.full_like(nit, i)
+        nhev = nhev + sub.nhev
+        if name is not None:
+            logger.info(f"{name}: it {i} E {float(energy):+.6e} radius {float(radius):.3e}")
+    return OptimizeResults(
+        x=pos, success=status == 0, status=status, fun=energy, jac=g, nit=nit, nhev=nhev
     )
 
 
@@ -295,11 +442,13 @@ def minimize(
     options = {} if options is None else dict(options)
     m = method.lower().replace("_", "-")
     if tol is not None:
-        options.setdefault("xtol", tol)
+        options.setdefault("gtol" if m in ("trust-ncg", "trustncg") else "xtol", tol)
     if m in ("newton-cg", "newtoncg", "ncg"):
         return newton_cg(fun, x0, **options)
     if m in ("static-newton-cg", "staticnewtoncg"):
         return static_newton_cg(fun, x0, **options)
-    if m in ("trust-ncg", "trustncg", "l-bfgs", "lbfgs", "optax"):
+    if m in ("trust-ncg", "trustncg"):
+        return trust_ncg(fun, x0, **options)
+    if m in ("l-bfgs", "lbfgs", "optax"):
         raise NotImplementedError(f"method {method!r} is not ported (ROADMAP.md, section A)")
     raise ValueError(f"unknown method {method!r}")

@@ -8,11 +8,14 @@ Each iteration of :class:`OptimizeVI` (``update``) does two things:
 2. the KL: minimise the sample-averaged Hamiltonian over the position by
    Newton-CG, the samples' residuals held fixed.
 
-The samples are mapped by a loop (``"lmap"``): each call sees one sample,
-a 2-D grid, so the Hartley runs on K3/K4 as it does in one metric apply.
-Batched maps (``"vmap"``) and sharding over cards are not ported
-(ROADMAP.md, section A).  Schedules (``n_samples``, ``sample_mode``, the
-keyword dicts, ...) may be callables of the iteration number.
+The samples are mapped as one batch (``kl_map`` and ``residual_map``
+``"vmap"``, the defaults, as in the JAX package): the KL's value, gradient
+and metric through ``torch.func.vmap``, the samplers on an explicit sample
+axis (``evi.draw_linear_residuals``), so each kernel (K1-K4) runs once per
+batch of samples, not once per sample.  ``"lmap"`` maps them by a loop;
+sharding over cards (``"pmap"``) is not ported (ROADMAP.md, section A).
+Schedules (``n_samples``, ``sample_mode``, the keyword dicts, ...) may be
+callables of the iteration number.
 
 Randomness comes from one :class:`torch.Generator` (the ``key`` of
 :func:`optimize_kl` and :meth:`OptimizeVI.init_state`): each resampling
@@ -32,11 +35,17 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from . import optimize
-from .evi import Samples, concatenate_zip, draw_linear_residual, nonlinearly_update_residual
+from .evi import (
+    Samples,
+    concatenate_zip,
+    draw_linear_residuals,
+    nonlinearly_update_residuals,
+    seeds,
+)
 from .likelihood import Likelihood, StandardHamiltonian, frozen_keys
 from .logger import logger
 from .minisanity import minisanity
-from .utils.tree import get_map, stack, tree_map, unstack
+from .utils.tree import get_map, tree_map
 
 __all__ = ["OptimizeVI", "OptimizeVIState", "get_status_message", "optimize_kl"]
 
@@ -54,7 +63,7 @@ def _mean(forest):
     return tree_map(lambda x: x.mean(dim=0), forest)
 
 
-def _kl_vg(likelihood, primals, primals_samples, *, map="lmap"):
+def _kl_vg(likelihood, primals, primals_samples, *, map="vmap"):
     """The sample-averaged Hamiltonian and its gradient at ``primals``."""
     vg = optimize.value_and_grad(StandardHamiltonian(likelihood))
     if len(primals_samples) == 0:
@@ -62,7 +71,7 @@ def _kl_vg(likelihood, primals, primals_samples, *, map="lmap"):
     return _mean(get_map(map)(vg)(primals_samples.at(primals).samples))
 
 
-def _kl_met(likelihood, primals, tangents, primals_samples, *, map="lmap"):
+def _kl_met(likelihood, primals, tangents, primals_samples, *, map="vmap"):
     """The sample-averaged Hamiltonian metric applied to ``tangents``."""
     ham = StandardHamiltonian(likelihood)
     if len(primals_samples) == 0:
@@ -101,12 +110,7 @@ def _sample_mode(mode: str, n_samples: int, n_keys: int) -> str:
     return mode
 
 
-def _seeds(generator: torch.Generator, n: int) -> list:
-    """``n`` integer seeds from ``generator``, one per sample pair."""
-    return torch.randint(0, 2**62, (n,), generator=generator, device=generator.device).tolist()
-
-
-def get_status_message(samples, state, residual=None, *, name="", map="lmap") -> str:
+def get_status_message(samples, state, residual=None, *, name="", map="vmap") -> str:
     """The iteration's energy, sampling and minimisation steps, and the
     reduced χ² of the likelihood's residuals and the latent position."""
     msg_smpl = ""
@@ -137,15 +141,15 @@ class OptimizeVI:
         likelihood: Likelihood,
         n_total_iterations: int,
         *,
-        kl_map="lmap",
-        residual_map="lmap",
+        kl_map="vmap",
+        residual_map="vmap",
         mirror_samples: bool = True,
     ):
         if not mirror_samples:
             raise NotImplementedError("unmirrored samples are not supported")
-        # raise here for a map that is not ported; samples are drawn by a loop
-        get_map(kl_map), get_map(residual_map)
+        get_map(kl_map), get_map(residual_map)  # raise here for a map that is not ported
         self.likelihood = likelihood
+        self.residual_map = residual_map
         self.n_total_iterations = n_total_iterations
         self.kl_value_and_grad = partial(_kl_vg, likelihood, map=kl_map)
         self.kl_metric = partial(_kl_met, likelihood, map=kl_map)
@@ -156,26 +160,26 @@ class OptimizeVI:
     # -- sampling -------------------------------------------------------------
 
     def draw_linear_samples(self, primals, keys, **kwargs):
-        """Mirrored MGVI residuals at ``primals``, one pair per key:
-        ``(Samples, CG infos)``."""
-        draw = partial(draw_linear_residual, self.likelihood, primals, **kwargs)
-        residuals, infos = zip(*(draw(k) for k in keys))
-        residuals = stack(residuals)
+        """Mirrored MGVI residuals at ``primals``, one pair per key, mapped
+        by ``residual_map``: ``(Samples, CG infos)``."""
+        residuals, infos = draw_linear_residuals(
+            self.likelihood, primals, keys, residual_map=self.residual_map, **kwargs
+        )
         smpls = concatenate_zip(residuals, tree_map(torch.neg, residuals))
-        infos = torch.stack([torch.as_tensor(i) for i in infos])
         return Samples(pos=primals, samples=smpls, keys=list(keys)), infos
 
     def nonlinearly_update_samples(self, samples: Samples, **kwargs):
-        """geoVI-curve every residual of mirrored ``samples``: ``(Samples,
-        the minimisers' results)``."""
+        """geoVI-curve every residual of mirrored ``samples``, mapped by
+        ``residual_map``: ``(Samples, the minimisers' results)``."""
         if len(samples.keys) != len(samples) // 2:
             raise ValueError("nonlinear updates need one key per mirrored pair")
         keys = [k for k in samples.keys for _ in (0, 1)]
         signs = [1.0, -1.0] * len(samples.keys)
-        curve = partial(nonlinearly_update_residual, self.likelihood, samples.pos, **kwargs)
-        out = [curve(r, k, sg) for r, k, sg in zip(unstack(samples._samples), keys, signs)]
-        smpls = stack([r for r, _ in out])
-        return Samples(pos=samples.pos, samples=smpls, keys=samples.keys), [s for _, s in out]
+        smpls, states = nonlinearly_update_residuals(
+            self.likelihood, samples.pos, samples._samples, keys, signs,
+            residual_map=self.residual_map, **kwargs,
+        )
+        return Samples(pos=samples.pos, samples=smpls, keys=samples.keys), states
 
     def draw_samples(
         self,
@@ -202,7 +206,7 @@ class OptimizeVI:
         )
         if mode == "nonlinear_update":
             return curve(samples)
-        keys = _seeds(key, n_samples) if mode.endswith("_resample") else samples.keys
+        keys = seeds(key, n_samples) if mode.endswith("_resample") else samples.keys
         samples, st = self.draw_linear_samples(
             samples.pos, keys, point_estimates=point_estimates, **(draw_linear_kwargs or {})
         )
@@ -311,8 +315,8 @@ def optimize_kl(
     n_samples,
     point_estimates=(),
     constants=(),
-    kl_map="lmap",
-    residual_map="lmap",
+    kl_map="vmap",
+    residual_map="vmap",
     mirror_samples: bool = True,
     draw_linear_kwargs=None,
     nonlinearly_update_kwargs=None,

@@ -243,13 +243,56 @@ def test_metric_on_card_matches_cpu_f64(cuda_device):
 
 def test_batched_hartley_runs_the_kernel_pair_per_slice(cuda_device):
     """A (3, 1280, 1280) grid transformed over its trailing axes runs K3 and
-    K4 once per slice, not torch.fft, and equals the plain transform."""
+    K4 once for the whole batch, not torch.fft, and equals the plain
+    transform."""
     x = torch.randn((3, 1280, 1280), device=cuda_device)
     native.reset_launches()
     out = nt.hartley(x, axes=(1, 2))
-    assert native.launches["hartley_rows"] == 3 and native.launches["hartley_cols"] == 3
+    assert native.launches["hartley_rows"] == 1 and native.launches["hartley_cols"] == 1
     ref = nt.ops.fft.hartley_plain(x.double().cpu(), axes=(1, 2))
     assert _rel(out.double().cpu(), ref) <= 1e-5
+
+
+@pytest.mark.parametrize("B", [1, 2, 4])
+@pytest.mark.parametrize("shape", [(256, 512), (1024, 1024), (1280, 1280), (12288, 256)])
+def test_batched_hartley_kernels(cuda_device, shape, B):
+    """K3 over a (B, n0, n1) batch as B n0 rows and K4 with the batch in its
+    launch grid (clusters, and the tile kernel for 12288 rows), against
+    their plain versions; one launch each."""
+    x = torch.randn((B,) + shape, device=cuda_device)
+    native.reset_launches()
+    G = cfft.hartley_rows(x)
+    H = cfft.hartley_cols(G, shape[1])
+    assert native.launches["hartley_rows"] == 1 and native.launches["hartley_cols"] == 1
+    assert dict(native.batched_launches) == dict.fromkeys(["hartley_rows", "hartley_cols"], int(B > 1))
+    Gp = cfft.hartley_rows_plain(x)
+    assert _rel(G, Gp) <= 1e-5
+    assert _rel(H, cfft.hartley_cols_plain(Gp, shape[1])) <= 1e-5
+    assert _rel(cfft.hartley_cols(cfft.padded_half_spectrum(Gp), shape[1]), H) <= 1e-5
+
+
+@pytest.mark.parametrize("B", [2, 4])
+def test_vmap_rules_launch_once_per_batch(cuda_device, B):
+    """Under ``torch.func.vmap`` K1 and K2 take the batch as their sample
+    axis (B = 2 scalar, B = 4 16-byte vectors) and the Hartley pair as its
+    leading batch: one launch of each kernel for B samples, and the plain
+    versions' results (K1 exact; K2 and the Hartley to f32 rounding)."""
+    full = (1280, 1280)
+    index = grid_index(full).to(cuda_device)
+    tab = torch.randn((B, index.n_unique), device=cuda_device)
+    cot = torch.randn((B,) + full, device=cuda_device)
+    native.reset_launches()
+    grid = torch.func.vmap(lambda t: me.mode_expand_grid(t, index, full))(tab)
+    seg = torch.func.vmap(lambda c: me.ModeCollapseGrid.apply(c, index, full))(cot)
+    har = torch.func.vmap(nt.hartley)(cot)
+    assert dict(native.launches) == {"expand_to_grid": 1, "collapse_from_grid": 1,
+                                     "hartley_rows": 1, "hartley_cols": 1}
+    assert native.batched_launches == native.launches
+    for i in range(B):
+        assert torch.equal(grid[i], ce.expand_to_grid_plain(tab[i], index, full))
+        ref = ce.collapse_from_grid_plain(cot[i].double().cpu(), copy.deepcopy(index).to("cpu"), full)
+        assert _rel(seg[i].double().cpu(), ref) <= 1e-6
+        assert _rel(har[i], cfft.hartley_cols_plain(cfft.hartley_rows_plain(cot[i]), full[1])) <= 1e-5
 
 
 def _rel_l2(got, ref):

@@ -214,8 +214,9 @@ def test_pwl_features_never_hold_the_feature_tensor(monkeypatch):
 
 def test_batched_hartley_goes_through_the_kernel_pair(monkeypatch):
     """A (B, n0, n1) f32 grid with axes (1, 2) in the kernels' domain runs
-    Hartley2d, one K3 + K4 pair per slice (here their plain versions), and
-    equals the plain transform; other axes and dtypes do not."""
+    Hartley2d, one K3 + K4 pair for the whole batch (here their plain
+    versions), and equals the plain transform; other axes and dtypes do
+    not."""
     calls = []
     hartley2d = cuda_fft.hartley2d
 
@@ -226,13 +227,13 @@ def test_batched_hartley_goes_through_the_kernel_pair(monkeypatch):
     monkeypatch.setattr(cuda_fft, "hartley2d", spy)
     x = torch.from_numpy(np.random.default_rng(11).standard_normal((3, 256, 512))).float()
     out = nt.hartley(x, axes=(1, 2))
-    assert calls == [(256, 512)] * 3
+    assert calls == [(3, 256, 512)]
     ref = nt.ops.fft.hartley_plain(x.double(), axes=(1, 2))
     assert float((out.double() - ref).abs().max() / ref.abs().max()) <= 1e-5
     _, vjp_fn = torch.func.vjp(lambda v: nt.hartley(v, axes=(-2, -1)), x)
     calls.clear()
     vjp_fn(x)
-    assert calls == [(256, 512)] * 3  # Hᵀ = H, slice by slice
+    assert calls == [(3, 256, 512)]  # Hᵀ = H, the batch at once
     calls.clear()
     nt.hartley(x, axes=(0, 1))
     nt.hartley(x.double(), axes=(1, 2))

@@ -529,9 +529,14 @@ def test_update_follows_schedules_and_constants():
 
 
 def test_maps_that_are_not_ported_raise():
+    """Only ``pmap`` (samples across cards) is not ported; ``vmap`` is the
+    default of both maps and ``trust-ncg`` a method of ``minimize``."""
     lh, _, _, _ = _intro_demo()
-    for kw in (dict(kl_map="vmap"), dict(residual_map="vmap"), dict(kl_map="pmap")):
+    for kw in (dict(kl_map="pmap"), dict(residual_map="pmap")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             nt.OptimizeVI(lh, 1, **kw)
-    with pytest.raises(NotImplementedError):
-        nt.minimize(lambda x: (x**2).sum(), torch.zeros(2), method="trust-ncg")
+    for kw in (dict(kl_map="vmap"), dict(residual_map="vmap"), {}):
+        assert nt.OptimizeVI(lh, 1, **kw).residual_map == kw.get("residual_map", "vmap")
+    res = nt.minimize(lambda x: ((x - 1.0) ** 2).sum(), torch.zeros(2, dtype=torch.float64),
+                      method="trust-ncg")
+    assert int(res.status) == 0 and torch.allclose(res.x, torch.ones(2, dtype=torch.float64))
