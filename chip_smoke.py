@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's paths once on one NVIDIA GPU.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
 with one CUDA card, ``nvcc`` and PyTorch built for CUDA.  It imports no
@@ -62,16 +62,46 @@ JAX.  Phases, each printing one JSON line to stdout:
    pair of a 42-step Lanczos with full reorthogonalisation in f32, after
    the deflation of earlier batches, is not an exact eigenpair: 1e-2 λ is
    the accuracy that still makes log λ, all the ELBO uses, good to 1 %),
-   the stats finite.
+   the stats finite;
+10. mcmc: ``nuts_sample`` on phase 4's model at 1280² exact (counts at
+   the model's own draw, f32), 4 chains on a leading axis from the latent
+   that drew the counts, 8 warm-up transitions and 4 samples, depth <= 5,
+   initial step 1e-3 (``MCMC``): every sample finite and on the card;
+   seconds per transition, tree depths, leapfrog steps (each two batched
+   gradients), ms per batched gradient (CUDA events around one call,
+   median of 5), launches per transition, acceptance, divergences.  The
+   batched gradient of the 4 chains' last samples, each chain against
+   plain autograd in f64 on the CPU: relative L2 <= 1e-3 (the gradient
+   cancels; a plain f32 one is off by up to ~2.3e-4).  Then one
+   transition of each chain by ``lmap`` (``NUTSChain``, batches of one)
+   and the same by ``vmap`` from the same seeds, each chain's sample
+   within relative L2 1e-4 of the other map's at the same depth; one
+   ``HMCChain`` transition of the 4 chains (8 leapfrog steps), all at
+   chain 0's adapted step; and the energy change over 8 leapfrog steps of
+   all 4 chains in one batch, from their last samples at their adapted
+   steps and a numpy momentum, on the card against the same trajectories
+   in f64 on the CPU: within 0.1 nats, each chain (also printed: the
+   change with every sum in f32);
+10b. mcmc_row: ``bench_extra.py:267-300``'s NUTS row, the 64² 16-knot
+   field under a Gaussian (sigma 0.3), one ``NUTSChain``, step 0.05, depth
+   <= 8: samples per second over up to 64 samples, cut at 40 s; no kernel
+   runs at 64² (below K3/K4's multiple of 256, no K1/K2 in the knot form);
+11. likelihoods: the Fisher metric of each likelihood of this slice (and a
+   sum of two, and a complex ``Gaussian``) at 1280² exact, its mean the
+   field (through ``exp``, ``sigmoid``, a pair or a stack where the
+   likelihood needs it), against the same model in f64 on the CPU:
+   relative L2 <= 1e-4.
 
-The launch counters are set to 0 just before each of phases 4-6 and 9,
-and before each VI run of phases 7 and 8 (``vi_mgvi_vmap``,
+The launch counters are set to 0 just before each of phases 4-6, 9, 10b
+and 11, and before each VI run of phases 7 and 8 (``vi_mgvi_vmap``,
 ``vi_geovi_vmap``, ``vi_mgvi_lmap``, ``vi_kl``, ``exact_mgvi_vmap``,
-``exact_mgvi_lmap``, ``exact_geovi_vmap``), and read just after it: K1-K4
-must launch in phases 4, 5, 8 and 9, K3/K4 (and not K1/K2) in 6 and 7,
-and each VI run's kernels in its last iteration too; under ``vmap`` each
-must have launched on a batch of samples (``native.batched_launches``),
-under ``lmap`` none.  Then it prints the card line, the kernel summary
+``exact_mgvi_lmap``, ``exact_geovi_vmap``) and each run of phase 10
+(``mcmc_nuts``, ``mcmc_nuts_lmap``, ``mcmc_nuts_vmap``, ``mcmc_hmc``), and read just
+after it:
+K1-K4 must launch in phases 4, 5, 8-11, K3/K4 (and not K1/K2) in 6 and 7,
+none in 10b, and each VI run's kernels in its last iteration too; under
+``vmap`` each must have launched on a batch of samples or chains
+(``native.batched_launches``), under ``lmap`` none.  Then it prints the card line, the kernel summary
 (launches per phase) and, last, ``{"ok": true, "device": ...}``.  Any
 failure raises, so the exit code is not 0 and no result line is printed.
 
@@ -79,8 +109,10 @@ Tolerances (and why): K1 exact (a gather computes nothing); K2 relative
 1e-6 against its float64 plain version (f32 sums over one bin in a fixed
 order), and the same bits on two calls; Hartley max|Δ|/max|ref| <= 1e-5 (f32 FFT rounding); metric
 relative L2 <= 1e-4 against float64 on the CPU (f32 through exp and
-three Hartleys).  TF32 is off for matmuls and cuDNN, so no library call
-rounds to 10-bit mantissas behind the comparison.
+three Hartleys); the leapfrog energy change within 0.1 nats of float64 (a
+NUTS transition turns such differences into probabilities).  TF32 is off
+for matmuls and cuDNN, so no library call rounds to 10-bit mantissas
+behind the comparison.
 """
 
 from __future__ import annotations
@@ -102,11 +134,17 @@ SHAPES_HARTLEY = (VI_SHAPE, 1280, 4096, 10240)  # ascending: the summary keeps 4
 SHAPES_HARTLEY_BATCH = (VI_SHAPE, 1280)  # the VI grids: B = 4 samples in one K3 + K4 pair
 EXACT_VI = {"linear_resample": 1280, "nonlinear_resample": 1024}  # bench_extra.py's exact rows
 ELBO = dict(n_eigenvalues=32, n_batches=4)
+MCMC = dict(shape=1280, chains=4, n_warmup=8, n_samples=4, max_tree_depth=5, step_size=1e-3,
+            hmc_steps=8, seed=21)
+NUTS_ROW = dict(shape=64, n_samples=64, budget_s=40.0)  # bench_extra.py:267's 64 samples, cut by time
 CG_ITERS = 20
 NAMES = {"K1": "expand_to_grid", "K2": "collapse_from_grid",
          "K3": "hartley_rows", "K4": "hartley_cols"}
 TOL = {"k2": 1e-6, "hartley": 1e-5, "metric": 1e-4, "kl_maps": 1e-5,  # K1 must be exact
-       "eigenvalue": 1e-3, "ritz": 1e-2}
+       "eigenvalue": 1e-3, "ritz": 1e-2, "dH": 0.1,
+       # the posterior's gradient cancels: its global leaves sum ~1.6e6 terms of
+       # both signs, so a plain float32 gradient is itself off by up to ~2.3e-4
+       "gradient": 1e-3}
 
 
 def emit(obj):
@@ -135,7 +173,9 @@ def main() -> int:
     from nifty_tpu_torch.ops import cuda_expand as ce
     from nifty_tpu_torch.bench.timing import bound, device_ms, fft_flops
     from nifty_tpu_torch.bench.workload import (
-        build_likelihood, build_vi_likelihood, grid_index, vi_settings)
+        bench_field, build_likelihood, build_vi_likelihood, grid_index, latent_draw,
+        leapfrog_energy_change, vi_settings)
+    from nifty_tpu_torch.hmc_oo import Potential, Ravel
     from nifty_tpu_torch.evidence_lower_bound import _ravel_metric
     from nifty_tpu_torch.ops import cuda_fft as cfft
     from nifty_tpu_torch.optimize_kl import _kl_met, _kl_vg
@@ -297,6 +337,18 @@ def main() -> int:
         num = sum(float(((got[k].double().cpu() - ref[k]) ** 2).sum()) for k in ref)
         return (num / sum(float((ref[k] ** 2).sum()) for k in ref)) ** 0.5
 
+    def event_ms(fn, reps):
+        """The ms of each of ``reps`` calls between CUDA events, host dispatch in."""
+        times = []
+        for _ in range(reps):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            torch.cuda.synchronize()
+            times.append(s.elapsed_time(e))
+        return times
+
     def metric_phase(phase, variant, n, lh, pos_np, tan_np, lh64=None):
         """Apply the metric once (checked) and 10 times (timed) and emit the
         line; return the position and tangent on the card."""
@@ -308,14 +360,7 @@ def main() -> int:
         for k, v in m.items():
             if v.shape != t[k].shape or v.device != dev or not bool(torch.isfinite(v).all()):
                 fail(f"{variant} metric leaf {k} at {n}²: shape {tuple(v.shape)}, {v.device} or non-finite")
-        times = []
-        for _ in range(10):
-            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            s.record()
-            lh.metric(p, t)
-            e.record()
-            torch.cuda.synchronize()
-            times.append(s.elapsed_time(e))
+        times = event_ms(lambda: lh.metric(p, t), 10)
         line = {"phase": phase, "shape": [n, n], "variant": variant, "dtype": "float32",
                 "metric_apply_ms_median": float(np.median(times)), "metric_apply_ms_all": times,
                 "peak_mem_bytes": torch.cuda.max_memory_allocated()}
@@ -327,6 +372,14 @@ def main() -> int:
                 fail(f"{variant} metric at {n}²: relative L2 {err} > {TOL['metric']} against CPU f64")
         emit(line)
         return p, t
+
+    @torch.no_grad()
+    def hamiltonian_f32_sums(lh, q, p):
+        """The Poisson posterior's H(q, p), unit mass, every sum in float32:
+        the reading of the energies' rounding before they summed in float64."""
+        lam = lh.forward_model(q)
+        energy = lam.sum() - (torch.log(lam) * lh.likelihood.data).sum()
+        return float(energy + 0.5 * sum((v * v).sum() for v in list(q.values()) + list(p.values())))
 
     launches, batched = {}, {}  # phase -> {kernel wrapper: launches (with a batch > 1)}
 
@@ -554,6 +607,211 @@ def main() -> int:
     if not all(np.isfinite(v) for v in stats.values()):
         fail(f"elbo: stats not finite: {stats}")
     del exact, lh_x, post, evecs
+
+    # -- 10. NUTS and HMC on the 1280² exact posterior, 4 chains -----------------
+    n = MCMC["shape"]
+    lh_m, _ = build_vi_likelihood(n, dev, torch.float32, None)
+    truth_np = latent_draw(lh_m.forward_model.domain, 0)  # the latent that made the counts
+    chains = MCMC["chains"]
+    start = nt.position_from_numpy(lh_m.forward_model, {
+        k: np.repeat(v[None], chains, axis=0) for k, v in truth_np.items()}, batch=(chains,))
+    native.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples, info = nt.nuts_sample(
+        lh_m, MCMC["seed"], n_chains=chains, n_samples=MCMC["n_samples"],
+        n_warmup=MCMC["n_warmup"], initial_position=start, max_tree_depth=MCMC["max_tree_depth"],
+        step_size=MCMC["step_size"])
+    torch.cuda.synchronize()
+    nuts_s = time.perf_counter() - t0
+    read_launches("mcmc_nuts", NAMES, batch=NAMES)
+    for i, smp in enumerate(samples):
+        for k, v in smp.items():
+            if v.device != dev or not bool(torch.isfinite(v).all()):
+                fail(f"mcmc: sample {i} leaf {k} on {v.device} or non-finite")
+    n_trans = MCMC["n_warmup"] + MCMC["n_samples"]
+    steps = info["leapfrog_steps"][0].tolist()  # the batch's, each step two batched gradients
+    eps = info["step_size"].tolist()
+    last = {k: v[:, -1] for k, v in info["chain_samples"].items()}
+    potential = lambda q: -nt.LogDensity(lh_m)(q)  # noqa: E731
+    proto = {k: v[0] for k, v in last.items()}
+    ravel = Ravel(proto)
+    grad, x_last = Potential(potential, ravel).gradient, ravel.ravel(last)
+    grad_ms = float(np.median(event_ms(lambda: grad(x_last), 5)))
+    # the batched gradient, each chain against plain autograd in f64 on the CPU
+    cf64 = bench_field(n, "cpu", torch.float64, None)
+    lh64 = nt.Poissonian(lh_m.likelihood.data.cpu(), device="cpu").amend(
+        nt.ChainModel(torch.exp, cf64))
+    g4 = ravel.unravel(grad(x_last))
+    grad_err = []
+    for c in range(chains):
+        q64 = {k: v[c].double().cpu().requires_grad_(True) for k, v in last.items()}
+        g64 = dict(zip(q64, torch.autograd.grad(-nt.LogDensity(lh64)(q64), list(q64.values()))))
+        grad_err.append(rel_l2({k: v[c] for k, v in g4.items()}, g64))
+    if not max(grad_err) <= TOL["gradient"]:
+        fail(f"mcmc: batched gradient against CPU f64, relative L2 {grad_err} > {TOL['gradient']}")
+    # one transition of each chain by lmap (a batch of one each) and by vmap,
+    # the chains' seeds those nuts_sample drew from the same seed
+    nuts_chain = nt.NUTSChain(potential, 1.0, proto, step_size=eps[0],
+                              max_tree_depth=MCMC["max_tree_depth"])
+    keys = nt.evi.seeds(torch.Generator().manual_seed(MCMC["seed"]), chains)
+    by_map = {}
+    for cmap in ("lmap", "vmap"):
+        native.reset_launches()
+        by_map[cmap], _ = nuts_chain.generate_n_samples(keys, last, 1, chain_map=cmap)
+        torch.cuda.synchronize()
+        read_launches(f"mcmc_nuts_{cmap}", NAMES, batch=NAMES if cmap == "vmap" else ())
+    if any(batched["mcmc_nuts_lmap"].values()):
+        fail(f"mcmc: a batch of chains under lmap ({batched['mcmc_nuts_lmap']})")
+    maps_err = [rel_l2({k: v[c, 0] for k, v in by_map["lmap"].samples.items()},
+                       {k: v[c, 0].double().cpu() for k, v in by_map["vmap"].samples.items()})
+                for c in range(chains)]
+    maps_depths = {m: ch.depths[:, 0].tolist() for m, ch in by_map.items()}
+    if maps_depths["lmap"] != maps_depths["vmap"] or not max(maps_err) <= TOL["metric"]:
+        fail(f"mcmc: lmap and vmap transitions differ: depths {maps_depths}, "
+             f"relative L2 {maps_err} > {TOL['metric']}")
+    # one HMC transition of each chain, 8 leapfrog steps at chain 0's adapted step
+    hmc_chain = nt.HMCChain(potential, 1.0, proto, num_steps=MCMC["hmc_steps"], step_size=eps[0])
+    native.reset_launches()
+    t0 = time.perf_counter()
+    hmc_out, _ = hmc_chain.generate_n_samples(keys, last, 1)
+    torch.cuda.synchronize()
+    hmc_s = time.perf_counter() - t0
+    read_launches("mcmc_hmc", NAMES, batch=NAMES)
+    if not all(bool(torch.isfinite(v).all()) for v in hmc_out.samples.values()):
+        fail("mcmc: an HMC sample is non-finite")
+    # ΔH of 8 leapfrog steps of the 4 chains in one batch, from their last
+    # samples at their adapted steps, the card against float64 on the CPU
+    p0 = {k: torch.from_numpy(v).to(dev, torch.float32) for k, v in latent_draw(last, 11).items()}
+    dh32, q8, p8 = leapfrog_energy_change(lh_m, last, p0, eps, MCMC["hmc_steps"])
+    dh32_f32_sums = [hamiltonian_f32_sums(lh_m, {k: v[c] for k, v in q8.items()},
+                                          {k: v[c] for k, v in p8.items()})
+                     - hamiltonian_f32_sums(lh_m, {k: v[c] for k, v in last.items()},
+                                            {k: v[c] for k, v in p0.items()})
+                     for c in range(chains)]
+    to64 = lambda t: {k: v.double().cpu() for k, v in t.items()}  # noqa: E731
+    dh64, _, _ = leapfrog_energy_change(lh64, to64(last), to64(p0), eps, MCMC["hmc_steps"])
+    dh_err, dh_err_f32 = np.abs(dh32 - dh64), np.abs(np.array(dh32_f32_sums) - dh64)
+    emit({"phase": "mcmc", "shape": [n, n], "variant": "exact", "dtype": "float32",
+          "settings": {k: v for k, v in MCMC.items() if k != "shape"},
+          "start": "the latent that drew the counts, all chains", "nuts_s": nuts_s,
+          "s_per_transition_median_sampling": float(np.median(
+              info["transition_seconds"][0, MCMC["n_warmup"]:].numpy())),
+          "s_per_transition_all": info["transition_seconds"][0].tolist(),
+          "tree_depths": info["tree_depths"].tolist(),
+          "leapfrog_steps_per_transition_batch": steps,
+          "gradient_evaluations_per_transition_batch": [2 * x for x in steps],
+          "batched_gradient_ms_median": grad_ms,
+          "launches_per_transition": {k: launches["mcmc_nuts"].get(NAMES[k], 0) / n_trans
+                                      for k in NAMES},
+          "step_size": eps, "acceptance": info["acceptance"].tolist(),
+          "divergences": info["divergences"].tolist(),
+          "warmup_divergences": info["warmup_divergences"].tolist(),
+          "batched_gradient_rel_l2_vs_cpu_f64": grad_err,
+          "lmap_vs_vmap_transition": {"depths": maps_depths, "rel_l2": maps_err},
+          "hmc_s": hmc_s, "hmc_acceptance": hmc_out.acceptance.tolist(),
+          "dH_card_f64_sums": dh32.tolist(), "dH_card_f32_sums": dh32_f32_sums,
+          "dH_cpu_f64": dh64.tolist(), "dH_err": dh_err.tolist(),
+          "dH_err_f32_sums": dh_err_f32.tolist(), "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    if not dh_err.max() <= TOL["dH"]:
+        fail(f"mcmc: ΔH over {MCMC['hmc_steps']} leapfrog steps {dh32} on the card, {dh64} in "
+             f"f64 on the CPU: {dh_err} > {TOL['dH']}")
+    del lh_m, lh64, cf64, samples, info, last, start, nuts_chain, hmc_chain, hmc_out, by_map
+    del grad, x_last, g4, q8, p8
+    torch.cuda.empty_cache()
+
+    # -- 10b. bench_extra.py's NUTS row: 64² knot16, one chain ------------------
+    n = NUTS_ROW["shape"]
+    cfm = nt.CorrelatedFieldMaker("cf")
+    cfm.set_amplitude_total_offset(offset_mean=0.0, offset_std=(1e-1, 3e-2))
+    cfm.add_fluctuations((n, n), distances=1.0 / n, fluctuations=(1.0, 5e-1),
+                         loglogavgslope=(-3.0, 2e-1), flexibility=None, n_mode_knots=16)
+    cf = cfm.finalize(device=dev, dtype=torch.float32)
+    with torch.no_grad():
+        truth = cf(nt.position_from_numpy(cf, latent_draw(cf.domain, 4))).double().cpu().numpy()
+    data = (truth + 0.3 * np.random.default_rng(5).normal(size=(n, n))).astype(np.float32)
+    ham = nt.StandardHamiltonian(
+        nt.Gaussian(data, noise_std_inv=lambda x: (1 / 0.3) * x, device=dev).amend(cf))
+    pos = nt.position_from_numpy(cf, latent_draw(cf.domain, 6))
+    row = nt.NUTSChain(ham, 1.0, pos, step_size=0.05, max_tree_depth=8)
+    native.reset_launches()
+    _, (draws, pos) = row.generate_n_samples(7, pos, 1)  # warm-up, not timed
+    count, depths = 0, []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while count < NUTS_ROW["n_samples"] and time.perf_counter() - t0 < NUTS_ROW["budget_s"]:
+        out, (draws, pos) = row.generate_n_samples(draws, pos, 1)
+        count += 1
+        depths.append(int(out.depths[0]))
+    torch.cuda.synchronize()
+    row_s = time.perf_counter() - t0
+    read_launches("mcmc_nuts_64", (), refuse=NAMES)
+    if not all(bool(torch.isfinite(v).all()) for v in pos.values()):
+        fail("mcmc 64²: the chain's position is non-finite")
+    emit({"phase": "mcmc_row", "shape": [n, n], "knots": 16, "dtype": "float32",
+          "source": "bench_extra.py:267-300 (one NUTSChain, step 0.05, depth <= 8, sigma 0.3)",
+          "samples": count, "of": NUTS_ROW["n_samples"], "seconds": row_s,
+          "samples_per_s": count / row_s, "tree_depths": depths,
+          "kernels": "none: 64 is below K3/K4's multiple of 256 and the knot form has no K1/K2"})
+    del cf, ham, row, pos, draws
+
+    # -- 11. the likelihoods' metrics at 1280² exact against CPU float64 -----------
+    n = SHAPES_MAIN[0]
+    cf32, cf64 = bench_field(n, dev, torch.float32, None), bench_field(n, "cpu", torch.float64, None)
+    pos_np, tan_np = latent_draw(cf32.domain, 13), latent_draw(cf32.domain, 14)
+    rng = np.random.default_rng(12)
+    data = {"real": rng.standard_normal((n, n)), "bits": rng.integers(0, 2, (n, n)),
+            "classes": rng.integers(0, 3, (n, n, 1)), "beta": rng.uniform(0.5, 2.0, (n, n)),
+            "complex": rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))}
+
+    def amend(lh, fwd, cf):
+        return lh.amend(nt.ChainModel(fwd, cf))
+
+    # name: (the likelihood of the field, from real data of dtype rd / complex data of dtype cd)
+    cases = {
+        "student_t": ("StudentT(dof 4, noise_std_inv 2) of the field", lambda cf, rd, cd, d: amend(
+            nt.StudentT(data["real"].astype(rd), 4.0, noise_std_inv=2.0, device=d), lambda f: f, cf)),
+        "bernoulli": ("Bernoulli of sigmoid(field)", lambda cf, rd, cd, d: amend(
+            nt.Bernoulli(data["bits"], device=d), torch.sigmoid, cf)),
+        "variable_covariance_gaussian": ("(field, exp(-field)) as (mean, std_inv)",
+                                         lambda cf, rd, cd, d: amend(
+            nt.VariableCovarianceGaussian(data["real"].astype(rd), device=d),
+            lambda f: (f, torch.exp(-f)), cf)),
+        "variable_covariance_student_t": ("(field, exp(-field)) as (mean, std), dof 4",
+                                          lambda cf, rd, cd, d: amend(
+            nt.VariableCovarianceStudentT(data["real"].astype(rd), 4.0, device=d),
+            lambda f: (f, torch.exp(-f)), cf)),
+        "categorical": ("logits (field, -field, field/2) along a last axis",
+                        lambda cf, rd, cd, d: amend(
+            nt.Categorical(data["classes"], device=d),
+            lambda f: torch.stack([f, -f, 0.5 * f], dim=-1), cf)),
+        "inverse_gamma": ("InverseGamma of exp(field), alpha -0.5", lambda cf, rd, cd, d: amend(
+            nt.InverseGamma(data["beta"].astype(rd), device=d), torch.exp, cf)),
+        "gaussian_complex": ("complex data, mean (1 + 0.5i) field", lambda cf, rd, cd, d: amend(
+            nt.Gaussian(data["complex"].astype(cd), noise_cov_inv=2.0, device=d),
+            lambda f: f * (1 + 0.5j), cf)),
+        "sum": ("Gaussian(field) + Bernoulli(sigmoid(field))", lambda cf, rd, cd, d: amend(
+            nt.Gaussian(data["real"].astype(rd), noise_cov_inv=4.0, device=d), lambda f: f, cf)
+            + amend(nt.Bernoulli(data["bits"], device=d), torch.sigmoid, cf)),
+    }
+    native.reset_launches()
+    lik = {}
+    for name, (_, build) in cases.items():
+        lh32 = build(cf32, np.float32, np.complex64, dev)
+        lh64 = build(cf64, np.float64, np.complex128, "cpu")
+        m32 = lh32.metric(nt.position_from_numpy(cf32, pos_np), nt.position_from_numpy(cf32, tan_np))
+        m64 = lh64.metric(nt.position_from_numpy(cf64, pos_np), nt.position_from_numpy(cf64, tan_np))
+        for k, v in m32.items():
+            if v.device != dev or not bool(torch.isfinite(v).all()):
+                fail(f"likelihoods: {name} metric leaf {k} on {v.device} or non-finite")
+        lik[name] = err = rel_l2(m32, m64)
+        if not err <= TOL["metric"]:
+            fail(f"likelihoods: {name} metric at {n}²: relative L2 {err} > {TOL['metric']}")
+    torch.cuda.synchronize()
+    read_launches("likelihoods", NAMES)
+    emit({"phase": "likelihoods", "shape": [n, n], "variant": "exact", "dtype": "float32",
+          "models": {k: v[0] for k, v in cases.items()}, "rel_l2_vs_cpu_f64": lik})
+    del cf32, cf64, data
 
     sources = {"K1": ("nifty_tpu_torch/csrc/expand.cu", "nifty_tpu/ops/pallas_expand.py:108"),
                "K2": ("nifty_tpu_torch/csrc/expand.cu", "nifty_tpu/ops/pallas_expand.py:161"),

@@ -1,7 +1,9 @@
 """nifty_tpu_torch: the PyTorch and CUDA port of nifty_tpu.
 
-The correlated field in its exact and 64-knot forms, the Poisson and
-Gaussian likelihoods with their Fisher metrics, conjugate gradient,
+The correlated field in its exact and 64-knot forms, the likelihoods
+(Gaussian, Poisson, Student-t, Bernoulli, categorical, inverse-gamma and
+the variable-covariance ones, and their sums) with their Fisher metrics,
+HMC and NUTS with chains batched on a leading axis, conjugate gradient,
 Newton-CG, trust-region Newton-CG, the MGVI/geoVI loop (``optimize_kl``,
 samples mapped as one batch by default), the Wiener filter and the
 evidence lower bound (Lanczos), running on one NVIDIA H100 through
@@ -13,7 +15,7 @@ runs its plain PyTorch version.
 The package imports torch and never jax.
 """
 
-from . import config
+from . import config, hmc
 from .conjugate_gradient import CGResults, SteihaugResults, cg, cg_steihaug, static_cg
 from .evi import (
     Samples,
@@ -30,8 +32,26 @@ from .evi import (
 )
 from .evidence_lower_bound import estimate_evidence_lower_bound
 from .interop import position_from_numpy, samples_from_numpy
-from .likelihood import Likelihood, LikelihoodPartial, LikelihoodWithModel, StandardHamiltonian
-from .likelihood_impl import Gaussian, Poissonian
+from .hmc import generate_hmc_acc_rej, generate_nuts_tree
+from .hmc_oo import Chain, HMCChain, NUTSChain
+from .likelihood import (
+    Likelihood,
+    LikelihoodPartial,
+    LikelihoodSum,
+    LikelihoodWithModel,
+    StandardHamiltonian,
+)
+from .likelihood_impl import (
+    Bernoulli,
+    Categorical,
+    Gaussian,
+    InverseGamma,
+    Poissonian,
+    StudentT,
+    VariableCovarianceGaussian,
+    VariableCovarianceStudentT,
+)
+from .mcmc import LogDensity, get_sample_size_estimate, nuts_sample
 from .minisanity import ChiSqStats, minisanity, reduced_residual_stats
 from .model import ChainModel, Initializer, Model, WrappedCall
 from .models.correlated_field import (

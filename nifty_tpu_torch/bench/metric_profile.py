@@ -20,10 +20,15 @@ With ``--vi`` it profiles one MGVI and one geoVI iteration
 (``OptimizeVI.update`` with ``chip_smoke.py`` phase 7's settings, after
 one warm-up) at each size instead, the samples mapped by ``--maps``
 (``vmap``, the default, or ``lmap``), with ``--knots`` knots (64 unless
-given; 0 for the exact form).  Copies (the layout change of a batch
-between K1's trailing sample axis and the Hartley's leading one, among
-others) are their own kind.  Run from the root of another tree of the
-port with this folder, it times that tree.
+given; 0 for the exact form).  With ``--nuts`` it profiles, on
+``chip_smoke.py`` phase 10's model (the exact form unless ``--knots``),
+4 chains from the latent that drew the counts: five batched gradients of
+the chains' potential, then one ``NUTSChain`` transition of the 4 chains
+(depth <= 5, step 5e-4, within phase 10's adapted steps), each after one
+warm-up.  Copies (the layout change of a batch between K1's trailing
+sample axis and the Hartley's leading one, among others) are their own
+kind.  Run from the root of another tree of the port with this folder,
+it times that tree.
 """
 
 from __future__ import annotations
@@ -135,6 +140,34 @@ def _line(wall_ms, kernels, inside=None, **head):
     return line
 
 
+def _profile_nuts(nt, workload, n, dev, knots, ranges, head, chains=4):
+    import torch
+
+    from nifty_tpu_torch.hmc_oo import Potential, Ravel
+
+    lh, _ = workload.build_vi_likelihood(n, dev, torch.float32, knots)
+    truth = nt.position_from_numpy(lh.forward_model,
+                                   workload.latent_draw(lh.forward_model.domain, 0))
+    start = {k: v.unsqueeze(0).repeat((chains,) + (1,) * v.ndim) for k, v in truth.items()}
+    potential = lambda q: -nt.LogDensity(lh)(q)  # noqa: E731
+    ravel = Ravel(truth)
+    x = ravel.ravel(start)
+    grad = Potential(potential, ravel).gradient
+    print(json.dumps(_line(*kernel_times(lambda: grad(x), 5, warmup=1, ranges=ranges),
+                           **head, chains=chains, what="batched_gradient", calls=5)), flush=True)
+    chain = nt.NUTSChain(potential, 1.0, truth, step_size=5e-4, max_tree_depth=5)
+    keys = list(range(chains))
+    out = {}
+
+    def transition():
+        out["chain"], _ = chain.generate_n_samples(keys, start, 1)
+
+    line = _line(*kernel_times(transition, 1, warmup=1, ranges=ranges), **head, chains=chains,
+                 what="nuts_transition", calls=1)
+    line["tree_depths"] = out["chain"].depths.reshape(-1).tolist()
+    print(json.dumps(line), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -146,6 +179,9 @@ def main() -> int:
                          "instead of metric applies; with --knots (default 64, 0 exact)")
     ap.add_argument("--maps", choices=("vmap", "lmap"), default="vmap",
                     help="--vi: how the samples are mapped")
+    ap.add_argument("--nuts", action="store_true",
+                    help="profile batched gradients and a NUTS transition of 4 chains "
+                         "(chip_smoke.py phase 10) instead of metric applies")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("metric_profile: no CUDA device", file=sys.stderr)
@@ -166,7 +202,9 @@ def main() -> int:
         ranges = (PWL_RANGE,)
     for n in args.sizes:
         head = {"card": smi, "n": n, "knots": args.knots}
-        if args.vi:
+        if args.nuts:
+            _profile_nuts(nt, workload, n, dev, args.knots, ranges, head)
+        elif args.vi:
             lh, start_np = workload.build_vi_likelihood(n, dev, torch.float32, args.knots)
             start = nt.Samples(pos=nt.position_from_numpy(lh.forward_model, start_np))
             opt = nt.OptimizeVI(lh, 1, kl_map=args.maps, residual_map=args.maps)

@@ -1,9 +1,19 @@
 """The bench's models as the port's entry points build them: ``bench.py``'s
-metric-apply rows (exact and 64-knot) and ``bench_extra.py``'s VI rows."""
+metric-apply rows (exact and 64-knot) and ``bench_extra.py``'s VI rows,
+and the energy change of a leapfrog trajectory on a model's standardized
+posterior."""
 
 from __future__ import annotations
 
-__all__ = ["bench_field", "build_likelihood", "build_vi_likelihood", "grid_index", "vi_settings"]
+__all__ = [
+    "bench_field",
+    "build_likelihood",
+    "build_vi_likelihood",
+    "grid_index",
+    "latent_draw",
+    "leapfrog_energy_change",
+    "vi_settings",
+]
 
 
 def grid_index(full):
@@ -67,15 +77,49 @@ def build_vi_likelihood(n, device, dtype, knots=64):
 
     cf = bench_field(n, device, dtype, knots)
     fwd = nt.ChainModel(torch.exp, cf)
-
-    def draw(seed):
-        rng = np.random.default_rng(seed)
-        return {k: rng.standard_normal(v.shape) for k, v in sorted(cf.domain.items())}
-
     with torch.no_grad():
-        rate = fwd(nt.position_from_numpy(cf, draw(0))).double().cpu().numpy()
+        rate = fwd(nt.position_from_numpy(cf, latent_draw(cf.domain, 0))).double().cpu().numpy()
     data = np.random.default_rng(1).poisson(np.clip(rate, 0, 1e6)).astype(np.int32)
-    return nt.Poissonian(data, device=device).amend(fwd), draw(2)
+    return nt.Poissonian(data, device=device).amend(fwd), latent_draw(cf.domain, 2)
+
+
+def latent_draw(domain, seed):
+    """Standard normals over ``domain`` from numpy ``seed``, key by key in
+    sorted order: :func:`build_vi_likelihood`'s latent draws (seed 0 made
+    its data)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {k: rng.standard_normal(v.shape) for k, v in sorted(domain.items())}
+
+
+def leapfrog_energy_change(likelihood, position, momentum, step_size, n_steps):
+    """``(H(end) - H(start), end positions, end momenta)`` of ``n_steps``
+    leapfrog steps of the standardized posterior of ``likelihood``
+    (``nt.LogDensity``) with a unit mass matrix, from the forests
+    ``position`` and ``momentum`` (a leading chain axis), every chain in
+    one batch through ``Potential``: ΔH a float64 numpy array, a chain
+    each, H in float64; ``step_size`` a number or one a chain."""
+    import torch
+
+    import nifty_tpu_torch as nt
+    from nifty_tpu_torch.hmc import QP
+    from nifty_tpu_torch.hmc_oo import Potential, Ravel, kinetic_energy, make_stepper
+
+    ravel = Ravel({k: v[0] for k, v in position.items()})
+    potential = Potential(lambda x: -nt.LogDensity(likelihood)(x), ravel)
+    qp = QP(ravel.ravel(position), ravel.ravel(momentum))
+    inv_m = torch.ones_like(qp.position)
+    step_size = torch.as_tensor(step_size, dtype=torch.float64, device=qp.position.device)
+
+    def hamiltonian(qp):
+        h = potential.energy(qp.position).double() + kinetic_energy(inv_m, qp.momentum)
+        return h.cpu().numpy()
+
+    h0, step = hamiltonian(qp), make_stepper(potential)
+    for _ in range(n_steps):
+        qp = step(step_size, inv_m, qp)
+    return hamiltonian(qp) - h0, ravel.unravel(qp.position), ravel.unravel(qp.momentum)
 
 
 def vi_settings():

@@ -80,14 +80,18 @@ class WhiteNoise(NamedTuple):
 
 
 def white_noise(likelihood: Likelihood, pos, key, point_estimates=()) -> WhiteNoise:
-    """The white draws of a residual at ``pos`` from ``key``, in the
-    position's dtype and on its device."""
+    """The white draws of a residual at ``pos`` from ``key``, on the
+    position's device: the data-space draws in the dtypes of the
+    likelihood's ``lsm_tangents_shape`` (complex normals for complex data;
+    the position's real dtype where it names none), the prior draws in the
+    position's."""
     lh, p_liquid = likelihood.freeze(primals=pos, point_estimates=point_estimates)
     leaf = tree_leaves(p_liquid)[0]
     gen = torch.Generator(device=leaf.device).manual_seed(int(key))
-    draw = partial(random_like, gen, device=leaf.device, dtype=leaf.dtype)
-    data = draw(lh.lsm_tangents_shape)
-    prior = draw(tree_map(lambda x: ShapeWithDtype(x.shape), p_liquid))
+    draw = partial(random_like, gen, device=leaf.device)
+    data = draw(tree_map(lambda s: ShapeWithDtype(s.shape, s.dtype or leaf.real.dtype),
+                         lh.lsm_tangents_shape, is_leaf=lambda x: isinstance(x, ShapeWithDtype)))
+    prior = draw(tree_map(ShapeWithDtype.from_leave, p_liquid))
     return WhiteNoise(data, prior)
 
 

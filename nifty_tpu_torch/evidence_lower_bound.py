@@ -23,12 +23,13 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_leaves
 
 from .evi import Samples
 from .likelihood import Likelihood, StandardHamiltonian
 from .logger import logger
 from .num.lanczos import lanczos_tridiag
-from .utils.tree import vmap
+from .utils.tree import ShapeWithDtype, vmap
 
 __all__ = ["estimate_evidence_lower_bound"]
 
@@ -176,7 +177,8 @@ def estimate_evidence_lower_bound(
     met, metric_size, dtype, device = _ravel_metric(hamiltonian.metric, samples.pos)
     if key is None and start_vectors is None:
         key = torch.Generator(device=device).manual_seed(42)
-    n_data_points = math.prod(likelihood.lsm_tangents_shape.shape)
+    shapes = tree_leaves(likelihood.lsm_tangents_shape, is_leaf=lambda x: isinstance(x, ShapeWithDtype))
+    n_data_points = sum(math.prod(s.shape) for s in shapes)
     n_relevant_dofs = int(min(n_data_points, metric_size))
     if compute_all:
         n_eigenvalues = n_relevant_dofs

@@ -5,7 +5,10 @@ instance ``{k: np.asarray(v) for k, v in position.items()}`` of a JAX
 position) and returns the port's position dict, after checking each key
 and shape against the port model's domain.  The tensors go where the
 model's floating buffers are, in their dtype, unless told otherwise; a
-model without buffers sends them to the CUDA card.  ``samples_from_numpy``
+model without buffers sends them to the CUDA card.  It also takes a
+domain itself, any tree of :class:`ShapeWithDtype` (a likelihood's
+``(mean, std_inv)`` pair, say), and arrays with leading axes before the
+domain's shapes (a chain axis, ``batch=(n_chains,)``).  ``samples_from_numpy``
 does the same for a set of samples: the expansion point and the
 residuals, each leaf of these with a leading sample axis.
 """
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from . import device as _device
+from .utils.tree import ShapeWithDtype, tree_map
 
 __all__ = ["position_from_numpy", "samples_from_numpy"]
 
@@ -37,18 +41,30 @@ def _check_keys(domain, arrays):
         raise KeyError(f"position keys differ from the domain: missing {missing}, unexpected {extra}")
 
 
-def position_from_numpy(model, arrays, device=None, dtype=None):
-    """``dict[str, Tensor]`` for ``model`` from ``dict[str, np.ndarray]``."""
+def position_from_numpy(model, arrays, device=None, dtype=None, batch=()):
+    """The position for ``model`` (a model, whose ``domain`` is a dict of
+    :class:`ShapeWithDtype`, or a domain itself: any tree of them) from the
+    same tree of numpy arrays, each of shape ``batch + `` its domain leaf's
+    shape; a dict comes back with its keys sorted.  A domain leaf's dtype,
+    where it names one, wins over ``dtype``."""
     device, dtype = _placement(model, device, dtype)
-    domain = model.domain
-    _check_keys(domain, arrays)
-    out = {}
-    for k in sorted(domain):
-        a = np.asarray(arrays[k])
-        if a.shape != domain[k].shape:
-            raise ValueError(f"{k!r}: shape {a.shape}, domain has {domain[k].shape}")
-        out[k] = torch.as_tensor(a, device=device, dtype=dtype)
-    return out
+    domain = model.domain if isinstance(model, torch.nn.Module) else model
+    batch = tuple(batch)
+
+    def convert(shape, a, where):
+        a = np.asarray(a)
+        if a.shape != batch + tuple(shape.shape):
+            raise ValueError(f"{where}: shape {a.shape}, domain has {batch} + {shape.shape}")
+        return torch.as_tensor(a, device=device, dtype=shape.dtype or dtype)
+
+    def convert_tree(shapes, a, where):
+        return tree_map(lambda s, x: convert(s, x, where), shapes, a,
+                        is_leaf=lambda x: isinstance(x, ShapeWithDtype))
+
+    if isinstance(domain, dict):
+        _check_keys(domain, arrays)
+        return {k: convert_tree(domain[k], arrays[k], repr(k)) for k in sorted(domain)}
+    return convert_tree(domain, arrays, "leaf")
 
 
 def samples_from_numpy(model, pos, residuals, keys=None, device=None, dtype=None):

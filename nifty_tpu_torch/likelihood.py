@@ -15,20 +15,49 @@ Jᶠᵀ M Jᶠ: one ``torch.func.jvp`` pushes the tangent forward and one
 ``jax.linearize`` plus its ``linear_transpose``).  This apply is the hot
 loop of variational inference.
 
+The LSM is torch's vjp, which conjugates: on complex data it is the
+adjoint J^H that the JAX package gets by conjugating the inputs and the
+output of its vjp; the RSM is the LSM's transpose, as there.
+
 Positions are dicts of tensors.  :meth:`Likelihood.freeze` fixes some of
 their keys (point estimates): the :class:`LikelihoodPartial` it returns
-takes and returns dicts of the other keys only.
+takes and returns dicts of the other keys only.  Likelihoods add up
+(:class:`LikelihoodSum`); the data-space trees of the terms are joined
+under the keys ``lh_0``, ``lh_1``, ...
 """
 
 from __future__ import annotations
 
+from functools import partial, reduce
 from typing import Callable
 
 import torch
+from torch.utils._pytree import tree_leaves
 
-from .utils.tree import ShapeWithDtype, tree_map, vdot
+from .utils.tree import ShapeWithDtype, tree_add, tree_map, vdot
 
-__all__ = ["Likelihood", "LikelihoodPartial", "LikelihoodWithModel", "StandardHamiltonian"]
+__all__ = [
+    "Likelihood",
+    "LikelihoodPartial",
+    "LikelihoodSum",
+    "LikelihoodWithModel",
+    "StandardHamiltonian",
+]
+
+
+def _is_shape(x):
+    return isinstance(x, ShapeWithDtype)
+
+
+def _zeros(shapes, like):
+    """Zeros shaped like the tree of :class:`ShapeWithDtype` ``shapes`` on
+    the device of the tensor ``like``; a leaf without a dtype takes the
+    real dtype of ``like``."""
+    return tree_map(
+        lambda s: torch.zeros(s.shape, dtype=s.dtype or like.real.dtype, device=like.device),
+        shapes,
+        is_leaf=_is_shape,
+    )
 
 
 class Likelihood(torch.nn.Module):
@@ -37,16 +66,18 @@ class Likelihood(torch.nn.Module):
     methods themselves.  Data are buffers, so ``.to`` moves them.
 
     ``lsm_tangents_shape`` (also ``left_sqrt_metric_tangents_shape``) is the
-    shape of the data-space tangents that the left square root of the
-    metric takes, as a :class:`ShapeWithDtype` without a dtype: a sampler
-    draws them in the working dtype of the position."""
+    tree of :class:`ShapeWithDtype` of the data-space tangents that the
+    left square root of the metric takes: the data's shape and, for
+    floating or complex data, its dtype.  A leaf without a dtype (count
+    data, say) is drawn in the real dtype of the position."""
 
     def forward(self, primals):
         return self.energy(primals)
 
     @property
     def lsm_tangents_shape(self):
-        return ShapeWithDtype(tuple(self.data.shape))
+        d = self.data
+        return ShapeWithDtype(tuple(d.shape), d.dtype if d.is_floating_point() or d.is_complex() else None)
 
     @property
     def left_sqrt_metric_tangents_shape(self):
@@ -80,12 +111,18 @@ class Likelihood(torch.nn.Module):
         return vjp_fn(tangents)[0]
 
     def right_sqrt_metric(self, primals, tangents):
-        """Push-forward of parameter tangents: the jvp of ``transformation``."""
-        return torch.func.jvp(self.transformation, (primals,), (tangents,))[1]
+        """Push-forward of parameter tangents: the transpose of the LSM (the
+        vjp of the LSM, linear in its tangents, at zero tangents)."""
+        zeros = _zeros(self.lsm_tangents_shape, tree_leaves(primals)[0])
+        _, vjp_fn = torch.func.vjp(partial(self.left_sqrt_metric, primals), zeros)
+        return vjp_fn(tangents)[0]
 
     def amend(self, f: Callable) -> "LikelihoodWithModel":
         """Compose a forward model to the right of the likelihood."""
         return LikelihoodWithModel(self, f)
+
+    def __add__(self, other) -> "LikelihoodSum":
+        return LikelihoodSum(self, other)
 
 
 class LikelihoodWithModel(Likelihood):
@@ -123,6 +160,55 @@ class LikelihoodWithModel(Likelihood):
     def right_sqrt_metric(self, primals, tangents):
         y, f_t = torch.func.jvp(self.forward_model, (primals,), (tangents,))
         return self.likelihood.right_sqrt_metric(y, f_t)
+
+
+class LikelihoodSum(Likelihood):
+    """A sum of likelihoods of one position.  The data-space trees of the
+    terms (their transformations, normalized residuals and LSM tangents)
+    are joined under the keys ``lh_{i}``; a sum of sums is flattened."""
+
+    def __init__(self, *likelihood_summands):
+        super().__init__()
+        flat = []
+        for lh in likelihood_summands:
+            if isinstance(lh, LikelihoodSum):
+                flat.extend(lh.likelihood_summands)
+            elif isinstance(lh, Likelihood):
+                flat.append(lh)
+            else:
+                raise TypeError(f"object of type {type(lh)} is not a Likelihood")
+        self.likelihood_summands = torch.nn.ModuleList(flat)
+
+    @staticmethod
+    def _key(index):
+        return f"lh_{index}"
+
+    def _joined(self, fn):
+        return {self._key(i): fn(lh) for i, lh in enumerate(self.likelihood_summands)}
+
+    @property
+    def lsm_tangents_shape(self):
+        return self._joined(lambda lh: lh.lsm_tangents_shape)
+
+    def energy(self, primals):
+        return sum(lh.energy(primals) for lh in self.likelihood_summands)
+
+    def normalized_residual(self, primals):
+        return self._joined(lambda lh: lh.normalized_residual(primals))
+
+    def transformation(self, primals):
+        return self._joined(lambda lh: lh.transformation(primals))
+
+    def metric(self, primals, tangents):
+        return reduce(tree_add, [lh.metric(primals, tangents) for lh in self.likelihood_summands])
+
+    def left_sqrt_metric(self, primals, tangents):
+        terms = [lh.left_sqrt_metric(primals, tangents[self._key(i)])
+                 for i, lh in enumerate(self.likelihood_summands)]
+        return reduce(tree_add, terms)
+
+    def right_sqrt_metric(self, primals, tangents):
+        return self._joined(lambda lh: lh.right_sqrt_metric(primals, tangents))
 
 
 def frozen_keys(point_estimates) -> set:

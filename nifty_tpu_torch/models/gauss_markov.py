@@ -25,10 +25,17 @@ def integrated_wiener_process(xi, x0, sigma, dt, asperity=None):
     incr_y = amp * xi[:, 0] * torch.sqrt(dt**2 / 12.0 + asperity)
     incr_s = amp * xi[:, 1]
     incr_y = incr_y + 0.5 * dt * incr_s
-    s = torch.cumsum(torch.cat((x0[1:2], incr_s)), 0)
+    s = _cumsum(torch.cat((x0[1:2], incr_s)))
     y_incr = torch.cat((x0[0:1], incr_y + dt * s[:-1]))
-    y = torch.cumsum(y_incr, 0)
+    y = _cumsum(y_incr)
     return torch.stack((y, s), dim=-1)
+
+
+def _cumsum(x):
+    """``torch.cumsum(x, 0)`` accumulated in float64 (complex128), returned
+    in ``x``'s dtype."""
+    acc = torch.complex128 if x.is_complex() else torch.float64
+    return torch.cumsum(x, 0, dtype=acc).to(x.dtype)
 
 
 class GaussMarkovProcess(Model):

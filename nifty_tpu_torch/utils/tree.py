@@ -59,6 +59,11 @@ class ShapeWithDtype:
         self.shape = tuple(int(s) for s in shape)
         self.dtype = dtype
 
+    @classmethod
+    def from_leave(cls, element):
+        """The shape and dtype of the tensor ``element``."""
+        return cls(tuple(element.shape), element.dtype)
+
     def __eq__(self, other):
         return isinstance(other, ShapeWithDtype) and (self.shape, self.dtype) == (
             other.shape,
@@ -203,7 +208,10 @@ def zeros_like(tree):
 def random_like(generator, primals, *, device=None, dtype=None):
     """Standard-normal draws shaped like ``primals`` (a tree of tensors or
     :class:`ShapeWithDtype`), from ``generator``, one leaf after another in
-    the tree's order, on ``device`` (the CUDA card by default)."""
+    the tree's order, on ``device`` (the CUDA card by default), in
+    ``dtype`` or else each leaf's own.  A complex leaf draws complex normals
+    whose real and imaginary parts each have variance ½, as the JAX
+    package's do."""
     device = _device.resolve(device)
 
     def draw(p):

@@ -171,6 +171,25 @@ def test_position_from_numpy_checks_keys_and_shapes():
         nt.position_from_numpy(ct, bad)
 
 
+def test_position_from_numpy_takes_a_domain_tree_and_a_chain_axis():
+    """A domain may be a tree itself (a likelihood's ``(mean, std_inv)``
+    pair, a complex leaf keeping its dtype) and the arrays may carry
+    leading chain axes, which are checked with the shapes."""
+    ct = _build(nt, (16, 16))
+    rng = np.random.default_rng(11)
+    pos = {k: rng.standard_normal((3,) + v.shape) for k, v in ct.domain.items()}
+    out = nt.position_from_numpy(ct, pos, batch=(3,))
+    assert all(out[k].shape == (3,) + ct.domain[k].shape for k in pos)
+    with pytest.raises(ValueError):
+        nt.position_from_numpy(ct, pos)
+    pair = (nt.ShapeWithDtype((4,), torch.complex128), nt.ShapeWithDtype((4,)))
+    mean, std_inv = nt.position_from_numpy(
+        pair, (rng.standard_normal(4) + 1j, rng.uniform(size=4)), device="cpu", dtype=torch.float32)
+    assert mean.dtype == torch.complex128 and std_inv.dtype == torch.float32
+    with pytest.raises(ValueError):
+        nt.position_from_numpy(pair, (np.zeros(4), np.zeros(5)), device="cpu")
+
+
 def test_model_moves_to_float32():
     ct = _build(nt, (16, 16)).to(dtype=torch.float32)
     assert ct.indexes[0].idx.dtype == torch.int32

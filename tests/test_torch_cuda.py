@@ -351,3 +351,118 @@ def test_vi_state_and_samples_pickle_on_card(cuda_device, tmp_path):
     assert torch.equal(st2.key.get_state(), key.get_state())
     assert all(v.device.type == "cuda" for v in s2.pos.values())
     assert torch.equal(s2._samples["cfxi"], samples._samples["cfxi"])
+
+
+def _mcmc_model(n, device):
+    """The exact n² Poisson model at counts of its own draw, on the card in
+    float32, the same model in float64 on the CPU (the card's counts), and
+    the latent that drew them."""
+    from nifty_tpu_torch.bench.workload import bench_field, latent_draw
+
+    lh, _ = build_vi_likelihood(n, device, torch.float32, None)
+    lh64 = nt.Poissonian(lh.likelihood.data.cpu(), device="cpu").amend(
+        nt.ChainModel(torch.exp, bench_field(n, "cpu", torch.float64, None)))
+    return lh, lh64, latent_draw(lh.forward_model.domain, 0)
+
+
+def test_batched_nuts_doubling_launches_once_per_batch(cuda_device):
+    """At 256² exact, a batched gradient of 4 chains launches each of K1-K4
+    as often as one chain's, all on the batch, and each chain's gradient is
+    within relative L2 1e-4 of plain autograd in float64 on the CPU; one
+    NUTS doubling (depth 2, 4 leaves) of the 4 chains runs K1-K4 on
+    batches only."""
+    from nifty_tpu_torch.hmc import QP, ChainDraws, Tree, iterative_build_tree
+    from nifty_tpu_torch.hmc_oo import Potential, Ravel, kinetic_energy, make_stepper
+
+    lh, lh64, truth = _mcmc_model(256, cuda_device)
+    q = nt.position_from_numpy(lh.forward_model, truth)
+    ravel = Ravel(q)
+    potential = Potential(lambda x: -nt.LogDensity(lh)(x), ravel)
+    x1 = ravel.ravel({k: v.unsqueeze(0) for k, v in q.items()})
+    x4 = x1.repeat(4, 1) + 1e-3 * torch.randn((4, ravel.size), device=cuda_device)
+    native.reset_launches()
+    potential.gradient(x1)
+    one = dict(native.launches)
+    native.reset_launches()
+    g4 = potential.gradient(x4)
+    torch.cuda.synchronize()
+    assert set(one) == set(native.launches) == {"expand_to_grid", "collapse_from_grid",
+                                                "hartley_rows", "hartley_cols"}
+    assert dict(native.launches) == one == dict(native.batched_launches)
+    assert g4.shape == x4.shape and bool(torch.isfinite(g4).all())
+    for c, g in enumerate(g4):
+        q64 = {k: v.double().cpu().requires_grad_(True) for k, v in ravel.unravel(x4[c]).items()}
+        g64 = torch.autograd.grad(-nt.LogDensity(lh64)(q64), list(q64.values()))
+        ref = ravel.ravel({k: v.unsqueeze(0) for k, v in zip(q64, g64)})[0]
+        assert float(torch.linalg.norm(g.double().cpu() - ref) / torch.linalg.norm(ref)) <= 1e-4
+    p = torch.randn(x4.shape, device=cuda_device)
+    inv_m = torch.ones_like(x4)
+    neg_e = -(potential.energy(x4) + kinetic_energy(inv_m, p))
+    no = torch.zeros(4, dtype=torch.bool, device=cuda_device)
+    tree = Tree(QP(x4, p), QP(x4, p), neg_e, QP(x4, p), no, no,
+                torch.full((4,), 2, device=cuda_device), torch.zeros_like(neg_e))
+    native.reset_launches()
+    sub = iterative_build_tree(ChainDraws([1, 2, 3, 4], cuda_device), tree, 1e-4, ~no,
+                               make_stepper(potential), potential.energy, kinetic_energy, inv_m,
+                               5, neg_e, 1000.0)
+    torch.cuda.synchronize()
+    assert dict(native.launches) == dict(native.batched_launches)
+    assert all(native.launches[k] > 0 for k in one)
+    assert bool(torch.isfinite(sub.proposal_candidate.position).all())
+
+
+def test_leapfrog_energy_change_matches_cpu_f64(cuda_device):
+    """ΔH over 8 leapfrog steps of the 256² posterior, 4 chains in one
+    batch from near the latent that drew the counts: the card (float32
+    field, float64 sums) within 0.1 nats of float64 on the CPU from the same
+    q and p, each chain."""
+    from nifty_tpu_torch.bench.workload import latent_draw, leapfrog_energy_change
+
+    lh, lh64, truth = _mcmc_model(256, cuda_device)
+    rng = np.random.default_rng(12)
+    q = nt.position_from_numpy(lh.forward_model, {
+        k: v[None] + 1e-2 * rng.standard_normal((4,) + v.shape) for k, v in truth.items()},
+        batch=(4,))
+    p = {k: torch.from_numpy(v).to(cuda_device, torch.float32)
+         for k, v in latent_draw(q, 11).items()}
+    dh32, _, _ = leapfrog_energy_change(lh, q, p, 2e-3, 8)
+    to64 = lambda t: {k: v.double().cpu() for k, v in t.items()}  # noqa: E731
+    dh64, _, _ = leapfrog_energy_change(lh64, to64(q), to64(p), 2e-3, 8)
+    assert dh32.shape == (4,) and np.abs(dh32 - dh64).max() <= 0.1, (dh32, dh64)
+
+
+def test_complex_gaussian_draw_on_card(cuda_device):
+    """A complex ``Gaussian``'s data-space draw on the card is complex64,
+    real and imaginary parts each of variance ½ (within five standard
+    errors of 2¹⁶ draws)."""
+    n = 1 << 16
+    model = nt.Model(lambda x: x["x"].to(torch.complex64), domain={"x": nt.ShapeWithDtype((n,))})
+    lh = nt.Gaussian(np.zeros(n, np.complex64)).amend(model)
+    w = nt.white_noise(lh, {"x": torch.zeros(n, device=cuda_device)}, 5)
+    assert w.data.dtype == torch.complex64 and w.data.device.type == "cuda"
+    assert w.prior["x"].dtype == torch.float32
+    for part in (w.data.real, w.data.imag):
+        assert abs(float(part.var()) - 0.5) <= 5 * 0.5 * (2 / n) ** 0.5
+
+
+def test_integrated_wiener_process_batch_accumulates_in_f64(cuda_device):
+    """The amplitude's integrated Wiener process over the 1280² exact
+    table (127,080 bins) for 4 excitations under ``torch.func.vmap`` in
+    float32 on the card: within 2e-7 relative L2 of float64, as its two
+    cumsums accumulate in float64."""
+    from nifty_tpu_torch.models.gauss_markov import integrated_wiener_process
+
+    rng = np.random.default_rng(3)
+    n = 127_080
+    xi = torch.from_numpy(rng.standard_normal((4, n, 2)))
+    x0 = torch.tensor([0.3, -1.0], dtype=torch.float64)
+    dt = torch.from_numpy(rng.uniform(1e-5, 1.1e-4, n))
+
+    def iwp(x, x0, dt):
+        return integrated_wiener_process(x, x0, torch.tensor(0.7, dtype=x.dtype), dt,
+                                         torch.tensor(0.1, dtype=x.dtype))
+
+    ref = torch.stack([iwp(x, x0, dt) for x in xi])
+    f32 = lambda t: t.to(cuda_device, torch.float32)  # noqa: E731
+    got = torch.func.vmap(lambda x: iwp(x, f32(x0), f32(dt)))(f32(xi)).double().cpu()
+    assert float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref)) <= 2e-7

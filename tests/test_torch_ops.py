@@ -581,9 +581,10 @@ def test_mode_expand_grid_adjoint_and_transforms(full, B):
 
 
 def test_port_never_imports_jax():
-    """Importing every module of the port, and chip_smoke.py, loads no jax
-    and nothing of nifty_tpu; no import statement in chip_smoke.py names
-    them either (its imports run inside main)."""
+    """Importing every module of the port (HMC, NUTS and the likelihoods
+    among them), and chip_smoke.py, loads no jax and nothing of nifty_tpu;
+    no import statement in chip_smoke.py names them either (its imports run
+    inside main)."""
     import pkgutil
 
     import nifty_tpu_torch
@@ -591,7 +592,9 @@ def test_port_never_imports_jax():
     modules = sorted(
         m.name for m in pkgutil.walk_packages(nifty_tpu_torch.__path__, "nifty_tpu_torch.")
     )
-    assert {"nifty_tpu_torch.evi", "nifty_tpu_torch.optimize_kl", "nifty_tpu_torch.ops.pwl"} <= set(modules)
+    assert {"nifty_tpu_torch.evi", "nifty_tpu_torch.optimize_kl", "nifty_tpu_torch.ops.pwl",
+            "nifty_tpu_torch.hmc", "nifty_tpu_torch.hmc_oo", "nifty_tpu_torch.mcmc",
+            "nifty_tpu_torch.likelihood_impl"} <= set(modules)
     code = (
         f"import sys, importlib, chip_smoke; [importlib.import_module(m) for m in {modules!r}]; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'nifty_tpu.'))"
