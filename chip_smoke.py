@@ -90,18 +90,45 @@ JAX.  Phases, each printing one JSON line to stdout:
    sum of two, and a complex ``Gaussian``) at 1280² exact, its mean the
    field (through ``exp``, ``sigmoid``, a pair or a stack where the
    likelihood needs it), against the same model in f64 on the CPU:
-   relative L2 <= 1e-4.
+   relative L2 <= 1e-4;
+12. models (``MODELS``): (a) a renormalised Matérn field at 1280² under
+   ``Poissonian`` (counts at the model's own draw): the metric of the
+   table form (K1-K4) and of the per-pixel form (K3/K4, not K1/K2) each
+   against the table form in f64 on the CPU (1e-4), the two fields
+   against each other on the card (1e-5, f32 on both sides); a ``VModel``
+   of phase 4's exact field, 4 channels, every key mapped: its metric
+   against 4 separate applies (1e-5), K1-K4 on a batch; (b) the density
+   estimator at 1280² (a 2560² padded grid) on binned numpy events: one
+   MGVI iteration with phase 8's settings under ``vmap``, checked as
+   there; (c) ``NDVariableCovarianceGaussian`` at 1280², d = 2, the mean
+   and the SPD matrix from a ``VModel`` of 5 fields, ``covariance`` True
+   and False: energy and metric against CPU f64 (1e-4), the ms of the
+   batched ``eigh`` (in chunks of ``EIGH_CHUNK`` matrices: cuSOLVER's
+   batched call refuses 32,768), of the Daleckii–Krein jvp and pull-back of
+   ``sym_sqrtm`` (held against CPU f64, 1e-4) and of a tabulated prior's
+   interpolant (1e-6 against CPU f64: float64 tables, an f32 result);
+   (d) ``MeanFieldVI`` on phase 4's 1280² model, 4 draws a step, 20 Adam
+   steps: losses finite, the mean of the last 5 below that of the first
+   5, K1-K4 on a batch; ``FullCovarianceVI`` on a 32² field (1,027 dof,
+   no kernel), 50 steps, finite; (e) the peak memory of one metric apply
+   at 4096² exact with and without ``RematModel`` (printed, no gate), the
+   two within 1e-6.
 
 The launch counters are set to 0 just before each of phases 4-6, 9, 10b
 and 11, and before each VI run of phases 7 and 8 (``vi_mgvi_vmap``,
 ``vi_geovi_vmap``, ``vi_mgvi_lmap``, ``vi_kl``, ``exact_mgvi_vmap``,
-``exact_mgvi_lmap``, ``exact_geovi_vmap``) and each run of phase 10
-(``mcmc_nuts``, ``mcmc_nuts_lmap``, ``mcmc_nuts_vmap``, ``mcmc_hmc``), and read just
-after it:
-K1-K4 must launch in phases 4, 5, 8-11, K3/K4 (and not K1/K2) in 6 and 7,
-none in 10b, and each VI run's kernels in its last iteration too; under
-``vmap`` each must have launched on a batch of samples or chains
-(``native.batched_launches``), under ``lmap`` none.  Then it prints the card line, the kernel summary
+``exact_mgvi_lmap``, ``exact_geovi_vmap``), each run of phase 10
+(``mcmc_nuts``, ``mcmc_nuts_lmap``, ``mcmc_nuts_vmap``, ``mcmc_hmc``) and
+each sub-phase of 12 (``matern_table``, ``matern_pixel``, ``vmodel``,
+``density_mgvi_vmap``, ``ndvcg_covariance``, ``ndvcg_precision``,
+``vi_meanfield``, ``vi_fullcov``, ``remat``), and read just after it:
+K1-K4 must launch in phases 4, 5, 8-11 and 12 (but for the Matérn pixel
+form and the 32² full-covariance VI), K3/K4 (and not K1/K2) in 6, 7 and
+the pixel form, none in 10b and the 32² VI, and each VI run's kernels in
+its last iteration too; under ``vmap`` (and in the ``VModel``, density,
+NDVCG and mean-field runs) each must have launched on a batch of samples,
+chains or channels (``native.batched_launches``), under ``lmap`` none.
+Then it prints the whole run's seconds, the card line, the kernel summary
 (launches per phase) and, last, ``{"ok": true, "device": ...}``.  Any
 failure raises, so the exit code is not 0 and no result line is printed.
 
@@ -137,6 +164,8 @@ ELBO = dict(n_eigenvalues=32, n_batches=4)
 MCMC = dict(shape=1280, chains=4, n_warmup=8, n_samples=4, max_tree_depth=5, step_size=1e-3,
             hmc_steps=8, seed=21)
 NUTS_ROW = dict(shape=64, n_samples=64, budget_s=40.0)  # bench_extra.py:267's 64 samples, cut by time
+MODELS = dict(matern=1280, channels=4, density=(1280, 1280), density_events=4_000_000, ndvcg=1280,
+              vi=1280, vi_samples=4, vi_steps=20, fullcov=32, fullcov_steps=50, remat=4096, seed=23)
 CG_ITERS = 20
 NAMES = {"K1": "expand_to_grid", "K2": "collapse_from_grid",
          "K3": "hartley_rows", "K4": "hartley_cols"}
@@ -144,7 +173,11 @@ TOL = {"k2": 1e-6, "hartley": 1e-5, "metric": 1e-4, "kl_maps": 1e-5,  # K1 must 
        "eigenvalue": 1e-3, "ritz": 1e-2, "dH": 0.1,
        # the posterior's gradient cancels: its global leaves sum ~1.6e6 terms of
        # both signs, so a plain float32 gradient is itself off by up to ~2.3e-4
-       "gradient": 1e-3}
+       "gradient": 1e-3,
+       # phase 12: table against pixel Matérn and a VModel against separate
+       # applies, f32 on both sides; RematModel reruns the same kernels;
+       # the interpolant evaluates float64 tables and rounds once to f32
+       "forms": 1e-5, "remat": 1e-6, "interp": 1e-6}
 
 
 def emit(obj):
@@ -165,6 +198,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
@@ -173,12 +207,14 @@ def main() -> int:
     from nifty_tpu_torch.ops import cuda_expand as ce
     from nifty_tpu_torch.bench.timing import bound, device_ms, fft_flops
     from nifty_tpu_torch.bench.workload import (
-        bench_field, build_likelihood, build_vi_likelihood, grid_index, latent_draw,
-        leapfrog_energy_change, vi_settings)
+        bench_field, build_likelihood, build_vi_likelihood, density_counts, grid_index,
+        latent_draw, leapfrog_energy_change, matern_field, ndvcg_forward, poisson_at_own_draw,
+        vi_settings)
     from nifty_tpu_torch.hmc_oo import Potential, Ravel
     from nifty_tpu_torch.evidence_lower_bound import _ravel_metric
     from nifty_tpu_torch.ops import cuda_fft as cfft
     from nifty_tpu_torch.optimize_kl import _kl_met, _kl_vg
+    from nifty_tpu_torch.utils.tree_linalg import EIGH_CHUNK, _eigh
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -736,12 +772,12 @@ def main() -> int:
     row = nt.NUTSChain(ham, 1.0, pos, step_size=0.05, max_tree_depth=8)
     native.reset_launches()
     _, (draws, pos) = row.generate_n_samples(7, pos, 1)  # warm-up, not timed
-    count, depths = 0, []
+    drawn, depths = 0, []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    while count < NUTS_ROW["n_samples"] and time.perf_counter() - t0 < NUTS_ROW["budget_s"]:
+    while drawn < NUTS_ROW["n_samples"] and time.perf_counter() - t0 < NUTS_ROW["budget_s"]:
         out, (draws, pos) = row.generate_n_samples(draws, pos, 1)
-        count += 1
+        drawn += 1
         depths.append(int(out.depths[0]))
     torch.cuda.synchronize()
     row_s = time.perf_counter() - t0
@@ -750,8 +786,8 @@ def main() -> int:
         fail("mcmc 64²: the chain's position is non-finite")
     emit({"phase": "mcmc_row", "shape": [n, n], "knots": 16, "dtype": "float32",
           "source": "bench_extra.py:267-300 (one NUTSChain, step 0.05, depth <= 8, sigma 0.3)",
-          "samples": count, "of": NUTS_ROW["n_samples"], "seconds": row_s,
-          "samples_per_s": count / row_s, "tree_depths": depths,
+          "samples": drawn, "of": NUTS_ROW["n_samples"], "seconds": row_s,
+          "samples_per_s": drawn / row_s, "tree_depths": depths,
           "kernels": "none: 64 is below K3/K4's multiple of 256 and the knot form has no K1/K2"})
     del cf, ham, row, pos, draws
 
@@ -813,6 +849,209 @@ def main() -> int:
           "models": {k: v[0] for k, v in cases.items()}, "rel_l2_vs_cpu_f64": lik})
     del cf32, cf64, data
 
+    # -- 12. models: Matérn, density estimator, NDVCG, parametric VI, remat ------
+    f32, f64 = torch.float32, torch.float64
+    t12 = time.perf_counter()
+
+    def finite(tree, what):
+        for leaf in torch.utils._pytree.tree_leaves(tree):
+            if leaf.device != dev or not bool(torch.isfinite(leaf).all()):
+                fail(f"{what}: a leaf on {leaf.device} or non-finite")
+
+    # 12a. the Matérn field at 1280², table and pixel forms; a VModel of 4 fields
+    n = MODELS["matern"]
+    tab32 = matern_field(n, dev, f32)
+    counts = poisson_at_own_draw(nt.ChainModel(torch.exp, tab32))
+    tab64 = nt.Poissonian(counts, device="cpu").amend(
+        nt.ChainModel(torch.exp, matern_field(n, "cpu", f64)))
+    pos_np, tan_np = latent_draw(tab32.domain, 13), latent_draw(tab32.domain, 14)
+    native.reset_launches()
+    p, _ = metric_phase("matern", "table", n, nt.Poissonian(counts, device=dev).amend(
+        nt.ChainModel(torch.exp, tab32)), pos_np, tan_np, tab64)
+    read_launches("matern_table", NAMES)
+    pix32 = matern_field(n, dev, f32, pixel_expansion=True)
+    native.reset_launches()
+    metric_phase("matern", "pixel", n, nt.Poissonian(counts, device=dev).amend(
+        nt.ChainModel(torch.exp, pix32)), pos_np, tan_np, tab64)
+    read_launches("matern_pixel", ("K3", "K4"), refuse=("K1", "K2"))
+    with torch.no_grad():
+        forms_err = rel_max(pix32(p), tab32(p))
+    if not forms_err <= TOL["forms"]:
+        fail(f"matern: the pixel form's field {forms_err} off the table form's > {TOL['forms']}")
+    del tab32, tab64, pix32, p
+    cf4 = bench_field(n, dev, f32)
+    vm = nt.VModel(cf4, MODELS["channels"])  # every key mapped: 4 spectra, 4 excitations
+    counts4 = np.random.default_rng(MODELS["seed"]).poisson(1.0, (MODELS["channels"], n, n))
+    lh_v = nt.Poissonian(counts4.astype(np.int32), device=dev).amend(nt.ChainModel(torch.exp, vm))
+    p4 = nt.position_from_numpy(vm, latent_draw(vm.domain, 15))
+    t4 = nt.position_from_numpy(vm, latent_draw(vm.domain, 16))
+    native.reset_launches()
+    m4 = lh_v.metric(p4, t4)
+    torch.cuda.synchronize()
+    read_launches("vmodel", NAMES, batch=NAMES)
+    vm_ms = float(np.median(event_ms(lambda: lh_v.metric(p4, t4), 5)))
+    separate = [nt.Poissonian(counts4[i].astype(np.int32), device=dev).amend(
+        nt.ChainModel(torch.exp, cf4)).metric({k: v[i] for k, v in p4.items()},
+                                              {k: v[i] for k, v in t4.items()})
+                for i in range(MODELS["channels"])]
+    vm_err = rel_tree(m4, {k: torch.stack([m[k] for m in separate]) for k in m4})
+    emit({"phase": "matern", "shape": [n, n], "table_vs_pixel_field_rel_max": forms_err,
+          "vmodel_channels": MODELS["channels"], "vmodel_metric_ms_median": vm_ms,
+          "vmodel_vs_separate_rel_l2": vm_err})
+    if not vm_err <= TOL["forms"]:
+        fail(f"vmodel: the metric {vm_err} off 4 separate applies > {TOL['forms']}")
+    del cf4, vm, lh_v, p4, t4, m4, separate
+    torch.cuda.empty_cache()
+
+    # 12b. the density estimator at 1280² (2560² padded): one MGVI iteration
+    shape = MODELS["density"]
+    dens, pshape = nt.density_estimator(shape, device=dev, dtype=f32)
+    cut = tuple(slice(0, s) for s in shape)
+    rate = nt.ChainModel(lambda f: f[cut], dens)
+    lh_d = nt.Poissonian(density_counts(shape, MODELS["density_events"]), device=dev).amend(rate)
+    start = nt.Samples(pos=nt.position_from_numpy(rate, latent_draw(rate.domain, 2)))
+    vi_phase("density_mgvi_vmap", NAMES, (), nt.OptimizeVI(lh_d, 1), start, "linear_resample",
+             seed, 2, maps="vmap", shape=list(shape), padded=list(pshape),
+             n_unique=dens.correlated_field.indexes[0].n_unique, events=MODELS["density_events"])
+    del dens, rate, lh_d, start
+    torch.cuda.empty_cache()
+
+    # 12c. NDVariableCovarianceGaussian at 1280², d = 2, covariance and precision
+    n = MODELS["ndvcg"]
+    fwd = ndvcg_forward(bench_field(n, dev, f32))
+    fwd64 = ndvcg_forward(bench_field(n, "cpu", f64))
+    with torch.no_grad():
+        mean_t, mat_t = fwd64(nt.position_from_numpy(fwd64, latent_draw(fwd64.domain, 0)))
+    eps = torch.from_numpy(np.random.default_rng(21).standard_normal((n, n, 2, 1)))
+    pos_np, tan_np = latent_draw(fwd.domain, 17), latent_draw(fwd.domain, 18)
+    ndvcg = {}
+    for covariance in (True, False):
+        name = "ndvcg_covariance" if covariance else "ndvcg_precision"
+        cov = mat_t if covariance else torch.linalg.inv(mat_t)
+        data = (mean_t + (torch.linalg.cholesky(cov) @ eps)[..., 0]).numpy()
+        lh = nt.NDVariableCovarianceGaussian(data.astype(np.float32), covariance, device=dev).amend(fwd)
+        lh64 = nt.NDVariableCovarianceGaussian(data, covariance, device="cpu").amend(fwd64)
+        native.reset_launches()
+        e32 = float(lh.energy(nt.position_from_numpy(fwd, pos_np)))
+        p, _ = metric_phase("ndvcg", name, n, lh, pos_np, tan_np, lh64)
+        read_launches(name, NAMES, batch=NAMES)
+        e64 = float(lh64.energy(nt.position_from_numpy(fwd64, pos_np)))
+        # a sum of 2 n² terms of order one and both signs: held at the scale of their count
+        ndvcg[name] = err = abs(e32 - e64) / max(abs(e64), data.size)
+        if not err <= TOL["metric"]:
+            fail(f"{name}: energy {e32} on the card, {e64} in f64 on the CPU: {err} > {TOL['metric']}")
+    with torch.no_grad():
+        mat = fwd(p)[1].contiguous()
+    dmat = torch.randn(mat.shape, generator=g, device=dev)
+    dmat = dmat + dmat.mT
+    eigh_ms = float(np.median(event_ms(lambda: _eigh(mat), 5)))
+    jvp = lambda: torch.func.jvp(nt.sym_sqrtm, (mat,), (dmat,))  # noqa: E731
+    pull = lambda: torch.func.vjp(nt.sym_sqrtm, mat)[1](dmat)[0]  # noqa: E731
+    dk_ms = float(np.median(event_ms(jvp, 5)))
+    pull_ms = float(np.median(event_ms(pull, 5)))
+    y, dy = jvp()
+    y64, dy64 = torch.func.jvp(nt.sym_sqrtm, (mat.double().cpu(),), (dmat.double().cpu(),))
+    g64 = torch.func.vjp(nt.sym_sqrtm, mat.double().cpu())[1](dmat.double().cpu())[0]
+    finite((y, dy), "sym_sqrtm on the card")
+    dk_err = {"value": rel_max(y.double().cpu(), y64), "jvp": rel_max(dy.double().cpu(), dy64),
+              "pull_back": rel_max(pull().double().cpu(), g64)}
+    if not max(dk_err.values()) <= TOL["metric"]:
+        fail(f"ndvcg: sym_sqrtm on the card against CPU f64 {dk_err} > {TOL['metric']}")
+    interp = nt.invgamma_prior(3.0, 2.0).to(dev)
+    x = torch.randn((n, n), generator=g, device=dev)
+    interp_ms = float(np.median(event_ms(lambda: interp(x), 5)))
+    iy = interp(x)
+    finite(iy, "the interpolant on the card")
+    interp_err = rel_max(iy.double().cpu(), nt.invgamma_prior(3.0, 2.0)(x.double().cpu()))
+    if not interp_err <= TOL["interp"]:
+        fail(f"interpolant: {interp_err} off CPU f64 > {TOL['interp']}")
+    emit({"phase": "ndvcg", "shape": [n, n, 2], "energy_rel_err_vs_cpu_f64": ndvcg,
+          "matrices": int(mat.numel() // 4), "eigh_chunk": EIGH_CHUNK, "eigh_ms_median": eigh_ms,
+          "sym_sqrtm_jvp_ms_median": dk_ms, "sym_sqrtm_pull_back_ms_median": pull_ms,
+          "sym_sqrtm_rel_max_vs_cpu_f64": dk_err, "interpolant": "invgamma_prior(3, 2)",
+          "interpolant_ms_median": interp_ms, "interpolant_rel_max_vs_cpu_f64": interp_err})
+    del fwd, fwd64, mean_t, mat_t, lh, lh64, p, mat, dmat, y, dy, interp, x, iy
+    torch.cuda.empty_cache()
+
+    # 12d. parametric VI: MeanFieldVI at 1280² exact, FullCovarianceVI at 32²
+    lh_vi, pos_np, _ = build_likelihood(MODELS["vi"], dev, f32)
+    mf = nt.MeanFieldVI(lh_vi, nt.position_from_numpy(lh_vi.forward_model, pos_np),
+                        n_samples=MODELS["vi_samples"])
+    losses = []
+    native.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mf.fit(MODELS["seed"], n_steps=MODELS["vi_steps"], callback=lambda i, q, v: losses.append(v))
+    torch.cuda.synchronize()
+    mf_s = time.perf_counter() - t0
+    read_launches("vi_meanfield", NAMES, batch=NAMES)
+    finite(mf.params, "MeanFieldVI's parameters")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not (np.all(np.isfinite(losses)) and last < first):
+        fail(f"MeanFieldVI: losses {losses} not finite or not falling")
+    n = MODELS["fullcov"]
+    cfm = nt.CorrelatedFieldMaker("cf")
+    cfm.set_amplitude_total_offset(offset_mean=1.0, offset_std=(1e-1, 3e-2))
+    cfm.add_fluctuations((n, n), distances=1.0 / n, fluctuations=(1.0, 5e-1),
+                         loglogavgslope=(-3.0, 2e-1), n_mode_knots=16)
+    fwd = nt.ChainModel(torch.exp, cfm.finalize(device=dev, dtype=f32))
+    lh_fc = nt.Poissonian(poisson_at_own_draw(fwd), device=dev).amend(fwd)
+    fc = nt.FullCovarianceVI(lh_fc, nt.position_from_numpy(fwd, latent_draw(fwd.domain, 2)),
+                             n_samples=MODELS["vi_samples"])
+    fc_losses = []
+    native.reset_launches()
+    t0 = time.perf_counter()
+    fc.fit(MODELS["seed"], n_steps=MODELS["fullcov_steps"],
+           callback=lambda i, q, v: fc_losses.append(v))
+    torch.cuda.synchronize()
+    fc_s = time.perf_counter() - t0
+    read_launches("vi_fullcov", (), refuse=NAMES)
+    finite(fc.params, "FullCovarianceVI's parameters")
+    if not np.all(np.isfinite(fc_losses)):
+        fail(f"FullCovarianceVI: losses {fc_losses} not finite")
+    emit({"phase": "parametric_vi", "meanfield": {
+              "shape": [MODELS["vi"]] * 2, "dof": int(mf.params["mean"].numel()),
+              "samples": MODELS["vi_samples"], "steps": MODELS["vi_steps"],
+              "ms_per_step": 1e3 * mf_s / MODELS["vi_steps"], "losses": losses,
+              "mean_first_5": first, "mean_last_5": last},
+          "fullcov": {"shape": [n, n], "dof": int(fc.params["mean"].numel()),
+                      "steps": MODELS["fullcov_steps"],
+                      "ms_per_step": 1e3 * fc_s / MODELS["fullcov_steps"],
+                      "loss_first": fc_losses[0], "loss_last": fc_losses[-1]},
+          "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    del lh_vi, mf, fwd, lh_fc, fc
+    torch.cuda.empty_cache()
+
+    # 12e. one metric apply at 4096² exact, with and without RematModel
+    n = MODELS["remat"]
+    lh, pos_np, tan_np = build_likelihood(n, dev, f32)
+    lh_r = nt.Poissonian(lh.likelihood.data).amend(
+        nt.ChainModel(torch.exp, nt.RematModel(lh.forward_model.inner)))
+    p = nt.position_from_numpy(lh.forward_model, pos_np)
+    t = nt.position_from_numpy(lh.forward_model, tan_np)
+    peaks, out = {}, {}
+    native.reset_launches()
+    for name, l in (("plain", lh), ("remat", lh_r), ("plain_again", lh)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out[name] = l.metric(p, t)
+        torch.cuda.synchronize()
+        peaks[name] = {"peak_bytes": torch.cuda.max_memory_allocated(),
+                       "above_inputs_bytes": torch.cuda.max_memory_allocated() - base}
+        if name != "plain_again":
+            finite(out[name], f"remat: the {name} metric")
+    read_launches("remat", NAMES)
+    remat_err = rel_tree(out["remat"], out["plain"])
+    emit({"phase": "remat", "shape": [n, n], "variant": "exact", "peak_memory": peaks,
+          "rel_l2_remat_vs_plain": remat_err})
+    if not remat_err <= TOL["remat"]:
+        fail(f"remat: the metric {remat_err} off the plain model's > {TOL['remat']}")
+    del lh, lh_r, p, t, out
+    torch.cuda.empty_cache()
+    emit({"phase": "models_total", "seconds": time.perf_counter() - t12})
+
     sources = {"K1": ("nifty_tpu_torch/csrc/expand.cu", "nifty_tpu/ops/pallas_expand.py:108"),
                "K2": ("nifty_tpu_torch/csrc/expand.cu", "nifty_tpu/ops/pallas_expand.py:161"),
                "K3": ("nifty_tpu_torch/csrc/hartley.cu", "nifty_tpu/ops/pallas_fft.py:169"),
@@ -826,6 +1065,7 @@ def main() -> int:
          **summary[k]}
         for k in NAMES
     ]
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

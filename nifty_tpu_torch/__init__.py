@@ -1,8 +1,13 @@
 """nifty_tpu_torch: the PyTorch and CUDA port of nifty_tpu.
 
-The correlated field in its exact and 64-knot forms, the likelihoods
-(Gaussian, Poisson, Student-t, Bernoulli, categorical, inverse-gamma and
-the variable-covariance ones, and their sums) with their Fisher metrics,
+The correlated field in its exact and 64-knot forms, with Matérn spectra
+(table or per-pixel) and the density estimator, the prior families and
+the Gauss-Markov processes, the model combinators (``LazyModel``,
+``VModel``, ``ClipModel``, ``RematModel``), the likelihoods (Gaussian,
+Poisson, Student-t, Bernoulli, categorical, inverse-gamma, the
+variable-covariance ones with the full per-pixel covariance, and their
+sums) with their Fisher metrics, parametric VI (mean-field and
+full-covariance, fitted by ``torch.optim``),
 HMC and NUTS with chains batched on a leading axis, conjugate gradient,
 Newton-CG, trust-region Newton-CG, the MGVI/geoVI loop (``optimize_kl``,
 samples mapped as one batch by default), the Wiener filter and the
@@ -31,7 +36,7 @@ from .evi import (
     wiener_filter_posterior,
 )
 from .evidence_lower_bound import estimate_evidence_lower_bound
-from .interop import position_from_numpy, samples_from_numpy
+from .interop import params_from_numpy, position_from_numpy, samples_from_numpy
 from .hmc import generate_hmc_acc_rej, generate_nuts_tree
 from .hmc_oo import Chain, HMCChain, NUTSChain
 from .likelihood import (
@@ -40,12 +45,14 @@ from .likelihood import (
     LikelihoodSum,
     LikelihoodWithModel,
     StandardHamiltonian,
+    partial_insert_and_remove,
 )
 from .likelihood_impl import (
     Bernoulli,
     Categorical,
     Gaussian,
     InverseGamma,
+    NDVariableCovarianceGaussian,
     Poissonian,
     StudentT,
     VariableCovarianceGaussian,
@@ -53,19 +60,70 @@ from .likelihood_impl import (
 )
 from .mcmc import LogDensity, get_sample_size_estimate, nuts_sample
 from .minisanity import ChiSqStats, minisanity, reduced_residual_stats
-from .model import ChainModel, Initializer, Model, WrappedCall
+from .model import (
+    ChainModel,
+    ClipModel,
+    Initializer,
+    LazyModel,
+    Model,
+    RematModel,
+    VModel,
+    WrappedCall,
+)
 from .models.correlated_field import (
     CorrelatedField,
     CorrelatedFieldMaker,
+    MaternAmplitude,
     NonParametricAmplitude,
+    density_estimator,
     get_fourier_mode_distributor,
     make_grid,
 )
-from .models.gauss_markov import IntegratedWienerProcess, integrated_wiener_process
+from .models.gauss_markov import (
+    GaussMarkovProcess,
+    IntegratedWienerProcess,
+    OrnsteinUhlenbeckProcess,
+    WienerProcess,
+    discrete_gauss_markov_process,
+    integrated_wiener_process,
+    ornstein_uhlenbeck_process,
+    wiener_process,
+)
+from .models.prior import (
+    BetaPrior,
+    GammaPrior,
+    InvGammaPrior,
+    LaplacePrior,
+    LogInvGammaPrior,
+    LogNormalPrior,
+    NormalPrior,
+    UniformPrior,
+)
 from .num.lanczos import lanczos_tridiag, stochastic_logdet_from_lanczos, stochastic_lq_logdet
-from .num.stats_distributions import lognormal_moments, lognormal_prior, normal_prior
+from .num.stats_distributions import (
+    beta_prior,
+    gamma_prior,
+    interpolator,
+    invgamma_invprior,
+    invgamma_prior,
+    laplace_prior,
+    loginvgamma_prior,
+    lognormal_invprior,
+    lognormal_moments,
+    lognormal_prior,
+    normal_invprior,
+    normal_prior,
+    uniform_prior,
+)
 from .ops.fft import hartley
-from .optimize import OptimizeResults, minimize, newton_cg, static_newton_cg, trust_ncg
+from .optimize import (
+    OptimizeResults,
+    minimize,
+    newton_cg,
+    optim_wrapper,
+    static_newton_cg,
+    trust_ncg,
+)
 from .optimize_kl import OptimizeVI, OptimizeVIState, optimize_kl
 from .utils.tree import (
     ShapeWithDtype,
@@ -86,3 +144,5 @@ from .utils.tree import (
     where,
     zeros_like,
 )
+from .utils.tree_linalg import sym_inv, sym_logm, sym_solve, sym_sqrtm
+from .variational_models import FullCovarianceVI, MeanFieldVI

@@ -1,7 +1,9 @@
 """The bench's models as the port's entry points build them: ``bench.py``'s
 metric-apply rows (exact and 64-knot) and ``bench_extra.py``'s VI rows,
-and the energy change of a leapfrog trajectory on a model's standardized
-posterior."""
+the energy change of a leapfrog trajectory on a model's standardized
+posterior, and the models of ``chip_smoke.py``'s phase 12 (a Matérn
+field, the density estimator's events, the full-covariance Gaussian's
+forward model)."""
 
 from __future__ import annotations
 
@@ -9,9 +11,13 @@ __all__ = [
     "bench_field",
     "build_likelihood",
     "build_vi_likelihood",
+    "density_counts",
     "grid_index",
     "latent_draw",
     "leapfrog_energy_change",
+    "matern_field",
+    "ndvcg_forward",
+    "poisson_at_own_draw",
     "vi_settings",
 ]
 
@@ -77,10 +83,70 @@ def build_vi_likelihood(n, device, dtype, knots=64):
 
     cf = bench_field(n, device, dtype, knots)
     fwd = nt.ChainModel(torch.exp, cf)
+    return nt.Poissonian(poisson_at_own_draw(fwd), device=device).amend(fwd), latent_draw(cf.domain, 2)
+
+
+def poisson_at_own_draw(rate_model):
+    """Poisson counts (numpy seed 1, int32) at the rate ``rate_model`` gives
+    its own latent draw (numpy seed 0)."""
+    import numpy as np
+    import torch
+
+    import nifty_tpu_torch as nt
+
     with torch.no_grad():
-        rate = fwd(nt.position_from_numpy(cf, latent_draw(cf.domain, 0))).double().cpu().numpy()
-    data = np.random.default_rng(1).poisson(np.clip(rate, 0, 1e6)).astype(np.int32)
-    return nt.Poissonian(data, device=device).amend(fwd), latent_draw(cf.domain, 2)
+        rate = rate_model(nt.position_from_numpy(rate_model, latent_draw(rate_model.domain, 0)))
+    rate = rate.double().cpu().numpy()
+    return np.random.default_rng(1).poisson(np.clip(rate, 0, 1e6)).astype(np.int32)
+
+
+def matern_field(n, device, dtype, pixel_expansion=False):
+    """A renormalised Matérn field on an n² grid (the scale, cutoff and slope
+    priors of the density estimator's defaults, ``bench.py``'s offset):
+    the unique-|k| table form, or with ``pixel_expansion`` the per-pixel
+    form."""
+    import nifty_tpu_torch as nt
+
+    cfm = nt.CorrelatedFieldMaker("mf")
+    cfm.set_amplitude_total_offset(offset_mean=1.0, offset_std=(1e-1, 3e-2))
+    cfm.add_fluctuations_matern((n, n), 1.0 / n, scale=(0.5, 0.3), cutoff=(4.0, 3.0),
+                                loglogslope=(-6.0, 3.0), renormalize_amplitude=True,
+                                pixel_expansion=pixel_expansion)
+    return cfm.finalize(device=device, dtype=dtype)
+
+
+def density_counts(shape, n_events, seed=5):
+    """Event counts on ``shape`` bins of the unit square: ``n_events`` numpy
+    draws of a mixture of two Gaussians (``demos/8_density_estimator.py``'s
+    bimodal density, in 2-D), binned; int32."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    half = n_events // 2
+    xy = np.concatenate([rng.normal((0.3, 0.35), (0.06, 0.08), (half, 2)),
+                         rng.normal((0.7, 0.6), (0.1, 0.12), (n_events - half, 2))])
+    counts, _, _ = np.histogram2d(xy[:, 0], xy[:, 1], bins=shape, range=((0, 1), (0, 1)))
+    return counts.astype(np.int32)
+
+
+def ndvcg_forward(cf, channels=5):
+    """The ``(mean, mat)`` model of a full-covariance Gaussian on the grid of
+    the correlated field ``cf``: a ``VModel`` of ``channels`` independent
+    fields (every key mapped), the first two the mean ``(n0, n1, 2)``, the
+    next three a symmetric 2×2 whose matrix exponential is the SPD matrix
+    ``(n0, n1, 2, 2)``."""
+    import torch
+
+    import nifty_tpu_torch as nt
+
+    fields = nt.VModel(cf, channels)
+
+    def to_pair(f):
+        a, b, c = 0.3 * f[2], 0.3 * f[3], 0.3 * f[4]
+        s = torch.stack([torch.stack([a, b], -1), torch.stack([b, c], -1)], -2)
+        return torch.stack([f[0], f[1]], -1), torch.linalg.matrix_exp(s)
+
+    return nt.ChainModel(to_pair, fields)
 
 
 def latent_draw(domain, seed):

@@ -11,6 +11,14 @@ domain itself, any tree of :class:`ShapeWithDtype` (a likelihood's
 domain's shapes (a chain axis, ``batch=(n_chains,)``).  ``samples_from_numpy``
 does the same for a set of samples: the expansion point and the
 residuals, each leaf of these with a leading sample axis.
+
+A :class:`~.model.VModel`'s domain carries its mapped axis, so its
+positions go through ``position_from_numpy`` as any model's; so does a
+likelihood's pair domain (``NDVariableCovarianceGaussian(...).domain``,
+``(mean, mat)``).  ``params_from_numpy`` carries the parameters of
+:class:`~.variational_models.MeanFieldVI` and ``FullCovarianceVI``
+(``{k: np.asarray(v) for k, v in vi.params.items()}`` of the JAX
+package's), which share the JAX package's raveled layout.
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ import torch
 from . import device as _device
 from .utils.tree import ShapeWithDtype, tree_map
 
-__all__ = ["position_from_numpy", "samples_from_numpy"]
+__all__ = ["params_from_numpy", "position_from_numpy", "samples_from_numpy"]
 
 
 def _placement(model, device, dtype):
@@ -86,3 +94,18 @@ def samples_from_numpy(model, pos, residuals, keys=None, device=None, dtype=None
             raise ValueError(f"{k!r}: residual shape {a.shape}, domain has {domain[k].shape}")
         res[k] = torch.as_tensor(a, device=p[k].device, dtype=p[k].dtype)
     return Samples(pos=p, samples=res, keys=None if keys is None else list(keys))
+
+
+def params_from_numpy(vi, arrays):
+    """The variational parameters of ``vi`` (a ``MeanFieldVI`` or
+    ``FullCovarianceVI``) from numpy arrays of the same keys and shapes, on
+    the device and in the dtype of its own; returns the dict (set it as
+    ``vi.params``)."""
+    _check_keys(vi.params, arrays)
+    out = {}
+    for k, ref in vi.params.items():
+        a = np.asarray(arrays[k])
+        if a.shape != tuple(ref.shape):
+            raise ValueError(f"{k!r}: shape {a.shape}, the parameters have {tuple(ref.shape)}")
+        out[k] = torch.as_tensor(a, device=ref.device, dtype=ref.dtype)
+    return out

@@ -24,6 +24,12 @@ their keys (point estimates): the :class:`LikelihoodPartial` it returns
 takes and returns dicts of the other keys only.  Likelihoods add up
 (:class:`LikelihoodSum`); the data-space trees of the terms are joined
 under the keys ``lh_0``, ``lh_1``, ...
+
+Keyword arguments of the methods go to ``transformation`` (the base
+class) or, for a likelihood with a model, to the forward model, except
+those named in ``amend(..., likelihood_argnames=...)``, which go to the
+likelihood.  :func:`partial_insert_and_remove` fixes some leaves of a
+function's arguments and strips some from its output.
 """
 
 from __future__ import annotations
@@ -32,8 +38,9 @@ from functools import partial, reduce
 from typing import Callable
 
 import torch
-from torch.utils._pytree import tree_leaves
+from torch.utils._pytree import tree_leaves, tree_structure, tree_unflatten
 
+from .model import ChainModel, Model
 from .utils.tree import ShapeWithDtype, tree_add, tree_map, vdot
 
 __all__ = [
@@ -42,7 +49,59 @@ __all__ = [
     "LikelihoodSum",
     "LikelihoodWithModel",
     "StandardHamiltonian",
+    "partial_insert_and_remove",
 ]
+
+
+def _partial_argument(call, insert_axes, flat_fill):
+    """``call`` with the leaves flagged True in ``insert_axes[i]`` (a tree of
+    booleans, or None for an argument left whole) of its ``i``-th argument
+    taken, in order, from ``flat_fill[i]``; the argument passed carries only
+    the other leaves (as a flat sequence or any tree of them).  An
+    ``insert_axes`` of Nones returns ``call`` itself (the JAX package tests
+    ``any(insert_axes)``, which raises for a ``Vector``)."""
+    if all(axes is None for axes in insert_axes):
+        return call
+    metas = []
+    for axes, fill in zip(insert_axes, flat_fill):
+        if axes is None:
+            metas.append(None)
+            continue
+        metas.append((tree_leaves(axes), tree_structure(axes), tuple(fill)))
+
+    def inserted(*args):
+        full = []
+        for arg, meta in zip(args, metas):
+            if meta is None:
+                full.append(arg)
+                continue
+            flags, struct, fill = meta
+            liquid, frozen = iter(tree_leaves(arg)), iter(fill)
+            full.append(tree_unflatten([next(frozen) if f else next(liquid) for f in flags],
+                                       struct))
+        return call(*full)
+
+    return inserted
+
+
+def partial_insert_and_remove(call, insert_axes, flat_fill, *, remove_axes=(), unflatten=None):
+    """Insert ``flat_fill`` into ``call``'s arguments at ``insert_axes`` (see
+    :func:`_partial_argument`) and strip the leaves flagged True in
+    ``remove_axes`` (a tree of booleans over the output) from its output,
+    returning the kept leaves as a tuple or through ``unflatten``."""
+    if insert_axes is not None:
+        call = _partial_argument(call, insert_axes=insert_axes, flat_fill=flat_fill)
+    if not remove_axes:
+        return call
+    flags = tree_leaves(remove_axes)
+    spec = tree_structure(remove_axes)
+
+    def removed(*args):
+        leaves = spec.flatten_up_to(call(*args))
+        kept = tuple(x for x, f in zip(leaves, flags) if not f)
+        return unflatten(kept) if unflatten is not None else kept
+
+    return removed
 
 
 def _is_shape(x):
@@ -71,8 +130,8 @@ class Likelihood(torch.nn.Module):
     floating or complex data, its dtype.  A leaf without a dtype (count
     data, say) is drawn in the real dtype of the position."""
 
-    def forward(self, primals):
-        return self.energy(primals)
+    def forward(self, primals, **kw):
+        return self.energy(primals, **kw)
 
     @property
     def lsm_tangents_shape(self):
@@ -101,65 +160,93 @@ class Likelihood(torch.nn.Module):
     def transformation(self, primals):
         raise NotImplementedError("`transformation` is not implemented")
 
-    def metric(self, primals, tangents):
+    def metric(self, primals, tangents, **kw):
         """Fisher metric applied to ``tangents`` at ``primals`` (LSM ∘ RSM)."""
-        return self.left_sqrt_metric(primals, self.right_sqrt_metric(primals, tangents))
+        return self.left_sqrt_metric(primals, self.right_sqrt_metric(primals, tangents, **kw), **kw)
 
-    def left_sqrt_metric(self, primals, tangents):
+    def left_sqrt_metric(self, primals, tangents, **kw):
         """Pull-back of data-space tangents: the vjp of ``transformation``."""
-        _, vjp_fn = torch.func.vjp(self.transformation, primals)
+        _, vjp_fn = torch.func.vjp(partial(self.transformation, **kw), primals)
         return vjp_fn(tangents)[0]
 
-    def right_sqrt_metric(self, primals, tangents):
+    def right_sqrt_metric(self, primals, tangents, **kw):
         """Push-forward of parameter tangents: the transpose of the LSM (the
         vjp of the LSM, linear in its tangents, at zero tangents)."""
         zeros = _zeros(self.lsm_tangents_shape, tree_leaves(primals)[0])
-        _, vjp_fn = torch.func.vjp(partial(self.left_sqrt_metric, primals), zeros)
+        _, vjp_fn = torch.func.vjp(partial(self.left_sqrt_metric, primals, **kw), zeros)
         return vjp_fn(tangents)[0]
 
-    def amend(self, f: Callable) -> "LikelihoodWithModel":
-        """Compose a forward model to the right of the likelihood."""
-        return LikelihoodWithModel(self, f)
+    def amend(self, f: Callable, *, likelihood_argnames=None) -> "LikelihoodWithModel":
+        """Compose a forward model to the right of the likelihood; keyword
+        arguments named in ``likelihood_argnames`` go to the likelihood, the
+        others to ``f``."""
+        return LikelihoodWithModel(self, f, likelihood_argnames=likelihood_argnames)
 
     def __add__(self, other) -> "LikelihoodSum":
         return LikelihoodSum(self, other)
 
 
 class LikelihoodWithModel(Likelihood):
-    """A likelihood composed with a forward model ``f`` (lh ∘ f)."""
+    """A likelihood composed with a forward model ``f`` (lh ∘ f).  Keyword
+    arguments of its methods named in ``likelihood_argnames`` go to the
+    likelihood, the others to ``f``."""
 
-    def __init__(self, likelihood: Likelihood, f: Callable):
+    def __init__(self, likelihood: Likelihood, f: Callable, *, likelihood_argnames=None):
         super().__init__()
         if not callable(f):
             raise TypeError(f"forward model must be callable; got {f!r}")
+        argnames = () if likelihood_argnames is None else likelihood_argnames
+        if not isinstance(argnames, (tuple, list)):
+            raise TypeError(f"invalid likelihood_argnames {likelihood_argnames!r}")
         self.likelihood = likelihood
         self.forward_model = f
+        self.likelihood_argnames = tuple(argnames)
 
     @property
     def lsm_tangents_shape(self):
         return self.likelihood.lsm_tangents_shape
 
-    def energy(self, primals):
-        return self.likelihood.energy(self.forward_model(primals))
+    def _split(self, kw):
+        """``(likelihood kwargs, forward-model call)``."""
+        kl = {k: kw.pop(k) for k in self.likelihood_argnames if k in kw}
+        return kl, (partial(self.forward_model, **kw) if kw else self.forward_model)
 
-    def normalized_residual(self, primals):
-        return self.likelihood.normalized_residual(self.forward_model(primals))
+    def energy(self, primals, **kw):
+        kl, fwd = self._split(kw)
+        return self.likelihood.energy(fwd(primals), **kl)
 
-    def transformation(self, primals):
-        return self.likelihood.transformation(self.forward_model(primals))
+    def normalized_residual(self, primals, **kw):
+        kl, fwd = self._split(kw)
+        return self.likelihood.normalized_residual(fwd(primals), **kl)
 
-    def metric(self, primals, tangents):
-        y, f_t = torch.func.jvp(self.forward_model, (primals,), (tangents,))
-        _, vjp_fn = torch.func.vjp(self.forward_model, primals)
-        return vjp_fn(self.likelihood.metric(y, f_t))[0]
+    def transformation(self, primals, **kw):
+        kl, fwd = self._split(kw)
+        return self.likelihood.transformation(fwd(primals), **kl)
 
-    def left_sqrt_metric(self, primals, tangents):
-        y, vjp_fn = torch.func.vjp(self.forward_model, primals)
-        return vjp_fn(self.likelihood.left_sqrt_metric(y, tangents))[0]
+    def metric(self, primals, tangents, **kw):
+        kl, fwd = self._split(kw)
+        y, f_t = torch.func.jvp(fwd, (primals,), (tangents,))
+        _, vjp_fn = torch.func.vjp(fwd, primals)
+        return vjp_fn(self.likelihood.metric(y, f_t, **kl))[0]
 
-    def right_sqrt_metric(self, primals, tangents):
-        y, f_t = torch.func.jvp(self.forward_model, (primals,), (tangents,))
-        return self.likelihood.right_sqrt_metric(y, f_t)
+    def left_sqrt_metric(self, primals, tangents, **kw):
+        kl, fwd = self._split(kw)
+        y, vjp_fn = torch.func.vjp(fwd, primals)
+        return vjp_fn(self.likelihood.left_sqrt_metric(y, tangents, **kl))[0]
+
+    def right_sqrt_metric(self, primals, tangents, **kw):
+        kl, fwd = self._split(kw)
+        y, f_t = torch.func.jvp(fwd, (primals,), (tangents,))
+        return self.likelihood.right_sqrt_metric(y, f_t, **kl)
+
+    def amend(self, f: Callable, *, likelihood_argnames=None) -> "LikelihoodWithModel":
+        """Compose ``f`` before this forward model; the likelihood's
+        argument names stay unless given anew."""
+        fwd = self.forward_model
+        chained = (ChainModel(fwd, f) if isinstance(f, Model)
+                   else lambda x, **kw: fwd(f(x, **kw)))
+        names = self.likelihood_argnames if likelihood_argnames is None else likelihood_argnames
+        return LikelihoodWithModel(self.likelihood, chained, likelihood_argnames=names)
 
 
 class LikelihoodSum(Likelihood):

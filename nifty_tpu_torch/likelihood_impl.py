@@ -22,12 +22,14 @@ import torch
 from . import device as _device
 from .likelihood import Likelihood
 from .utils.tree import ShapeWithDtype
+from .utils.tree_linalg import sym_logm, sym_solve, sym_sqrtm
 
 __all__ = [
     "Bernoulli",
     "Categorical",
     "Gaussian",
     "InverseGamma",
+    "NDVariableCovarianceGaussian",
     "Poissonian",
     "StudentT",
     "VariableCovarianceGaussian",
@@ -383,3 +385,67 @@ class InverseGamma(Likelihood):
     def normalized_residual(self, primals):
         a = self.alpha
         return torch.sqrt(a + 1.0) * (torch.log(primals) - torch.log(self.beta / (a + 2.0)))
+
+
+def _matvec(m, x):
+    return (m @ x.unsqueeze(-1)).squeeze(-1)
+
+
+class NDVariableCovarianceGaussian(Likelihood):
+    """Multivariate Gaussian likelihood with a full covariance (or, with
+    ``covariance=False``, precision) matrix per pixel, both inferred: its
+    position is a pair ``(mean, mat)``, ``mean`` of the data's shape
+    ``(..., d)`` and ``mat`` ``(..., d, d)`` symmetric positive definite.
+    The matrix functions go through :mod:`.utils.tree_linalg` (one batched
+    ``eigh`` of the ``(..., d, d)`` stack, Daleckii–Krein derivatives).
+    The transformation is a local approximation; the metric and its left
+    square root are the reference's closed forms."""
+
+    def __init__(self, data, covariance: bool = True, device=None):
+        super().__init__()
+        self.register_buffer("data", _as_data(data, device))
+        self.covariance = bool(covariance)
+
+    @property
+    def domain(self):
+        d = self.data
+        return (ShapeWithDtype.from_leave(d),
+                ShapeWithDtype(tuple(d.shape) + (d.shape[-1],), d.dtype))
+
+    @property
+    def lsm_tangents_shape(self):
+        return self.domain
+
+    def _whiten(self, mat, x):
+        """``mat⁻¹ x`` for a covariance, ``mat x`` for a precision."""
+        return sym_solve(mat, x) if self.covariance else _matvec(mat, x)
+
+    def energy(self, primals):
+        mean, mat = primals
+        rsdl = self.data - mean
+        logdet = _sum(torch.linalg.slogdet(mat)[1])
+        quad = 0.5 * _real_vdot(rsdl, self._whiten(mat, rsdl))
+        return quad + 0.5 * logdet if self.covariance else quad - 0.5 * logdet
+
+    def metric(self, primals, tangents):
+        _, mat = primals
+        t_mean, t_mat = tangents
+        res_mat = sym_solve(mat, t_mat, matrix_eqn=True)
+        res_mat = sym_solve(mat, res_mat, matrix_eqn=True, transposed=True)
+        return (self._whiten(mat, t_mean), 0.5 * res_mat)
+
+    def left_sqrt_metric(self, primals, tangents):
+        _, mat = primals
+        t_mean, t_mat = tangents
+        sq = sym_sqrtm(mat)
+        res_mat = sym_solve(sq, t_mat, matrix_eqn=True)
+        res_mat = sym_solve(sq, res_mat, matrix_eqn=True, transposed=True)
+        return (self._whiten(sq, t_mean), res_mat / math.sqrt(2.0))
+
+    def transformation(self, primals):
+        mean, mat = primals
+        return (self._whiten(sym_sqrtm(mat), mean - self.data), 0.5 * sym_logm(mat))
+
+    def normalized_residual(self, primals):
+        mean, mat = primals
+        return self._whiten(sym_sqrtm(mat), mean - self.data)

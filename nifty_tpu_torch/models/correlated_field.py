@@ -16,8 +16,17 @@ the Hartley transform.  Two forms of the spectrum:
   (:mod:`..ops.pwl`), then mirror-unfolded onto the full grid.  No table,
   no gather: only the Hartley touches the full grid.
 
-Spherical grids, Matérn amplitudes and field-sharded execution are not
-part of this port yet.
+A Matérn amplitude (:meth:`CorrelatedFieldMaker.add_fluctuations_matern`)
+has the same two forms: its closed-form spectrum on the unique-|k| table
+(expanded by K1, as the exact form), or with ``pixel_expansion=True`` per
+pixel of the |k| core, mirror-unfolded (no table, no gather).  Every
+amplitude answers :attr:`per_pixel`, which picks the field's branch.  The
+renormalisations sum in float64: at 4096² a sum runs over 1.6-6.6 M core
+pixels.  :func:`density_estimator` is the exponentiated Matérn field on a
+padded grid.
+
+Spherical grids and field-sharded execution are not part of this port
+yet.
 """
 
 from __future__ import annotations
@@ -31,7 +40,7 @@ import numpy as np
 import torch
 
 from .. import device as _device
-from ..model import Model, WrappedCall
+from ..model import ChainModel, Model, WrappedCall
 from ..num.stats_distributions import lognormal_prior, normal_prior
 from ..ops.cuda_expand import mirror_unfold
 from ..ops.fft import hartley
@@ -43,9 +52,11 @@ from .gauss_markov import IntegratedWienerProcess
 __all__ = [
     "CorrelatedField",
     "CorrelatedFieldMaker",
+    "MaternAmplitude",
     "NonParametricAmplitude",
     "RegularCartesianGrid",
     "RegularFourierGrid",
+    "density_estimator",
     "get_fourier_mode_distributor",
     "make_grid",
 ]
@@ -152,6 +163,25 @@ def _core_weights(shape):
             w[-1] = 1.0
         out.append(torch.from_numpy(w.reshape((-1,) + (1,) * (len(shape) - axis - 1))))
     return out
+
+
+def _attach_core_weights(module, shape, device):
+    """Register :func:`_core_weights` as buffers ``core_weight_<axis>``."""
+    for axis, w in enumerate(_core_weights(shape)):
+        module.register_buffer(f"core_weight_{axis}", w.to(device))
+
+
+def _apply_core_weights(module, x, ndim):
+    """``x`` times the mirror multiplicities registered on ``module``."""
+    for axis in range(ndim):
+        x = x * getattr(module, f"core_weight_{axis}")
+    return x
+
+
+def _sum64(x):
+    """``Σ x`` accumulated in float64, in ``x``'s dtype: the renormalisations
+    sum up to 6.6 M core pixels."""
+    return torch.sum(x, dtype=torch.float64).to(x.dtype)
 
 
 def _max_rel_log_k(shape, distances):
@@ -272,6 +302,12 @@ class NonParametricAmplitude(Model):
 
     # -- the knot form ------------------------------------------------------
 
+    @property
+    def per_pixel(self) -> bool:
+        """Whether the amplitude is evaluated per core pixel (the knot form)
+        rather than expanded from a unique-|k| table."""
+        return self.n_mode_knots is not None
+
     def attach_core_grid(self, device) -> None:
         """Build the knot form's per-pixel buffers on ``device`` in float64
         (``.to(dtype)`` casts them): ``rel_log_k_core``, log(|k|/k_min) on
@@ -281,13 +317,10 @@ class NonParametricAmplitude(Model):
         x, nonzero = _rel_log_k_grid(shape, distances, core=True, device=device)
         self.register_buffer("rel_log_k_core", x)
         self.register_buffer("nonzero_core", nonzero)
-        for axis, w in enumerate(_core_weights(shape)):
-            self.register_buffer(f"core_weight_{axis}", w.to(device))
+        _attach_core_weights(self, shape, device)
 
     def _apply_core_weights(self, x):
-        for axis in range(len(self.grid.shape)):
-            x = x * getattr(self, f"core_weight_{axis}")
-        return x
+        return _apply_core_weights(self, x, len(self.grid.shape))
 
     def _dev_knot_values(self, primals):
         """The deviation curve at the knots, its slope removed."""
@@ -316,7 +349,7 @@ class NonParametricAmplitude(Model):
         """The norm of the non-zero-mode power over the full grid, summed on
         the core with the mirror multiplicities."""
         power = spectrum**2 if self.kind == "amplitude" else spectrum
-        return torch.sqrt(torch.sum(self._apply_core_weights(power)))
+        return torch.sqrt(_sum64(self._apply_core_weights(power)))
 
     def expanded_normalized_core(self, primals, azm):
         """The normalised amplitude divided by ``azm`` per pixel of the
@@ -350,10 +383,10 @@ class NonParametricAmplitude(Model):
         spectrum = torch.exp(ln_spectrum)
         # normalise out the non-zero-mode power, then scale by fluctuations
         if self.kind == "amplitude":
-            norm = torch.sqrt(torch.sum(mm[1:] * spectrum[1:] ** 2))
+            norm = torch.sqrt(_sum64(mm[1:] * spectrum[1:] ** 2))
             amplitude = flu * (totvol / norm) * spectrum
         else:
-            norm = torch.sqrt(torch.sum(mm[1:] * spectrum[1:]))
+            norm = torch.sqrt(_sum64(mm[1:] * spectrum[1:]))
             amplitude = flu * (totvol / norm) * torch.sqrt(spectrum)
         return torch.cat((amplitude.new_full((1,), totvol), amplitude[1:]))
 
@@ -369,14 +402,138 @@ class NonParametricAmplitude(Model):
         return scale * (spectrum if self.kind == "amplitude" else torch.sqrt(spectrum))
 
 
+class MaternAmplitude(Model):
+    """Matérn-kernel amplitude spectrum, ``scale · (1 + (|k|/cutoff)²)^(slope/4)``,
+    optionally renormalised so that its non-zero-mode power is the total
+    volume.  Table form: calling it gives one value per unique mode, the
+    zero mode set to the total volume (expanded by K1, as the exact
+    non-parametric form).  ``pixel_expansion=True``: no table;
+    :meth:`expanded_normalized_core` evaluates the spectrum per pixel of
+    the |k| core, from float64 buffers that :meth:`attach_core_grid` builds
+    on the model's device (``finalize`` calls it), and calling it gives the
+    spectrum at 64 log-spaced |k| (a diagnostic)."""
+
+    def __init__(
+        self,
+        grid,
+        scale: Optional[Callable],
+        cutoff: Callable,
+        loglogslope: Callable,
+        renormalize_amplitude: bool,
+        prefix: str = "",
+        kind: str = "amplitude",
+        pixel_expansion: bool = False,
+    ):
+        kind = kind.lower()
+        if kind not in ("amplitude", "power"):
+            raise ValueError(f"invalid kind {kind!r}")
+        cutoff = WrappedCall(cutoff, name=prefix + "cutoff")
+        loglogslope = WrappedCall(loglogslope, name=prefix + "loglogslope")
+        scale = WrappedCall(scale, name=prefix + "scale") if scale is not None else None
+        domain = {}
+        for m in (scale, cutoff, loglogslope):
+            if m is not None:
+                domain.update(m.domain)
+        super().__init__(domain=domain)
+        self.grid = grid
+        self.kind = kind
+        self.pixel_mode = bool(pixel_expansion)
+        self.scale, self.cutoff, self.loglogslope = scale, cutoff, loglogslope
+        self.renormalize_amplitude = bool(renormalize_amplitude)
+        if not self.pixel_mode:
+            hg = grid.harmonic_grid
+            self.register_buffer("mode_lengths", torch.from_numpy(
+                np.asarray(hg.mode_lengths, np.float64)))
+            self.register_buffer("mode_multiplicity", torch.from_numpy(
+                hg.mode_multiplicity.astype(np.float64)))
+
+    @property
+    def per_pixel(self) -> bool:
+        """Whether the amplitude is evaluated per core pixel."""
+        return self.pixel_mode
+
+    def attach_core_grid(self, device) -> None:
+        """Build the pixel form's buffers on ``device`` in float64 (cast by
+        ``.to(dtype)``): ``k2_core``, |k|² on the core, ``nonzero_core`` and
+        the mirror multiplicities ``core_weight_<axis>``."""
+        k2, nonzero = _k2_grid(self.grid.shape, self.grid.distances, core=True, device=device)
+        self.register_buffer("k2_core", k2)
+        self.register_buffer("nonzero_core", nonzero)
+        _attach_core_weights(self, self.grid.shape, device)
+
+    def _hyper(self, primals):
+        scl = 1.0 if self.scale is None else self.scale(primals)
+        return scl, self.cutoff(primals), self.loglogslope(primals)
+
+    def _core_spectrum(self, ctf, slp):
+        ln_spectrum = 0.25 * slp * torch.log1p(self.k2_core / ctf**2)
+        return torch.where(self.nonzero_core, torch.exp(ln_spectrum), 0.0)
+
+    def _norm(self, power_sum):
+        """The renormalisation ``√(Σ power) / √V`` (1 without it)."""
+        if not self.renormalize_amplitude:
+            return 1.0
+        return torch.sqrt(power_sum) / float(np.sqrt(self.grid.total_volume))
+
+    def _power_sum(self, spectrum, weighted):
+        power = spectrum**2 if self.kind == "amplitude" else spectrum
+        return _sum64(weighted(power))
+
+    def _scaled(self, scl, norm, spectrum):
+        if self.kind == "power":
+            spectrum = torch.sqrt(spectrum)
+        return scl * (float(np.sqrt(self.grid.total_volume)) / norm) * spectrum
+
+    def expanded_normalized_core(self, primals, azm):
+        """The normalised amplitude divided by ``azm`` per pixel of the |k|
+        core, the zero mode set to the total volume; the full grid is its
+        mirror unfold."""
+        scl, ctf, slp = self._hyper(primals)
+        spectrum = self._core_spectrum(ctf, slp)
+        norm = 1.0
+        if self.renormalize_amplitude:
+            norm = self._norm(self._power_sum(
+                spectrum, partial(_apply_core_weights, self, ndim=len(self.grid.shape))))
+        spectrum = self._scaled(scl, norm, spectrum)
+        return torch.where(self.nonzero_core, spectrum / azm, self.grid.total_volume)
+
+    def expanded_normalized(self, primals, azm):
+        """:meth:`expanded_normalized_core` on the full harmonic grid."""
+        return mirror_unfold(self.expanded_normalized_core(primals, azm), self.grid.shape)
+
+    def forward(self, primals):
+        scl, ctf, slp = self._hyper(primals)
+        if self.pixel_mode:
+            kmin = min(1.0 / (n * dx) for n, dx in zip(self.grid.shape, self.grid.distances))
+            xmax = _max_rel_log_k(self.grid.shape, self.grid.distances)
+            ref = self.k2_core
+            k = kmin * torch.exp(torch.linspace(0.0, xmax, 64, dtype=ref.dtype, device=ref.device))
+        else:
+            k = self.mode_lengths
+        spectrum = torch.exp(0.25 * slp * torch.log1p((k / ctf) ** 2))
+        norm = 1.0
+        if self.renormalize_amplitude:
+            if self.pixel_mode:
+                weighted = partial(_apply_core_weights, self, ndim=len(self.grid.shape))
+                norm = self._norm(self._power_sum(self._core_spectrum(ctf, slp), weighted))
+            else:
+                mm = self.mode_multiplicity
+                norm = self._norm(self._power_sum(spectrum[1:], lambda p: mm[1:] * p))
+        spectrum = self._scaled(scl, norm, spectrum)
+        if self.pixel_mode:
+            return spectrum
+        return torch.cat((spectrum.new_full((1,), self.grid.total_volume), spectrum[1:]))
+
+
 # --- the finalized model -----------------------------------------------------
 
 
 class CorrelatedField(Model):
     """ξ coloured by the outer product of the expanded amplitudes, mapped
     through the harmonic transform(s), plus the offset.  ``indexes`` holds
-    the mode index of each exact-form amplitude, in order; a knot-form
-    amplitude needs none."""
+    the mode index of each table-form amplitude, in order; a per-pixel
+    amplitude (:attr:`per_pixel`: the knot form, a Matérn pixel form) needs
+    none."""
 
     def __init__(
         self, *, amplitudes, indexes, full_shapes, azm, offset_mean, xi_key,
@@ -396,7 +553,7 @@ class CorrelatedField(Model):
         outer = None
         indexes = iter(self.indexes)
         for amp, fshape in zip(self.amplitudes, self.full_shapes):
-            if amp.n_mode_knots is not None:
+            if amp.per_pixel:
                 # evaluated per pixel of the |k| core: no table, no gather
                 ea = mirror_unfold(amp.expanded_normalized_core(p, azm), fshape)
             else:
@@ -480,6 +637,37 @@ class CorrelatedFieldMaker:
         self._target_grids.append(grid)
         self._parameter_tree.update(npa.domain)
 
+    def add_fluctuations_matern(
+        self,
+        shape,
+        distances,
+        scale,
+        cutoff,
+        loglogslope,
+        renormalize_amplitude: bool,
+        prefix: str = "",
+        harmonic_type: str = "fourier",
+        non_parametric_kind: str = "amplitude",
+        pixel_expansion: bool = False,
+    ):
+        """Add a Matérn-kernel correlation structure on a subgrid: its
+        spectrum on the unique-|k| table, or with ``pixel_expansion=True``
+        per pixel of the |k| core (no table)."""
+        grid = make_grid(shape, distances, harmonic_type, mode_tables=not pixel_expansion)
+        ma = MaternAmplitude(
+            grid=grid,
+            scale=_parse_prior(scale, lognormal_prior, "scale"),
+            cutoff=_parse_prior(cutoff, lognormal_prior, "cutoff"),
+            loglogslope=_parse_prior(loglogslope, normal_prior, "loglogslope"),
+            renormalize_amplitude=renormalize_amplitude,
+            prefix=self._prefix + prefix,
+            kind=non_parametric_kind,
+            pixel_expansion=pixel_expansion,
+        )
+        self._fluctuations.append(ma)
+        self._target_grids.append(grid)
+        self._parameter_tree.update(ma.domain)
+
     def set_amplitude_total_offset(self, offset_mean, offset_std):
         """Set the field's global offset and the zero-mode prior."""
         self._offset_mean = offset_mean
@@ -509,7 +697,7 @@ class CorrelatedFieldMaker:
             n = len(excitation_shape)
             axes = tuple(range(n - len(sub_shp), n))
             harmonic_transforms.append((1.0 / g.total_volume, partial(hartley, axes=axes)))
-            if amp.n_mode_knots is not None:
+            if amp.per_pixel:
                 amp.attach_core_grid(device)
                 continue
             pd = np.asarray(g.harmonic_grid.power_distributor, dtype=np.int32)
@@ -528,3 +716,39 @@ class CorrelatedFieldMaker:
             harmonic_transforms=harmonic_transforms,
             domain=dict(self._parameter_tree),
         ).to(device=device, dtype=dtype)
+
+
+def density_estimator(
+    shape,
+    *,
+    distances=None,
+    pad: float = 1.0,
+    cf_fluctuations=None,
+    azm_uniform=(1e-4, 1.0),
+    prefix: str = "",
+    device=None,
+    dtype=torch.float32,
+):
+    """The exponentiated Matérn correlated field on a grid padded by ``pad``
+    (a factor of each axis), the standard non-parametric density prior;
+    its zero mode has a uniform prior, so the scale comes from the data.
+    Returns ``(model, padded_shape)``: evaluate the model and slice
+    ``[tuple(slice(0, s) for s in shape)]`` for the unpadded density.  The
+    model holds its field as ``correlated_field``; ``device`` and ``dtype``
+    go to ``finalize``."""
+    from ..num.stats_distributions import uniform_prior
+
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    distances = tuple(1.0 / s for s in shape) if distances is None else distances
+    distances = tuple(np.broadcast_to(distances, (len(shape),)))
+    if cf_fluctuations is None:
+        cf_fluctuations = dict(scale=(0.5, 0.3), cutoff=(4.0, 3.0), loglogslope=(-6.0, 3.0))
+    pshape = tuple(int(np.ceil((1.0 + pad) * s)) for s in shape)
+    cfm = CorrelatedFieldMaker(prefix)
+    cfm.add_fluctuations_matern(pshape, distances=distances, renormalize_amplitude=False,
+                                **cf_fluctuations)
+    cfm.set_amplitude_total_offset(offset_mean=0.0, offset_std=uniform_prior(*azm_uniform))
+    cf = cfm.finalize(device=device, dtype=dtype)
+    model = ChainModel(torch.exp, cf)
+    model.correlated_field = cf
+    return model, pshape

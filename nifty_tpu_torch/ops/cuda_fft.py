@@ -368,10 +368,13 @@ class Hartley2d(torch.autograd.Function):
     map: H is symmetric (Hᵀ = H), so its backward and its jvp are the
     transform itself.  Leading axes are a batch, and so is the axis that
     ``torch.func.vmap`` maps (moved to the front): one K3 and one K4 launch
-    for the whole batch on the card."""
+    for the whole batch on the card.  On a ``meta`` tensor it returns an
+    empty one of the same shape (``model.eval_shape``)."""
 
     @staticmethod
     def forward(x):
+        if x.is_meta:  # shapes only (eval_shape): no launch
+            return torch.empty_like(x)
         x = x.contiguous()
         if x.is_cuda and x.data_ptr() % 16:
             x = x.clone()  # K3 loads 16-byte vectors; a fresh buffer is aligned

@@ -15,7 +15,8 @@ itself (both are linear).  Backward and jvp re-enter the Function through
 ``apply``, so under ``torch.func`` transforms the kernel wrappers always
 receive plain tensors (``torch.func.jvp`` hands ``jvp`` a wrapped tangent,
 which has no data pointer).  Tables are ``(U,)`` or ``(U, B)`` with a
-trailing sample axis.
+trailing sample axis.  On ``meta`` tensors (``model.eval_shape``) both
+return an empty output of the right shape.
 """
 
 from __future__ import annotations
@@ -124,6 +125,8 @@ class ModeExpandGrid(torch.autograd.Function):
 
     @staticmethod
     def forward(tab, index, full_shape):
+        if tab.is_meta:  # shapes only (eval_shape): no index read, no launch
+            return tab.new_empty(tuple(full_shape) + tuple(tab.shape[1:]))
         return expand_to_grid(_kernel_input(tab), index, full_shape)
 
     @staticmethod
@@ -149,6 +152,8 @@ class ModeCollapseGrid(torch.autograd.Function):
 
     @staticmethod
     def forward(cot, index, full_shape):
+        if cot.is_meta:  # shapes only (eval_shape): no index read, no launch
+            return cot.new_empty((index.n_unique,) + tuple(cot.shape[len(full_shape):]))
         return collapse_from_grid(_kernel_input(cot), index, full_shape)
 
     @staticmethod

@@ -21,8 +21,14 @@ read per energy evaluation, which the search needs anyway.
 algorithm 4.1) over :func:`~.conjugate_gradient.cg_steihaug`, with the JAX
 package's status codes (0 converged, 1 the iteration limit, 2 a bad
 gradient or a model that predicts no decrease); the host reads the status
-once an iteration.  ``optax_wrapper`` is not ported (a ``torch.optim``
-counterpart is queued in ROADMAP.md, section A).
+once an iteration.
+
+:func:`optim_wrapper` is the counterpart of the JAX package's
+``optax_wrapper``: any ``torch.optim`` optimizer (a factory of the
+position's leaves) stepped in a host loop under the reference's stopping
+rule.  Adam takes one step an iteration; L-BFGS (``minimize(method=
+"l-bfgs")``) one iteration a step, its line search calling the closure
+again as optax's threads values through its state.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from functools import partial
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
-from torch.utils._pytree import tree_leaves
+from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
 
 from . import conjugate_gradient
 from .logger import logger
@@ -48,7 +54,14 @@ from .utils.tree import (
     zeros_like,
 )
 
-__all__ = ["OptimizeResults", "minimize", "newton_cg", "static_newton_cg", "trust_ncg"]
+__all__ = [
+    "OptimizeResults",
+    "minimize",
+    "newton_cg",
+    "optim_wrapper",
+    "static_newton_cg",
+    "trust_ncg",
+]
 
 
 class OptimizeResults(NamedTuple):
@@ -430,6 +443,76 @@ def trust_ncg(
     )
 
 
+def optim_wrapper(
+    fun=None,
+    x0=None,
+    *,
+    optimizer=None,
+    maxiter: Optional[int] = None,
+    miniter: Optional[int] = None,
+    jac: Optional[Callable] = None,
+    fun_and_grad: Optional[Callable] = None,
+    hessp: Optional[Callable] = None,
+    name: Optional[str] = None,
+    xtol: float = 1e-5,
+) -> OptimizeResults:
+    """Minimise with a ``torch.optim`` optimizer: ``optimizer`` maps a list
+    of leaf tensors (copies of ``x0``'s leaves) to an optimizer
+    (``lambda ps: torch.optim.Adam(ps, lr=0.2)``, say).  Each iteration is
+    one ``optimizer.step(closure)``; the closure sets the leaves' ``.grad``
+    from ``fun`` by autograd (or from ``fun_and_grad``/``jac``) and returns
+    the value, and L-BFGS calls it again in its line search.  The loop
+    stops once an iteration moves the position by at most ``xtol`` times
+    its size in the 2-norm (after ``miniter`` iterations) or after
+    ``maxiter``, the stopping rule of the JAX package's ``optax_wrapper``;
+    ``hessp`` is not used."""
+    del hessp
+    if optimizer is None:
+        raise ValueError("`optimizer` (a factory of a torch.optim optimizer) is required")
+    miniter = 0 if miniter is None else miniter
+    maxiter = 200 if maxiter is None else maxiter
+    xtol = xtol * size(x0)
+    if fun_and_grad is None and fun is not None and jac is not None:
+        fun_and_grad = lambda x: (fun(x), jac(x))  # noqa: E731
+    if fun_and_grad is None and fun is None:
+        raise ValueError("no function (or value-and-grad) given")
+    leaves, spec = tree_flatten(x0)
+    params = [x.detach().clone().requires_grad_(True) for x in leaves]
+    opt = optimizer(params)
+
+    def closure():
+        opt.zero_grad()
+        if fun_and_grad is None:
+            value = fun(tree_unflatten(params, spec))
+            value.backward()
+            return value.detach()
+        value, grad = fun_and_grad(tree_unflatten([p.detach() for p in params], spec))
+        for p, g in zip(params, tree_leaves(grad)):
+            p.grad = g.detach().clone()
+        return value
+
+    nit, descent = 0, math.inf
+    while (descent > xtol or nit < miniter) and nit < maxiter:
+        before = [p.detach().clone() for p in params]
+        value = opt.step(closure)
+        descent = math.sqrt(sum(float(((p.detach() - b) ** 2).sum()) for p, b in zip(params, before)))
+        nit += 1
+        if name is not None:
+            logger.info(f"{name}: it {nit} E {float(value):+.6e} |Δx| {descent:.3e}")
+    x = tree_unflatten([p.detach() for p in params], spec)
+    value, grad = fun_and_grad(x) if fun_and_grad is not None else value_and_grad(fun)(x)
+    return OptimizeResults(x=x, success=True, status=0 if nit < maxiter else 1, fun=value,
+                           jac=grad, nit=nit)
+
+
+def _lbfgs(params):
+    """torch's L-BFGS, one iteration a step, with a strong-Wolfe line search
+    of up to 24 evaluations (its budget is ``max_eval`` less the step's first
+    evaluation; the default, 5/4 of ``max_iter``, leaves none)."""
+    return torch.optim.LBFGS(params, lr=1.0, max_iter=1, max_eval=25,
+                             line_search_fn="strong_wolfe")
+
+
 def minimize(
     fun: Optional[Callable],
     x0,
@@ -438,7 +521,9 @@ def minimize(
     tol: Optional[float] = None,
     options: Optional[dict] = None,
 ) -> OptimizeResults:
-    """SciPy-style dispatcher over the ported minimisers."""
+    """SciPy-style dispatcher over the ported minimisers; ``"optim"`` runs
+    :func:`optim_wrapper` with ``options["optimizer"]`` (the JAX package's
+    ``"optax"``), ``"l-bfgs"`` the same with torch's L-BFGS."""
     options = {} if options is None else dict(options)
     m = method.lower().replace("_", "-")
     if tol is not None:
@@ -449,6 +534,9 @@ def minimize(
         return static_newton_cg(fun, x0, **options)
     if m in ("trust-ncg", "trustncg"):
         return trust_ncg(fun, x0, **options)
-    if m in ("l-bfgs", "lbfgs", "optax"):
-        raise NotImplementedError(f"method {method!r} is not ported (ROADMAP.md, section A)")
+    if m in ("l-bfgs", "lbfgs"):
+        options.setdefault("optimizer", _lbfgs)
+        return optim_wrapper(fun, x0, **options)
+    if m == "optim":
+        return optim_wrapper(fun, x0, **options)
     raise ValueError(f"unknown method {method!r}")

@@ -466,3 +466,64 @@ def test_integrated_wiener_process_batch_accumulates_in_f64(cuda_device):
     f32 = lambda t: t.to(cuda_device, torch.float32)  # noqa: E731
     got = torch.func.vmap(lambda x: iwp(x, f32(x0), f32(dt)))(f32(xi)).double().cpu()
     assert float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref)) <= 2e-7
+
+
+def test_vmodel_metric_through_batched_kernels(cuda_device):
+    """A ``VModel`` of 4 exact 1280² fields (every key mapped) under
+    ``Poissonian``: its metric runs K1-K4 on a batch of 4 and equals 4
+    separate applies on the card within 1e-5 (f32 on both sides), and the
+    batch's metric in float64 on the CPU (plain kernel versions) within
+    1e-4."""
+    n, B = 1280, 4
+    cf, cf64 = (build_likelihood(n, d, t)[0].forward_model.inner
+                for d, t in ((cuda_device, torch.float32), ("cpu", torch.float64)))
+    vm, vm64 = nt.VModel(cf, B), nt.VModel(cf64, B)
+    rng = np.random.default_rng(4)
+    counts = rng.poisson(1.0, (B, n, n)).astype(np.int32)
+    pos = {k: rng.standard_normal(v.shape) for k, v in vm.domain.items()}
+    tan = {k: rng.standard_normal(v.shape) for k, v in vm.domain.items()}
+    lh = nt.Poissonian(counts).amend(nt.ChainModel(torch.exp, vm))
+    p, t = nt.position_from_numpy(vm, pos), nt.position_from_numpy(vm, tan)
+    native.reset_launches()
+    m = lh.metric(p, t)
+    torch.cuda.synchronize()
+    assert native.batched_launches == native.launches and len(native.launches) == 4
+    parts = [nt.Poissonian(counts[i]).amend(nt.ChainModel(torch.exp, cf)).metric(
+        {k: v[i] for k, v in p.items()}, {k: v[i] for k, v in t.items()}) for i in range(B)]
+    sep = {k: torch.stack([q[k] for q in parts]).double().cpu() for k in m}
+    assert _rel_l2(m, sep) <= 1e-5
+    m64 = nt.Poissonian(counts, device="cpu").amend(nt.ChainModel(torch.exp, vm64)).metric(
+        nt.position_from_numpy(vm64, pos), nt.position_from_numpy(vm64, tan))
+    assert _rel_l2(m, m64) <= 1e-4
+
+
+def test_daleckii_krein_on_card_matches_cpu(cuda_device):
+    """``sym_sqrtm``/``sym_logm``/``sym_inv`` of 1280² stacked SPD 2×2
+    matrices on the card (batched ``eigh``): values, jvps and pull-backs
+    within 1e-4 of float64 on the CPU (f32 eigensystems), the outputs on
+    the card."""
+    rng = np.random.default_rng(5)
+    m = rng.standard_normal((1280, 1280, 2, 2))
+    M = m @ np.swapaxes(m, -1, -2) + 0.5 * np.eye(2)
+    dM = rng.standard_normal(M.shape)
+    dM = dM + np.swapaxes(dM, -1, -2)
+    Mc, dMc = (torch.from_numpy(a).to(cuda_device, torch.float32) for a in (M, dM))
+    for fn in (nt.sym_sqrtm, nt.sym_logm, nt.sym_inv):
+        y, dy = torch.func.jvp(fn, (Mc,), (dMc,))
+        g = torch.func.vjp(fn, Mc)[1](dMc)[0]
+        y64, dy64 = torch.func.jvp(fn, (torch.from_numpy(M),), (torch.from_numpy(dM),))
+        g64 = torch.func.vjp(fn, torch.from_numpy(M))[1](torch.from_numpy(dM))[0]
+        for got, want in ((y, y64), (dy, dy64), (g, g64)):
+            assert got.device.type == "cuda"
+            assert _rel(got.double().cpu(), want) <= 1e-4, fn.__name__
+
+
+def test_interpolant_on_card(cuda_device):
+    """A tabulated prior's interpolant on the card: float64 tables on the
+    card, an f32 result within 1e-6 of CPU float64."""
+    ip = nt.invgamma_prior(3.0, 2.0).to(cuda_device)
+    assert ip.xs.device.type == "cuda" and ip.xs.dtype == torch.float64
+    x = torch.randn((512, 512), device=cuda_device)
+    y = ip(x)
+    assert y.device.type == "cuda" and y.dtype == torch.float32
+    assert _rel(y.double().cpu(), nt.invgamma_prior(3.0, 2.0)(x.double().cpu())) <= 1e-6

@@ -1,5 +1,14 @@
 """The port's demos (``demos_torch/``) on the CPU.
 
+The VI demos (0, 5, 8, 9, 11, 12, 13) each run at their fast size in the
+default set (finite results, the demo's own check), and at full size
+against the JAX package's run of the same model on the same data from the
+port's starting latent (marked ``slow``): posterior mean and standard
+deviation within five Monte-Carlo standard errors a pixel (σ/√n and
+σ/√(2n), n the independent draws of each run: its mirrored sample pairs,
+for parametric VI the 4 draws a step; an exponentiated field compared in
+log, where its posterior is near Gaussian).
+
 ``demos_torch/3_nuts.py`` is the port's ``demos/3_nuts.py``: its own
 asserts (acceptance > 0.4, NRMSE < 0.8), and its posterior mean and
 standard deviation of the field against the JAX package's NUTS on the
@@ -77,3 +86,184 @@ def test_nuts_demo_matches_jax():
     sigma = 0.5 * (s_t + s_j)
     np.testing.assert_array_less(np.abs(m_t - m_j), 5 * sigma * np.sqrt(1 / ess_t + 1 / ess_j))
     np.testing.assert_array_less(np.abs(s_t - s_j), 5 * sigma * np.sqrt(0.5 / ess_t + 0.5 / ess_j))
+
+
+# --- the VI demos: a fast run each (default set), the JAX demo's posterior (slow)
+
+
+FAST = {
+    "0_intro.py": dict(fast=True),
+    "5_wiener_filter.py": dict(n_samples=2),
+    "8_density_estimator.py": dict(fast=True),
+    "9_classification.py": dict(fast=True),
+    "11_model_comparison.py": dict(fast=True),
+    "12_parametric_vi.py": dict(fast=True),
+    "13_varcov_regression.py": dict(fast=True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FAST))
+def test_vi_demo_fast_run(name):
+    """Each demo at its fast size on the CPU: it runs through, its results
+    are finite and its own check holds."""
+    mod = _load(name)
+    out = mod.run("cpu", **FAST[name])
+    for key in ("fields", "mean", "truth"):
+        if key in out:
+            vals = out[key].values() if isinstance(out[key], dict) else [out[key]]
+            assert all(np.isfinite(v).all() for v in vals), key
+    mod.check(out)
+
+
+def _agree(fields_t, fields_j, k=5.0, n=None):
+    """Posterior mean and standard deviation of two sample sets (leading
+    axis) within ``k`` Monte-Carlo standard errors a pixel: σ/√n for the
+    mean, σ/√(2n) for the standard deviation, σ their average std, n the
+    independent draws of each set: its mirrored pairs (MGVI and geoVI
+    samples are antithetic pairs), or ``n``."""
+    n_t, n_j = (len(fields_t) // 2, len(fields_j) // 2) if n is None else (n, n)
+    m_t, m_j = fields_t.mean(0), fields_j.mean(0)
+    s_t, s_j = fields_t.std(0, ddof=1), fields_j.std(0, ddof=1)
+    sigma = 0.5 * (s_t + s_j)
+    np.testing.assert_array_less(np.abs(m_t - m_j), k * sigma * np.sqrt(1 / n_t + 1 / n_j) + 1e-12)
+    np.testing.assert_array_less(np.abs(s_t - s_j),
+                                 k * sigma * np.sqrt(0.5 / n_t + 0.5 / n_j) + 1e-12)
+
+
+def _jax_vi(lh, start, key, **kw):
+    """The JAX package's ``optimize_kl`` from the port's starting latent."""
+    pos = nj.Vector({k: jnp.asarray(v) for k, v in start.items()})
+    return nj.optimize_kl(lh, pos, key=key, odir=None, **kw)[0]
+
+
+def _jax_cf(name, shape, offset, **fluct):
+    cfm = nj.CorrelatedFieldMaker(name)
+    cfm.set_amplitude_total_offset(offset_mean=offset, offset_std=(1e-1, 3e-2))
+    cfm.add_fluctuations(shape, distances=1.0 / shape[0], **fluct)
+    return cfm.finalize()
+
+
+def _fields(model, samples):
+    return np.asarray(jax.vmap(model)(samples.samples))
+
+
+@pytest.mark.slow
+def test_intro_demo_matches_jax():
+    mod = _load("0_intro.py")
+    out = mod.run("cpu")
+    mod.check(out)
+    cf = _jax_cf("cf", mod.DIMS, 2.0, fluctuations=(1.0, 5e-1), loglogavgslope=(-3.0, 2e-1),
+                 flexibility=(1e0, 2e-1), asperity=(5e-1, 5e-2), prefix="ax1",
+                 non_parametric_kind="power")
+    signal = nj.ChainModel(jnp.exp, cf)
+    lh = nj.Gaussian(jnp.asarray(out["data"]), noise_cov_inv=lambda x: x / mod.NOISE_COV).amend(signal)
+    d = mod.DELTA
+    samples = _jax_vi(lh, out["start"], random.PRNGKey(2), n_total_iterations=4,
+                      n_samples=4,
+                      draw_linear_kwargs=dict(cg_name=None, cg_kwargs=dict(absdelta=d * 10.0, maxiter=100)),
+                      nonlinearly_update_kwargs=dict(minimize_kwargs=dict(name=None, xtol=d, maxiter=5)),
+                      kl_kwargs=dict(minimize_kwargs=dict(name="M", xtol=d, maxiter=35)),
+                      sample_mode="nonlinear_resample")
+    # the signal is exp of the field: compared in log, where the posterior is near Gaussian
+    _agree(np.log(out["fields"]), np.log(_fields(signal, samples)))
+
+
+@pytest.mark.slow
+def test_wiener_filter_demo_matches_jax():
+    from nifty_tpu.ops.fft import hartley
+
+    mod = _load("5_wiener_filter.py")
+    out = mod.run("cpu")
+    mod.check(out)
+    amp, mask = jnp.asarray(mod.amplitude()), jnp.asarray(mod.mask())
+    signal = lambda x: hartley(amp * x["xi"]) / mod.DIMS[0]  # noqa: E731
+    lh = nj.Gaussian(jnp.asarray(out["data"]), noise_cov_inv=lambda x: x / mod.NOISE_STD**2).amend(
+        lambda x: mask * signal(x), domain={"xi": jnp.zeros(mod.DIMS)})
+    samples, _ = nj.wiener_filter_posterior(lh, key=random.PRNGKey(3), n_samples=8,
+                                            draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=200)))
+    fields_j = np.asarray(jax.vmap(signal)(samples.samples))
+    _agree(out["fields"], fields_j)
+
+
+@pytest.mark.slow
+def test_density_demo_matches_jax():
+    mod = _load("8_density_estimator.py")
+    out = mod.run("cpu")
+    mod.check(out)
+    model, _ = nj.density_estimator(mod.SHAPE)
+    cut = tuple(slice(0, s) for s in mod.SHAPE)
+    rate = nj.ChainModel(lambda f: f[cut], model)
+    lh = nj.Poissonian(jnp.asarray(out["counts"])).amend(rate)
+    samples = _jax_vi(lh, out["start"], random.PRNGKey(7), n_total_iterations=4,
+                      n_samples=2, draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=50)),
+                      sample_mode="linear_resample")
+    _agree(np.log(out["fields"]), np.log(_fields(rate, samples)))
+
+
+@pytest.mark.slow
+def test_classification_demo_matches_jax():
+    mod = _load("9_classification.py")
+    out = mod.run("cpu")
+    mod.check(out)
+    prob = nj.ChainModel(jax.nn.sigmoid, _jax_cf("cf", mod.SHAPE, 0.0, fluctuations=(2.0, 5e-1),
+                                                 loglogavgslope=(-4.0, 2e-1)))
+    lh = nj.Bernoulli(jnp.asarray(out["labels"])).amend(prob)
+    samples = _jax_vi(lh, out["start"], random.PRNGKey(22), n_total_iterations=4,
+                      n_samples=2, draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=50)),
+                      sample_mode="linear_resample")
+    _agree(out["fields"], _fields(prob, samples))
+
+
+@pytest.mark.slow
+def test_model_comparison_demo_matches_jax():
+    mod = _load("11_model_comparison.py")
+    out = mod.run("cpu")
+    mod.check(out)
+    for i, (name, slope) in enumerate(mod.SLOPES.items()):
+        model = _jax_cf("m", (64,), 0.0, fluctuations=(1.0, 3e-1), loglogavgslope=(slope, 1e-1))
+        lh = nj.Gaussian(jnp.asarray(out["data"]),
+                         noise_cov_inv=lambda x: x / mod.NOISE_STD**2).amend(model)
+        samples = _jax_vi(lh, out["start"][name], random.PRNGKey(20 + i),
+                          n_total_iterations=4, n_samples=2,
+                          draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=64)),
+                          sample_mode="linear_resample")
+        _agree(out["fields"][name], _fields(model, samples))
+
+
+@pytest.mark.slow
+def test_parametric_vi_demo_matches_jax():
+    mod = _load("12_parametric_vi.py")
+    out = mod.run("cpu")
+    mod.check(out)
+    A = np.random.default_rng(0).standard_normal((mod.NDATA, mod.DIM)) / np.sqrt(mod.DIM)
+    fwd = nj.Model(lambda p: jnp.tanh(jnp.asarray(A) @ p["x"]),
+                   domain={"x": nj.ShapeWithDtype((mod.DIM,))}, white_init=True)
+    lh = nj.Gaussian(jnp.asarray(out["data"]), noise_cov_inv=lambda x: x / mod.NOISE_STD**2).amend(fwd)
+    pos0 = {"x": jnp.asarray(out["start"]["x"])}
+    for i, (name, cls) in enumerate((("mean-field", nj.MeanFieldVI), ("full-cov", nj.FullCovarianceVI))):
+        vi = cls(lh, pos0, n_samples=4)
+        vi.fit(random.PRNGKey(40 + i), n_steps=600)
+        x_j = np.asarray(vi.posterior_samples(random.PRNGKey(50 + i), 256).samples["x"])
+        # the fit's own noise: 4 draws a step, so n = 4
+        _agree(out[name]["samples"], x_j, n=4)
+
+
+@pytest.mark.slow
+def test_varcov_demo_matches_jax():
+    mod = _load("13_varcov_regression.py")
+    out = mod.run("cpu")
+    mod.check(out)
+    sig = _jax_cf("sig", (mod.N,), 0.0, fluctuations=(1.0, 3e-1), loglogavgslope=(-3.5, 2e-1))
+
+    def mean_and_cov(x):
+        x = x.tree if hasattr(x, "tree") else x
+        s, m = sig(x), x["nsqrt"]
+        return jnp.stack([s, -0.5 * s], -1), m @ jnp.swapaxes(m, -1, -2) + 0.05 * jnp.eye(mod.D)
+
+    init = sig.init | nj.Initializer({"nsqrt": lambda k: 0.1 * random.normal(k, (mod.N, mod.D, mod.D))})
+    fwd = nj.Model(mean_and_cov, init=init)
+    lh = nj.NDVariableCovarianceGaussian(jnp.asarray(out["data"])).amend(fwd)
+    samples = _jax_vi(lh, out["start"], random.PRNGKey(53), n_total_iterations=4,
+                      n_samples=2, draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=64)),
+                      sample_mode="linear_resample")
+    _agree(out["fields"], np.asarray(jax.vmap(lambda x: fwd(x)[0])(samples.samples)))

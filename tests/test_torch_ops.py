@@ -581,10 +581,11 @@ def test_mode_expand_grid_adjoint_and_transforms(full, B):
 
 
 def test_port_never_imports_jax():
-    """Importing every module of the port (HMC, NUTS and the likelihoods
-    among them), and chip_smoke.py, loads no jax and nothing of nifty_tpu;
-    no import statement in chip_smoke.py names them either (its imports run
-    inside main)."""
+    """Importing every module of the port (HMC, NUTS, the likelihoods,
+    parametric VI, the tree linear algebra and the priors among them), and
+    chip_smoke.py, loads no jax, no optax (the card's machine has none) and
+    nothing of nifty_tpu; no import statement in chip_smoke.py names them
+    either (its imports run inside main)."""
     import pkgutil
 
     import nifty_tpu_torch
@@ -594,11 +595,15 @@ def test_port_never_imports_jax():
     )
     assert {"nifty_tpu_torch.evi", "nifty_tpu_torch.optimize_kl", "nifty_tpu_torch.ops.pwl",
             "nifty_tpu_torch.hmc", "nifty_tpu_torch.hmc_oo", "nifty_tpu_torch.mcmc",
-            "nifty_tpu_torch.likelihood_impl"} <= set(modules)
+            "nifty_tpu_torch.likelihood_impl", "nifty_tpu_torch.variational_models",
+            "nifty_tpu_torch.utils.tree_linalg", "nifty_tpu_torch.models.prior",
+            "nifty_tpu_torch.models.gauss_markov", "nifty_tpu_torch.num.stats_distributions",
+            "nifty_tpu_torch.model", "nifty_tpu_torch.likelihood",
+            "nifty_tpu_torch.optimize"} <= set(modules)
     code = (
         f"import sys, importlib, chip_smoke; [importlib.import_module(m) for m in {modules!r}]; "
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'nifty_tpu.'))"
-        " or m == 'nifty_tpu']; print(bad); sys.exit(1 if bad else 0)"
+        "bad = [m for m in sys.modules if m in ('jax', 'optax', 'nifty_tpu')"
+        " or m.startswith(('jax.', 'optax.', 'nifty_tpu.'))]; print(bad); sys.exit(1 if bad else 0)"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     res = subprocess.run(
@@ -607,4 +612,4 @@ def test_port_never_imports_jax():
     assert res.returncode == 0, res.stdout + res.stderr
     with open(os.path.join(root, "chip_smoke.py")) as f:
         src = f.read()
-    assert not re.search(r"^\s*(from|import)\s+(jax|nifty_tpu)\b", src, re.M)
+    assert not re.search(r"^\s*(from|import)\s+(jax|optax|nifty_tpu)\b", src, re.M)
