@@ -112,7 +112,35 @@ JAX.  Phases, each printing one JSON line to stdout:
    5, K1-K4 on a batch; ``FullCovarianceVI`` on a 32² field (1,027 dof,
    no kernel), 50 steps, finite; (e) the peak memory of one metric apply
    at 4096² exact with and without ``RematModel`` (printed, no gate), the
-   two within 1e-6.
+   two within 1e-6;
+13. responses (``RESPONSES``): (a) demo 1 at full width: phase 4's exact
+   1280² field, ``exp``, then ``ExactGridLOS`` over 16,384 rays from the
+   left edge to the right one (heights from numpy seed 41), under a
+   Gaussian at the model's own draw plus 1 % noise: the tables' bytes and
+   numpy seconds, the metric against the same model in f64 on the CPU over
+   the same numpy tables (1e-4), two pull-backs of one cotangent through
+   the LOS bit-identical (the whole model's printed leaf by leaf), the
+   syncs of one metric apply
+   under ``extra.no_host_transfers("log")`` (printed, no gate), the LOS's
+   forward and pull-back ms, and one MGVI iteration under ``vmap`` with
+   phase 8's settings, checked as there (K1-K4 on a batch); (b) the
+   sampled LOS (1,024 of those rays, 2,560 points a ray) against the exact
+   one on the same rays and field (2e-2 absolute and relative); (c)
+   ``nufft2`` of a 1024² complex image at 2^20 points (a 2048² oversampled
+   grid, width 6): 512 outputs against a direct DFT in f64 on the CPU (5e-5
+   of the maximum), ⟨y, A x⟩ against ⟨Aᴴ y, x⟩ (1e-4), the gradient of a
+   real loss in the coordinates through ``VariablePositionNufft`` against
+   CPU f64 (1e-3), ms of ``nufft2`` and ``nufft_adjoint``; (d)
+   ``HarmonicSKI`` on a 1024² grid of inducing points padded to 1536² (K3
+   and K4 launch, not K1/K2) at 2^18 points against CPU f64 (1e-4), its
+   symmetry ⟨y, C x⟩ = ⟨C y, x⟩ (1e-5 of ‖y‖‖C x‖), ``ToeplitzSKI`` on a
+   1-D grid of 2^20 points (1e-4); (e) ``dynamic_lightcone_operator`` on a
+   (512, 1024) grid padded by (64, 64): value, jvp and vjp against CPU f64
+   at the card's float32-rounded inputs (1e-4; the lightspeed latent's
+   vjp, one sum over the grid, at the scale of its terms' magnitudes),
+   and at 1280² ``regrid`` to 2048²,
+   ``func_convolution`` and ``linear_interpolation`` at 2^20 points, each
+   against CPU f64 (1e-5 of the maximum), with their ms.
 
 The launch counters are set to 0 just before each of phases 4-6, 9, 10b
 and 11, and before each VI run of phases 7 and 8 (``vi_mgvi_vmap``,
@@ -121,10 +149,14 @@ and 11, and before each VI run of phases 7 and 8 (``vi_mgvi_vmap``,
 (``mcmc_nuts``, ``mcmc_nuts_lmap``, ``mcmc_nuts_vmap``, ``mcmc_hmc``) and
 each sub-phase of 12 (``matern_table``, ``matern_pixel``, ``vmodel``,
 ``density_mgvi_vmap``, ``ndvcg_covariance``, ``ndvcg_precision``,
-``vi_meanfield``, ``vi_fullcov``, ``remat``), and read just after it:
-K1-K4 must launch in phases 4, 5, 8-11 and 12 (but for the Matérn pixel
-form and the 32² full-covariance VI), K3/K4 (and not K1/K2) in 6, 7 and
-the pixel form, none in 10b and the 32² VI, and each VI run's kernels in
+``vi_meanfield``, ``vi_fullcov``, ``remat``) and of 13
+(``responses_tomography``, ``responses_tomography_mgvi_vmap``,
+``responses_sampled``, ``responses_nufft``, ``responses_ski``,
+``responses_dynamics_operators``), and read just after it:
+K1-K4 must launch in phases 4, 5, 8-11, 12 (but for the Matérn pixel
+form and the 32² full-covariance VI) and 13a, K3/K4 (and not K1/K2) in 6,
+7, the pixel form and 13d, none in 10b, the 32² VI and 13b, c and e, and
+each VI run's kernels in
 its last iteration too; under ``vmap`` (and in the ``VModel``, density,
 NDVCG and mean-field runs) each must have launched on a batch of samples,
 chains or channels (``native.batched_launches``), under ``lmap`` none.
@@ -151,6 +183,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 DEVICE = "cuda:0"
 SHAPES_MAIN = (1280, 4096)
@@ -166,6 +199,11 @@ MCMC = dict(shape=1280, chains=4, n_warmup=8, n_samples=4, max_tree_depth=5, ste
 NUTS_ROW = dict(shape=64, n_samples=64, budget_s=40.0)  # bench_extra.py:267's 64 samples, cut by time
 MODELS = dict(matern=1280, channels=4, density=(1280, 1280), density_events=4_000_000, ndvcg=1280,
               vi=1280, vi_samples=4, vi_steps=20, fullcov=32, fullcov_steps=50, remat=4096, seed=23)
+RESPONSES = dict(shape=1280, rays=16384, sampled_rays=1024, sampled_points=2560, nufft_shape=1024,
+                 nufft_points=2**20, nufft_checked=512, ski_grid=1024, ski_padding=0.5,
+                 ski_points=2**18, toeplitz_grid=2**20, toeplitz_points=2**18,
+                 dynamics=(512, 1024), dynamics_padding=(64, 64), operators=1280, regrid=2048,
+                 interp_points=2**20, seed=41)
 CG_ITERS = 20
 NAMES = {"K1": "expand_to_grid", "K2": "collapse_from_grid",
          "K3": "hartley_rows", "K4": "hartley_cols"}
@@ -177,7 +215,14 @@ TOL = {"k2": 1e-6, "hartley": 1e-5, "metric": 1e-4, "kl_maps": 1e-5,  # K1 must 
        # phase 12: table against pixel Matérn and a VModel against separate
        # applies, f32 on both sides; RematModel reruns the same kernels;
        # the interpolant evaluates float64 tables and rounds once to f32
-       "forms": 1e-5, "remat": 1e-6, "interp": 1e-6}
+       "forms": 1e-5, "remat": 1e-6, "interp": 1e-6,
+       # phase 13: the sampled against the exact LOS (two discretisations of one
+       # integral, tests/test_responses.py's 2e-2); the NUFFT at width 6 against a
+       # direct DFT (5e-5 of the maximum, its own accuracy); inner products of f32
+       # results summed in f64; SKI through f32 Hartleys; the operators' f32
+       # rounding (the interpolation's coordinates stay float64)
+       "sampled_los": 2e-2, "nufft_dft": 5e-5, "adjoint": 1e-4, "nufft_grad": 1e-3,
+       "ski": 1e-4, "symmetry": 1e-5, "operators": 1e-5}
 
 
 def emit(obj):
@@ -209,7 +254,7 @@ def main() -> int:
     from nifty_tpu_torch.bench.workload import (
         bench_field, build_likelihood, build_vi_likelihood, density_counts, grid_index,
         latent_draw, leapfrog_energy_change, matern_field, ndvcg_forward, poisson_at_own_draw,
-        vi_settings)
+        tomography, tomography_rays, vi_settings)
     from nifty_tpu_torch.hmc_oo import Potential, Ravel
     from nifty_tpu_torch.evidence_lower_bound import _ravel_metric
     from nifty_tpu_torch.ops import cuda_fft as cfft
@@ -1051,6 +1096,219 @@ def main() -> int:
     del lh, lh_r, p, t, out
     torch.cuda.empty_cache()
     emit({"phase": "models_total", "seconds": time.perf_counter() - t12})
+
+    # -- 13. responses: tomography, sampled LOS, NUFFT, SKI, dynamics, operators --
+    t13 = time.perf_counter()
+    R = RESPONSES
+    rng = np.random.default_rng(R["seed"])
+
+    def rel64(got, ref):
+        """Relative L2 of a card tensor against a float64 CPU one."""
+        got = got.detach().cpu().to(ref.dtype)
+        return float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
+
+    # 13a. demo 1 at full width: 1280² exact field, exp, ExactGridLOS
+    n, rays = R["shape"], R["rays"]
+    lh_t, lh_t64, start_np, table_s = tomography(n, rays, dev)
+    los = lh_t.forward_model.outer
+    tab = los.table
+    emit({"phase": "responses_tomography_tables", "shape": [n, n], "rays": rays,
+          "table_seconds": table_s, "table_bytes": tab.table_bytes(),
+          "ray_width": int(tab.idx.shape[1]), "cells_hit": int(tab.cols.numel()),
+          "cell_width": int(tab.t_rows.shape[1]),
+          "mean_cells_a_ray": float((tab.wgt > 0).sum(1).double().mean())})
+    tan_np = latent_draw(lh_t.forward_model.domain, 3)
+    native.reset_launches()
+    p, t = metric_phase("responses_tomography", "exact_los", n, lh_t, start_np, tan_np, lh_t64)
+    with torch.no_grad():
+        rho = lh_t.forward_model.inner(p)
+    cot = torch.randn((rays,), generator=g, device=dev)
+    _, pull_los = torch.func.vjp(los, rho)
+    _, pull_model = torch.func.vjp(lh_t.forward_model, p)
+    same_los = bool(torch.equal(pull_los(cot)[0], pull_los(cot)[0]))
+    # the whole model's, leaf by leaf (printed, no gate): the correlated field's own
+    # pull-back is not bit-reproducible on the card (PERF.md §7)
+    m1, m2 = pull_model(cot)[0], pull_model(cot)[0]
+    model_diff = {k: float((m1[k] - m2[k]).abs().max()) for k in m1}
+    torch.cuda.synchronize()
+    read_launches("responses_tomography", NAMES)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with nt.extra.no_host_transfers("log"):
+            lh_t.metric(p, t)
+    torch.cuda.synchronize()
+    syncs = [str(w.message)[:160] for w in caught if "called a synchronizing" in str(w.message)]
+    los_ms = {"forward": float(np.median(event_ms(lambda: los(rho), 5))),
+              "pull_back": float(np.median(event_ms(lambda: pull_los(cot), 5)))}
+    emit({"phase": "responses_tomography", "los_pull_back_bit_identical": same_los,
+          "model_pull_back_max_abs_diff_by_leaf": model_diff, "los_ms_median": los_ms,
+          "metric_syncs": len(syncs), "metric_sync_messages": sorted(set(syncs))})
+    if not same_los:
+        fail("tomography: two pull-backs of one cotangent through the LOS differ")
+    vi_phase("responses_tomography_mgvi_vmap", NAMES, (), nt.OptimizeVI(lh_t, 1),
+             nt.Samples(pos=nt.position_from_numpy(lh_t.forward_model, start_np)),
+             "linear_resample", seed, 2, maps="vmap", shape=[n, n], rays=rays)
+    del lh_t64, p, t, pull_los, pull_model, m1, m2
+    torch.cuda.empty_cache()
+
+    # 13b. the sampled LOS on 1024 of 13a's rays against the exact one
+    starts, ends = tomography_rays(rays)
+    m = R["sampled_rays"]
+    kw = dict(shape=(n, n), distances=1.0 / n, device=dev, dtype=f32)
+    sampled = nt.SamplingCartesianGridLOS(starts[:m], ends[:m], n_sampling_points=R["sampled_points"],
+                                          **kw)
+    exact_sub = nt.ExactGridLOS(starts[:m], ends[:m], **kw)
+    native.reset_launches()
+    a, b = sampled(rho), exact_sub(rho)
+    _, pull = torch.func.vjp(sampled, rho)
+    g_s = pull(cot[:m])[0]
+    finite((a, g_s), "sampled LOS")
+    sampled_ms = {"forward": float(np.median(event_ms(lambda: sampled(rho), 5))),
+                  "pull_back": float(np.median(event_ms(lambda: pull(cot[:m]), 5)))}
+    torch.cuda.synchronize()
+    read_launches("responses_sampled", (), refuse=NAMES)
+    excess = float(((a - b).abs() - TOL["sampled_los"] * (1 + b.abs())).max())
+    emit({"phase": "responses_sampled", "rays": m, "points_a_ray": R["sampled_points"],
+          "rel_max_vs_exact": rel_max(a, b), "excess_over_tolerance": excess, "ms_median": sampled_ms})
+    if not excess <= 0:
+        fail(f"sampled LOS: {excess} beyond {TOL['sampled_los']} (abs and rel) of the exact LOS")
+    del lh_t, los, tab, rho, sampled, exact_sub, pull, a, b, g_s
+    torch.cuda.empty_cache()
+
+    # 13c. NUFFT: a 1024² complex image at 2^20 points
+    n, npts = R["nufft_shape"], R["nufft_points"]
+    img = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    coords = rng.uniform(-0.5, 0.5, (2, npts)).astype(np.float32)
+    x = torch.from_numpy(img).to(dev, torch.complex64)
+    c = torch.from_numpy(coords).to(dev)
+    native.reset_launches()
+    y = nt.nufft2(x, c)
+    k = R["nufft_checked"]
+    jj = np.arange(n) - n // 2
+    e0 = np.exp(-2j * np.pi * coords[0, :k, None].astype(np.float64) * jj)
+    e1 = np.exp(-2j * np.pi * coords[1, :k, None].astype(np.float64) * jj)
+    # the direct DFT at the card's (rounded) image and coordinates, separable: y_k = e0_k X e1_k
+    direct = np.einsum("ki,ik->k", e0, img.astype(np.complex64).astype(np.complex128) @ e1.T)
+    dft_err = float(np.abs(y[:k].cpu().numpy() - direct).max() / np.abs(direct).max())
+    yv = torch.from_numpy(rng.standard_normal(npts) + 1j * rng.standard_normal(npts)).to(
+        dev, torch.complex64)
+    adj = nt.nufft_adjoint(yv, c, (n, n))
+    lhs = complex(torch.vdot(yv.to(torch.complex128), y.to(torch.complex128)))
+    rhs = complex(torch.vdot(adj.reshape(-1).to(torch.complex128), x.reshape(-1).to(torch.complex128)))
+    adj_err = abs(lhs - rhs) / abs(lhs)
+    vp = nt.ops.nufft.VariablePositionNufft((n, n), npts)
+    grid = rng.standard_normal((n, n))
+    q = {"nufftcoord": c, "nufftgrid": torch.from_numpy(grid).to(dev, f32)}
+    q64 = {"nufftcoord": torch.from_numpy(coords.astype(np.float64)), "nufftgrid": torch.from_numpy(grid)}
+
+    def loss(z):
+        return (vp(z).abs() ** 2).sum() / npts
+
+    gc = torch.func.grad(loss)(q)["nufftcoord"]
+    finite(gc, "the NUFFT's gradient in coords")
+    grad_err = rel_max(gc.double().cpu(), torch.func.grad(loss)(q64)["nufftcoord"])
+    nufft_ms = {"nufft2": float(np.median(event_ms(lambda: nt.nufft2(x, c), 5))),
+                "nufft_adjoint": float(np.median(event_ms(lambda: nt.nufft_adjoint(yv, c, (n, n)), 5)))}
+    torch.cuda.synchronize()
+    read_launches("responses_nufft", (), refuse=NAMES)
+    emit({"phase": "responses_nufft", "shape": [n, n], "points": npts, "oversampled": [2 * n, 2 * n],
+          "kernel_width": 6, "checked_points": k, "max_err_vs_direct_dft_over_max": dft_err,
+          "adjoint_rel_err": adj_err, "coords_grad_rel_max_vs_cpu_f64": grad_err,
+          "ms_median": nufft_ms})
+    if not (dft_err <= TOL["nufft_dft"] and adj_err <= TOL["adjoint"] and grad_err <= TOL["nufft_grad"]):
+        fail(f"nufft: against the direct DFT {dft_err} (> {TOL['nufft_dft']}?), adjointness "
+             f"{adj_err} (> {TOL['adjoint']}?), coords gradient {grad_err} (> {TOL['nufft_grad']}?)")
+    del x, c, y, yv, adj, vp, q, q64, gc
+    torch.cuda.empty_cache()
+
+    # 13d. SKI: HarmonicSKI on 1024² inducing points padded to 1536², ToeplitzSKI 1-D
+    n, npts = R["ski_grid"], R["ski_points"]
+    pts = rng.uniform(0.02, 0.98, (2, npts))
+    ski64 = nt.HarmonicSKI((n, n), [(0.0, 1.0)] * 2, pts, harmonic_kernel=lambda k: 1.0 / (
+        1.0 + (k / 5.0) ** 2) ** 2, padding=R["ski_padding"], device="cpu", dtype=f64)
+    ski = copy.deepcopy(ski64).to(dev, f32)
+    xs = rng.standard_normal((2, npts))
+    x32, y32 = (torch.from_numpy(v).to(dev, f32) for v in xs)
+    native.reset_launches()
+    cx = ski(x32)
+    ski_err = rel64(cx, ski64(torch.from_numpy(xs[0])))
+    cy = ski(y32)
+    sym = abs(float(torch.vdot(y32.double(), cx.double()) - torch.vdot(cy.double(), x32.double())))
+    sym_err = sym / float(torch.linalg.vector_norm(y32.double()) * torch.linalg.vector_norm(cx.double()))
+    ski_ms = float(np.median(event_ms(lambda: ski(x32), 5)))
+    torch.cuda.synchronize()
+    read_launches("responses_ski", ("K3", "K4"), refuse=("K1", "K2"))
+    tn, ntp = R["toeplitz_grid"], R["toeplitz_points"]
+    tpts = rng.uniform(0.01, 0.99, (1, ntp))
+    tk = lambda r: torch.exp(-0.5 * (r / 0.01) ** 2)  # noqa: E731
+    toe64 = nt.ToeplitzSKI((tn,), [(0.0, 1.0)], tpts, kernel=tk, device="cpu", dtype=f64)
+    toe = copy.deepcopy(toe64).to(dev, f32)
+    tx = rng.standard_normal(ntp)
+    tx32 = torch.from_numpy(tx).to(dev, f32)
+    toe_err = rel64(toe(tx32), toe64(torch.from_numpy(tx)))
+    toe_ms = float(np.median(event_ms(lambda: toe(tx32), 5)))
+    emit({"phase": "responses_ski", "grid": [n, n], "padded": list(ski.grid_shape), "points": npts,
+          "rel_l2_vs_cpu_f64": ski_err, "symmetry_err": sym_err, "ms_median": ski_ms,
+          "toeplitz": {"grid": tn, "points": ntp, "rel_l2_vs_cpu_f64": toe_err, "ms_median": toe_ms}})
+    if not (ski_err <= TOL["ski"] and sym_err <= TOL["symmetry"] and toe_err <= TOL["ski"]):
+        fail(f"ski: harmonic {ski_err}, symmetry {sym_err}, Toeplitz {toe_err} beyond "
+             f"{TOL['ski']} / {TOL['symmetry']}")
+    del ski64, ski, x32, y32, cx, cy, toe64, toe, tx32
+    torch.cuda.empty_cache()
+
+    # 13e. the light-cone dynamics at (512, 1024); regrid, convolution, interpolation at 1280²
+    shape = R["dynamics"]
+    dyn, _ = nt.dynamic_lightcone_operator(
+        shape=shape, distances=(1.0 / shape[0], 1.0 / shape[1]), key="dyn", lightcone_key="speed",
+        sm_s0=1.0, sm_x0=(8.0, 8.0), sigc=0.3, quant=2.0, harmonic_padding=R["dynamics_padding"])
+    # the reference evaluates at the card's (float32-rounded) inputs: the transfer
+    # field is 1/m, and near the zeros of the Gaussian m the rounding of these
+    # latents alone moves it by ~7e-5 (relative L2), ~600 times f32's epsilon
+    rounded = lambda d: {k: v.astype(np.float32).astype(np.float64) for k, v in d.items()}  # noqa: E731
+    lat, tan = rounded(latent_draw(dyn.domain, 4)), rounded(latent_draw(dyn.domain, 5))
+    ct = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64).astype(
+        np.complex128)
+    on = lambda d, where, dt: {k: torch.from_numpy(v).to(where, dt) for k, v in d.items()}  # noqa: E731
+    lat32 = on(lat, dev, f32)
+    native.reset_launches()
+    val, jt = torch.func.jvp(dyn, (lat32,), (on(tan, dev, f32),))
+    vj = torch.func.vjp(dyn, lat32)[1](torch.from_numpy(ct).to(dev, torch.complex64))[0]
+    val64, jt64 = torch.func.jvp(dyn, (on(lat, "cpu", f64),), (on(tan, "cpu", f64),))
+    vj64 = torch.func.vjp(dyn, on(lat, "cpu", f64))[1](torch.from_numpy(ct))[0]
+    # the lightspeed latent's cotangent is one sum over the grid of terms of
+    # both signs: held at the scale of the terms' magnitudes, as phase 7's KL
+    unit = {"dyn": torch.zeros(dyn.domain["dyn"].shape, dtype=f64), "speed": torch.ones(1, dtype=f64)}
+    dspeed = torch.func.jvp(dyn, (on(lat, "cpu", f64),), (unit,))[1]
+    speed_scale = float((torch.conj(dspeed) * torch.from_numpy(ct)).real.abs().sum())
+    dyn_err = {"value": rel64(val, val64), "jvp": rel64(jt, jt64), "vjp_dyn": rel64(vj["dyn"], vj64["dyn"]),
+               "vjp_speed_over_its_terms": float((vj["speed"].double().cpu() - vj64["speed"]).abs().max())
+               / speed_scale}
+    dyn_ms = float(np.median(event_ms(lambda: dyn(lat32), 5)))
+    n = R["operators"]
+    field = rng.standard_normal((n, n))
+    f32_card, f64_cpu = torch.from_numpy(field).to(dev, f32), torch.from_numpy(field)
+    ops = {"regrid": nt.operators.regrid((R["regrid"], R["regrid"])),
+           "func_convolution": nt.operators.func_convolution(
+               (n, n), 1.0 / n, lambda r: np.exp(-0.5 * (r / 0.005) ** 2)),
+           "linear_interpolation": nt.operators.linear_interpolation(
+               rng.uniform(0.0, 1.0, (2, R["interp_points"])), distances=1.0 / n)}
+    op_err = {k: rel_max(op(f32_card).double().cpu(), op(f64_cpu)) for k, op in ops.items()}
+    op_ms = {k: float(np.median(event_ms(lambda op=op: op(f32_card), 5))) for k, op in ops.items()}
+    torch.cuda.synchronize()
+    read_launches("responses_dynamics_operators", (), refuse=NAMES)
+    emit({"phase": "responses_dynamics_operators", "dynamics": {
+              "shape": list(shape), "padding": list(R["dynamics_padding"]), "rel_vs_cpu_f64": dyn_err,
+              "ms_median": dyn_ms},
+          "operators": {"shape": [n, n], "regrid_to": [R["regrid"]] * 2,
+                        "interp_points": R["interp_points"], "rel_max_vs_cpu_f64": op_err,
+                        "ms_median": op_ms}})
+    bad = {k: e for k, e in dyn_err.items() if not e <= TOL["metric"]}
+    bad.update({k: e for k, e in op_err.items() if not e <= TOL["operators"]})
+    if bad:
+        fail(f"dynamics/operators against CPU f64: {bad}")
+    del dyn, lat32, val, jt, vj, f32_card, ops
+    torch.cuda.empty_cache()
+    emit({"phase": "responses_total", "seconds": time.perf_counter() - t13})
 
     sources = {"K1": ("nifty_tpu_torch/csrc/expand.cu", "nifty_tpu/ops/pallas_expand.py:108"),
                "K2": ("nifty_tpu_torch/csrc/expand.cu", "nifty_tpu/ops/pallas_expand.py:161"),

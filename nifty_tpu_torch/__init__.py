@@ -11,7 +11,10 @@ full-covariance, fitted by ``torch.optim``),
 HMC and NUTS with chains batched on a leading axis, conjugate gradient,
 Newton-CG, trust-region Newton-CG, the MGVI/geoVI loop (``optimize_kl``,
 samples mapped as one batch by default), the Wiener filter and the
-evidence lower bound (Lanczos), running on one NVIDIA H100 through
+evidence lower bound (Lanczos), the responses (exact and sampled
+line-of-sight integrals, the NUFFT, structured kernel interpolation), the
+dynamics priors, the structural operators (``operators``) and the
+consistency checks (``extra``), running on one NVIDIA H100 through
 hand-written CUDA kernels (``csrc/``) for the mode-table expansion (K1),
 its adjoint (K2) and the 2-D Hartley (K3 + K4), each batched over the
 samples under ``torch.func.vmap``.  On CPU tensors every kernel wrapper
@@ -20,7 +23,7 @@ runs its plain PyTorch version.
 The package imports torch and never jax.
 """
 
-from . import config, hmc
+from . import config, extra, hmc, operators
 from .conjugate_gradient import CGResults, SteihaugResults, cg, cg_steihaug, static_cg
 from .evi import (
     Samples,
@@ -39,6 +42,7 @@ from .evidence_lower_bound import estimate_evidence_lower_bound
 from .interop import params_from_numpy, position_from_numpy, samples_from_numpy
 from .hmc import generate_hmc_acc_rej, generate_nuts_tree
 from .hmc_oo import Chain, HMCChain, NUTSChain
+from .los import ExactGridLOS, SamplingCartesianGridLOS
 from .likelihood import (
     Likelihood,
     LikelihoodPartial,
@@ -89,6 +93,11 @@ from .models.gauss_markov import (
     ornstein_uhlenbeck_process,
     wiener_process,
 )
+from .models.dynamics import (
+    dynamic_lightcone_operator,
+    dynamic_operator,
+    light_cone,
+)
 from .models.prior import (
     BetaPrior,
     GammaPrior,
@@ -116,6 +125,7 @@ from .num.stats_distributions import (
     uniform_prior,
 )
 from .ops.fft import hartley
+from .ops.nufft import nufft1, nufft2, nufft_adjoint
 from .optimize import (
     OptimizeResults,
     minimize,
@@ -125,6 +135,7 @@ from .optimize import (
     trust_ncg,
 )
 from .optimize_kl import OptimizeVI, OptimizeVIState, optimize_kl
+from .ski import HarmonicSKI, ToeplitzSKI, interp_mat, matmul_toeplitz
 from .utils.tree import (
     ShapeWithDtype,
     Vector,

@@ -25,7 +25,11 @@ given; 0 for the exact form).  With ``--nuts`` it profiles, on
 4 chains from the latent that drew the counts: five batched gradients of
 the chains' potential, then one ``NUTSChain`` transition of the 4 chains
 (depth <= 5, step 5e-4, within phase 10's adapted steps), each after one
-warm-up.  Copies (the layout change of a batch between K1's trailing
+warm-up.  With ``--los RAYS`` the model is ``chip_smoke.py`` phase 13a's
+tomography instead (the exact field through ``exp`` and ``ExactGridLOS``
+over ``RAYS`` rays, :func:`nifty_tpu_torch.bench.workload.tomography`):
+its metric applies, or with ``--vi`` one MGVI iteration; the LOS's
+gathers are a kind of their own.  Copies (the layout change of a batch between K1's trailing
 sample axis and the Hartley's leading one, among others) are their own
 kind.  Run from the root of another tree of the port with this folder,
 it times that tree.
@@ -42,6 +46,8 @@ import sys
 sys.path.insert(0, os.getcwd())
 
 KINDS = (  # (kind, substrings of the kernel name), first match wins
+    # torch's gathers (the LOS's, among others), before K1's old name
+    ("gather", ("vectorized_gather", "index_elementwise", "indexSelect", "index_copy")),
     # K1/K2: the grid kernels, and the packed ones of trees before them
     ("K1 expand", ("expand_rfp2", "expand_flat", "gather_kernel")),
     ("K2 collapse", ("collapse_fold", "segsum")),
@@ -179,6 +185,9 @@ def main() -> int:
                          "instead of metric applies; with --knots (default 64, 0 exact)")
     ap.add_argument("--maps", choices=("vmap", "lmap"), default="vmap",
                     help="--vi: how the samples are mapped")
+    ap.add_argument("--los", type=int, default=None, metavar="RAYS",
+                    help="the tomography model of chip_smoke.py phase 13a with this many rays "
+                         "(metric applies, or with --vi an MGVI iteration)")
     ap.add_argument("--nuts", action="store_true",
                     help="profile batched gradients and a NUTS transition of 4 chains "
                          "(chip_smoke.py phase 10) instead of metric applies")
@@ -194,22 +203,29 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda:0")
-    if args.vi:
+    if args.los:
+        args.knots = None  # the tomography field is exact
+    elif args.vi:
         args.knots = 64 if args.knots is None else args.knots or None
     ranges = ()
     if args.knots is not None:
         _annotate_pwl()
         ranges = (PWL_RANGE,)
     for n in args.sizes:
-        head = {"card": smi, "n": n, "knots": args.knots}
+        head = {"card": smi, "n": n, "knots": args.knots, "rays": args.los}
         if args.nuts:
             _profile_nuts(nt, workload, n, dev, args.knots, ranges, head)
         elif args.vi:
-            lh, start_np = workload.build_vi_likelihood(n, dev, torch.float32, args.knots)
+            if args.los:
+                lh, _, start_np, _ = workload.tomography(n, args.los, dev)
+                modes = ("linear_resample",)
+            else:
+                lh, start_np = workload.build_vi_likelihood(n, dev, torch.float32, args.knots)
+                modes = ("linear_resample", "nonlinear_resample")
             start = nt.Samples(pos=nt.position_from_numpy(lh.forward_model, start_np))
             opt = nt.OptimizeVI(lh, 1, kl_map=args.maps, residual_map=args.maps)
             head["maps"] = args.maps
-            for mode in ("linear_resample", "nonlinear_resample"):
+            for mode in modes:
                 state = opt.init_state(torch.Generator(device=dev).manual_seed(0),
                                        sample_mode=mode, **workload.vi_settings())
                 print(json.dumps(_line(*kernel_times(lambda: opt.update(start, state), 1,
@@ -217,7 +233,12 @@ def main() -> int:
                                        **head, mode=mode, calls=1)), flush=True)
             del lh, start, opt
         else:
-            lh, pos, tan = workload.build_likelihood(n, dev, torch.float32, n_mode_knots=args.knots)
+            if args.los:
+                lh, _, pos, _ = workload.tomography(n, args.los, dev)
+                tan = workload.latent_draw(lh.forward_model.domain, 3)
+            else:
+                lh, pos, tan = workload.build_likelihood(n, dev, torch.float32,
+                                                         n_mode_knots=args.knots)
             p = nt.position_from_numpy(lh.forward_model, pos)
             t = nt.position_from_numpy(lh.forward_model, tan)
             times = kernel_times(lambda: lh.metric(p, t), APPLIES, warmup=3, ranges=ranges)

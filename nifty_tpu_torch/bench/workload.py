@@ -1,9 +1,9 @@
 """The bench's models as the port's entry points build them: ``bench.py``'s
 metric-apply rows (exact and 64-knot) and ``bench_extra.py``'s VI rows,
 the energy change of a leapfrog trajectory on a model's standardized
-posterior, and the models of ``chip_smoke.py``'s phase 12 (a Matérn
+posterior, the models of ``chip_smoke.py``'s phase 12 (a Matérn
 field, the density estimator's events, the full-covariance Gaussian's
-forward model)."""
+forward model) and phase 13's tomography (demo 1 at full width)."""
 
 from __future__ import annotations
 
@@ -18,6 +18,8 @@ __all__ = [
     "matern_field",
     "ndvcg_forward",
     "poisson_at_own_draw",
+    "tomography",
+    "tomography_rays",
     "vi_settings",
 ]
 
@@ -206,3 +208,48 @@ def vi_settings():
             minimize=nt.static_newton_cg, minimize_kwargs=dict(maxiter=1, cg_kwargs=fixed(10))
         ),
     )
+
+
+def tomography_rays(n_rays, seed=41):
+    """Demo 1's rays: from the left edge of the unit square (x = 0) to the
+    right one (x = 1), start and end heights uniform (numpy ``seed``);
+    ``(starts, ends)``, each ``(n_rays, 2)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    starts = np.stack([np.zeros(n_rays), rng.uniform(size=n_rays)], axis=1)
+    ends = np.stack([np.ones(n_rays), rng.uniform(size=n_rays)], axis=1)
+    return starts, ends
+
+
+def tomography(n, n_rays, device, noise=1e-2):
+    """Demo 1 at n²: :func:`bench_field` (exact), ``exp``, then
+    ``ExactGridLOS`` over :func:`tomography_rays`, under a Gaussian whose
+    data are the model's own draw (latent numpy seed 0) plus ``noise``
+    times the mean integral (numpy seed 1).  Returns the float32
+    likelihood on ``device``, the float64 one on the CPU over the same
+    numpy tables (built once, then copied), the start (numpy seed 2) and
+    the seconds the tables took."""
+    import copy
+    import time
+
+    import numpy as np
+    import torch
+
+    import nifty_tpu_torch as nt
+
+    starts, ends = tomography_rays(n_rays)
+    t0 = time.perf_counter()
+    los64 = nt.ExactGridLOS(starts, ends, shape=(n, n), distances=1.0 / n, device="cpu",
+                            dtype=torch.float64)
+    table_s = time.perf_counter() - t0
+    los32 = copy.deepcopy(los64).to(device, torch.float32)
+    fwd64 = nt.ChainModel(los64, nt.ChainModel(torch.exp, bench_field(n, "cpu", torch.float64)))
+    fwd32 = nt.ChainModel(los32, nt.ChainModel(torch.exp, bench_field(n, device, torch.float32)))
+    with torch.no_grad():
+        line = fwd64(nt.position_from_numpy(fwd64, latent_draw(fwd64.domain, 0))).numpy()
+    std = noise * float(line.mean())
+    data = line + std * np.random.default_rng(1).standard_normal(line.shape)
+    lh64 = nt.Gaussian(data, noise_cov_inv=1.0 / std**2, device="cpu").amend(fwd64)
+    lh32 = nt.Gaussian(data.astype(np.float32), noise_cov_inv=1.0 / std**2, device=device).amend(fwd32)
+    return lh32, lh64, latent_draw(fwd32.domain, 2), table_s

@@ -1,13 +1,14 @@
 """The port's demos (``demos_torch/``) on the CPU.
 
-The VI demos (0, 5, 8, 9, 11, 12, 13) each run at their fast size in the
+The VI demos (0, 1, 5, 8, 9, 11, 12, 13) each run at their fast size in the
 default set (finite results, the demo's own check), and at full size
 against the JAX package's run of the same model on the same data from the
 port's starting latent (marked ``slow``): posterior mean and standard
 deviation within five Monte-Carlo standard errors a pixel (σ/√n and
 σ/√(2n), n the independent draws of each run: its mirrored sample pairs,
 for parametric VI the 4 draws a step; an exponentiated field compared in
-log, where its posterior is near Gaussian).
+log, where its posterior is near Gaussian); demo 1's within the distance
+between two JAX runs (see its test).
 
 ``demos_torch/3_nuts.py`` is the port's ``demos/3_nuts.py``: its own
 asserts (acceptance > 0.4, NRMSE < 0.8), and its posterior mean and
@@ -93,6 +94,7 @@ def test_nuts_demo_matches_jax():
 
 FAST = {
     "0_intro.py": dict(fast=True),
+    "1_tomography.py": dict(fast=True),
     "5_wiener_filter.py": dict(n_samples=2),
     "8_density_estimator.py": dict(fast=True),
     "9_classification.py": dict(fast=True),
@@ -112,6 +114,14 @@ def test_vi_demo_fast_run(name):
         if key in out:
             vals = out[key].values() if isinstance(out[key], dict) else [out[key]]
             assert all(np.isfinite(v).all() for v in vals), key
+    mod.check(out)
+
+
+def test_tomography_demo_fast_run_sampled_los():
+    """Demo 1 with the sampled line of sight (``NIFTY_TPU_LOS=sampling``)."""
+    mod = _load("1_tomography.py")
+    out = mod.run("cpu", fast=True, los="sampling")
+    assert out["los"] == "sampling" and np.isfinite(out["fields"]).all()
     mod.check(out)
 
 
@@ -166,6 +176,40 @@ def test_intro_demo_matches_jax():
                       sample_mode="nonlinear_resample")
     # the signal is exp of the field: compared in log, where the posterior is near Gaussian
     _agree(np.log(out["fields"]), np.log(_fields(signal, samples)))
+
+
+@pytest.mark.slow
+def test_tomography_demo_matches_jax():
+    """The exact line of sight (the same tables in both packages) through
+    the same field and data, MGVI from the port's starting latent.  Two
+    sample pairs leave this posterior's MGVI fit seed-dependent beyond
+    five Monte-Carlo errors a pixel (two runs of the port with two keys
+    differ so at 3 % of the pixels), so the port's log-density mean and
+    standard deviation are held within 1.5 times the distance between the
+    JAX package's own runs from two keys (relative L2; in 4,096 pixels such
+    distances concentrate near their mean)."""
+    mod = _load("1_tomography.py")
+    out = mod.run("cpu", los="exact")
+    mod.check(out)
+    start, end = mod.rays()
+    dist = (1.0 / mod.SHAPE[0], 1.0 / mod.SHAPE[1])
+    cfm = nj.CorrelatedFieldMaker("rho")
+    cfm.set_amplitude_total_offset(offset_mean=0.0, offset_std=(1e-1, 3e-2))
+    cfm.add_fluctuations(mod.SHAPE, distances=dist, fluctuations=(1.0, 5e-1),
+                         loglogavgslope=(-4.0, 2e-1), flexibility=(8e-1, 2e-1))
+    density = nj.ChainModel(jnp.exp, cfm.finalize())
+    los = nj.ExactGridLOS(start, end, shape=mod.SHAPE, distances=dist)
+    lh = nj.Gaussian(jnp.asarray(out["data"]),
+                     noise_cov_inv=lambda x: x / out["noise_std"] ** 2).amend(nj.ChainModel(los, density))
+    runs = [np.log(_fields(density, _jax_vi(
+        lh, out["start"], random.PRNGKey(key), n_total_iterations=4, n_samples=2,
+        draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=64)), sample_mode="linear_resample")))
+        for key in (41, 42)]
+    port = np.log(out["fields"])
+    for stat in (lambda f: f.mean(0), lambda f: f.std(0, ddof=1)):
+        spread = np.linalg.norm(stat(runs[0]) - stat(runs[1]))
+        assert np.linalg.norm(stat(port) - stat(runs[0])) <= 1.5 * spread
+        assert np.linalg.norm(stat(port) - stat(runs[1])) <= 1.5 * spread
 
 
 @pytest.mark.slow

@@ -582,7 +582,8 @@ def test_mode_expand_grid_adjoint_and_transforms(full, B):
 
 def test_port_never_imports_jax():
     """Importing every module of the port (HMC, NUTS, the likelihoods,
-    parametric VI, the tree linear algebra and the priors among them), and
+    parametric VI, the tree linear algebra, the priors, the responses, the
+    dynamics priors, the operators and the checks among them), and
     chip_smoke.py, loads no jax, no optax (the card's machine has none) and
     nothing of nifty_tpu; no import statement in chip_smoke.py names them
     either (its imports run inside main)."""
@@ -599,7 +600,10 @@ def test_port_never_imports_jax():
             "nifty_tpu_torch.utils.tree_linalg", "nifty_tpu_torch.models.prior",
             "nifty_tpu_torch.models.gauss_markov", "nifty_tpu_torch.num.stats_distributions",
             "nifty_tpu_torch.model", "nifty_tpu_torch.likelihood",
-            "nifty_tpu_torch.optimize"} <= set(modules)
+            "nifty_tpu_torch.optimize", "nifty_tpu_torch.los", "nifty_tpu_torch.ski",
+            "nifty_tpu_torch.ops.nufft", "nifty_tpu_torch.models.dynamics",
+            "nifty_tpu_torch.operators", "nifty_tpu_torch.extra", "nifty_tpu_torch.ops.ndimage",
+            "nifty_tpu_torch.ops.gather_reduce"} <= set(modules)
     code = (
         f"import sys, importlib, chip_smoke; [importlib.import_module(m) for m in {modules!r}]; "
         "bad = [m for m in sys.modules if m in ('jax', 'optax', 'nifty_tpu')"
