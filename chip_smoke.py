@@ -13,7 +13,9 @@ JAX.  Phases, each printing one JSON line to stdout:
    the card, at the main path's shapes: K1 (table -> full grid) and K2
    (full grid -> table) at 1024² (phase 8's geoVI grid), 1280² and 4096²,
    B = 1, 2 and 4 (the batches of the VI phases: 2 keys, 4 mirrored
-   samples); K3/K4 at 1024² (the VI grid), 1280², 4096² and 10240², and
+   samples), and on the spherical field's own index at nside 256 (phase
+   14's: a flat 1-D layout of 263,169 packed alm, bins of up to 1,025
+   members); K3/K4 at 1024² (the VI grid), 1280², 4096² and 10240², and
    batches of B = 2 and 4 at 1024² and 1280² (one K3 and one K4 launch
    for the batch).  Times are device times: 20
    calls captured in one CUDA graph, replayed between CUDA events, so no
@@ -140,7 +142,32 @@ JAX.  Phases, each printing one JSON line to stdout:
    vjp, one sum over the grid, at the scale of its terms' magnitudes),
    and at 1280² ``regrid`` to 2048²,
    ``func_convolution`` and ``linear_interpolation`` at 2^20 points, each
-   against CPU f64 (1e-5 of the maximum), with their ms.
+   against CPU f64 (1e-5 of the maximum), with their ms;
+14. sphere (``SPHERE``): (a) K5 (the Legendre contraction of the
+   spherical-harmonic synthesis) and K6 (its adjoint) against their plain
+   versions in float64 on the card at nside 64, 256 and 512 (lmax 2 nside),
+   B = 1, 2 and 4, and at the plans and batches (d) and (e) give them
+   (nside 64: lmax 96, B = 1; lmax 128, B = 256) and B = 6 (1e-5 of the
+   maximum, and by m band at B = 1; K6 the same bits twice), device ms,
+   bound (f32 and f64 operations), plain ms;
+   (b) ``HealpixSynthesis`` at those nsides: its tables' host seconds,
+   device and wall ms, at 64 and 256 against float64 on the CPU (1e-5);
+   (c) ``bench_extra.py:98-125``'s spherical field at nside 256 (786,432
+   pixels) under a Gaussian (noise std 0.2) at its own draw: the metric
+   against CPU f64 (1e-4; K1, K2, K5, K6 launched) and one MGVI iteration
+   under ``vmap`` checked as in phase 8; (d) ``healpix_analysis`` of a
+   band-limited map at nside 64 (lmax 96): the alm back within 1e-3;
+   (e) a sphere at nside 64 times a regular 256 axis: the metric against
+   CPU f64 (1e-4);
+15. icr (``ICR``; no kernel of the port may launch): ``bench_extra.py:305``'s
+   ``ICRField`` (a 16² open grid, depth 6: 772² fine pixels) and demo 4's
+   learned Matérn field on the same grid (its table from r = 1e-3, below
+   the grid's finest spacing), a ``HEALPixICRField`` (nside0 8,
+   depth 4) and a ``SphereRadiusICRField`` (nside0 2, 16 shells, depth 3),
+   each built in float64 on the CPU (seconds printed; a build over 60 s
+   lowers the depth a step) and copied in float32 to the card: forward and
+   metric ms, both against CPU f64 (1e-4), and one MGVI iteration of the
+   first under ``vmap``, checked as in phase 8.
 
 The launch counters are set to 0 just before each of phases 4-6, 9, 10b
 and 11, and before each VI run of phases 7 and 8 (``vi_mgvi_vmap``,
@@ -152,12 +179,16 @@ each sub-phase of 12 (``matern_table``, ``matern_pixel``, ``vmodel``,
 ``vi_meanfield``, ``vi_fullcov``, ``remat``) and of 13
 (``responses_tomography``, ``responses_tomography_mgvi_vmap``,
 ``responses_sampled``, ``responses_nufft``, ``responses_ski``,
-``responses_dynamics_operators``), and read just after it:
+``responses_dynamics_operators``), of 14 (``sphere_metric``,
+``sphere_mgvi_vmap``, ``sphere_analysis``, ``sphere_product``) and of 15
+(``icr_fixed``, ``icr_mgvi_vmap``, ``icr_matern``, ``icr_healpix``,
+``icr_sphere_radius``), and read just after it:
 K1-K4 must launch in phases 4, 5, 8-11, 12 (but for the Matérn pixel
 form and the 32² full-covariance VI) and 13a, K3/K4 (and not K1/K2) in 6,
 7, the pixel form and 13d, none in 10b, the 32² VI and 13b, c and e, and
 each VI run's kernels in
-its last iteration too; under ``vmap`` (and in the ``VModel``, density,
+its last iteration too; K1, K2, K5 and K6 (not K3/K4) in 14c, K5/K6 in 14d,
+K1, K2, K5 and K6 in 14e, none in 15; under ``vmap`` (and in the ``VModel``, density,
 NDVCG and mean-field runs) each must have launched on a batch of samples,
 chains or channels (``native.batched_launches``), under ``lmap`` none.
 Then it prints the whole run's seconds, the card line, the kernel summary
@@ -204,9 +235,22 @@ RESPONSES = dict(shape=1280, rays=16384, sampled_rays=1024, sampled_points=2560,
                  ski_points=2**18, toeplitz_grid=2**20, toeplitz_points=2**18,
                  dynamics=(512, 1024), dynamics_padding=(64, 64), operators=1280, regrid=2048,
                  interp_points=2**20, seed=41)
+# phase 14: K5/K6 and the synthesis at bench_extra.py:66,326,330's nsides (lmax 2 nside),
+# the spherical field of bench_extra.py:98-125 at nside 256 (noise std 0.2), the analysis'
+# round trip at nside 64 (lmax 1.5 nside), a sphere (nside 64) times a regular 256 axis
+SPHERE = dict(kernel_nsides=(64, 256, 512), checked=(64, 256), field=256, noise=0.2,
+              analysis=64, product=(64, 256))
+# phase 15: bench_extra.py:305's ICR field (16², depth 6: 772² fine pixels) and demo 4's
+# learned Matérn one on that grid, a HEALPix field (nside0 8, depth 4: nside 128) and a
+# sphere x log-radius field (nside0 2, 16 shells, depth 3); a depth that takes more than
+# `build_limit_s` of host time to build is lowered one step at a time
+ICR = dict(depth=6, healpix=(8, 4), sphere_radius=(2, 16, 3), noise=0.1, build_limit_s=60.0)
 CG_ITERS = 20
 NAMES = {"K1": "expand_to_grid", "K2": "collapse_from_grid",
-         "K3": "hartley_rows", "K4": "hartley_cols"}
+         "K3": "hartley_rows", "K4": "hartley_cols",
+         "K5": "legendre_contract", "K6": "legendre_contract_t"}
+FIELD = ("K1", "K2", "K3", "K4")  # the regular-grid field's kernels
+SPHERE_KERNELS = ("K1", "K2", "K5", "K6")  # the spherical field's
 TOL = {"k2": 1e-6, "hartley": 1e-5, "metric": 1e-4, "kl_maps": 1e-5,  # K1 must be exact
        "eigenvalue": 1e-3, "ritz": 1e-2, "dH": 0.1,
        # the posterior's gradient cancels: its global leaves sum ~1.6e6 terms of
@@ -222,7 +266,11 @@ TOL = {"k2": 1e-6, "hartley": 1e-5, "metric": 1e-4, "kl_maps": 1e-5,  # K1 must 
        # results summed in f64; SKI through f32 Hartleys; the operators' f32
        # rounding (the interpolation's coordinates stay float64)
        "sampled_los": 2e-2, "nufft_dft": 5e-5, "adjoint": 1e-4, "nufft_grad": 1e-3,
-       "ski": 1e-4, "symmetry": 1e-5, "operators": 1e-5}
+       "ski": 1e-4, "symmetry": 1e-5, "operators": 1e-5,
+       # phase 14: K5/K6 (float32 sums over up to lmax + 1 terms, the recurrence in
+       # float64 in both) and the synthesis (and FFT rounding) against float64, of the
+       # maximum; the analysis' CG, in float32, to the JAX package's own 1e-3 (relative L2)
+       "legendre": 1e-5, "synthesis": 1e-5, "analysis": 1e-3}
 
 
 def emit(obj):
@@ -254,7 +302,8 @@ def main() -> int:
     from nifty_tpu_torch.bench.workload import (
         bench_field, build_likelihood, build_vi_likelihood, density_counts, grid_index,
         latent_draw, leapfrog_energy_change, matern_field, ndvcg_forward, poisson_at_own_draw,
-        tomography, tomography_rays, vi_settings)
+        tomography, tomography_rays, vi_settings, sphere_field, sphere_index, gaussian_at_own_draw,
+        icr_fields)
     from nifty_tpu_torch.hmc_oo import Potential, Ravel
     from nifty_tpu_torch.evidence_lower_bound import _ravel_metric
     from nifty_tpu_torch.ops import cuda_fft as cfft
@@ -295,10 +344,59 @@ def main() -> int:
         s["max_abs_err"] = max(s["max_abs_err"], err)
         s.update(times or {})  # the last (largest) main-path shape's times at B = 1
 
-    def timing(ms, plain_ms, n_bytes, flops=0.0, library_ms=None):
-        b_ms, b_by = bound(n_bytes, flops)
+    def timing(ms, plain_ms, n_bytes, flops=0.0, library_ms=None, flops64=0.0):
+        b_ms, b_by = bound(n_bytes, flops, flops64)
         return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": library_ms}
+
+    def k1k2_rows(label, index, index_d, full, keep_times):
+        """K1 and K2 on ``index`` (on the CPU) / ``index_d`` (on the card) at
+        B = 1, 2 and 4: K1 bit-equal to its plain version and to
+        ``index_select`` over the full-grid index, K2 the same bits twice
+        and within TOL["k2"] of float64 on the CPU; times beside them."""
+        U, P, N = index.n_unique, index.n_packed, int(np.prod(full))
+        # the yardsticks' full-grid int32 index, made once for them only
+        full_idx = ce.expand_to_grid_plain(
+            torch.arange(U, dtype=torch.float64), index, full).reshape(-1).to(dev, torch.int32)
+        for B in (1, 2, 4):
+            batch = () if B == 1 else (B,)
+            tab = torch.randn((U,) + batch, generator=g, device=dev)
+            out = ce.expand_to_grid(tab, index_d, full)
+            if not torch.equal(out, ce.expand_to_grid_plain(tab, index_d, full)):
+                fail(f"K1 differs from its plain version at {label} B={B}")
+            if not torch.equal(out.reshape((N,) + batch), tab.index_select(0, full_idx)):
+                fail(f"K1 differs from tab[full_idx] at {label} B={B}")
+            n_bytes = 4 * U * B + 4 * P + 4 * N * B  # table, packed index, grid
+            k1 = timing(device_ms(lambda: ce.expand_to_grid(tab, index_d, full)),
+                        device_ms(lambda: ce.expand_to_grid_plain(tab, index_d, full)),
+                        n_bytes,
+                        library_ms=device_ms(lambda: tab.index_select(0, full_idx)))
+            cot = torch.randn(full + batch, generator=g, device=dev)
+            seg = ce.collapse_from_grid(cot, index_d, full)
+            if not torch.equal(seg, ce.collapse_from_grid(cot, index_d, full)):
+                fail(f"K2 is not deterministic at {label} B={B}")
+            seg_ref = ce.collapse_from_grid_plain(cot.double().cpu(), index, full)
+            k2_err = rel_max(seg.double().cpu(), seg_ref)
+            if not k2_err <= TOL["k2"]:
+                fail(f"K2 relative error {k2_err} > {TOL['k2']} at {label} B={B}")
+            k2_abs = float((seg.double().cpu() - seg_ref).abs().max())
+            cot_flat = cot.reshape((N,) + batch)
+            k2 = timing(device_ms(lambda: ce.collapse_from_grid(cot, index_d, full)),
+                        device_ms(lambda: ce.collapse_from_grid_plain(cot, index_d, full)),
+                        n_bytes,
+                        library_ms=device_ms(lambda: cot.new_zeros((U,) + batch).index_add_(
+                            0, full_idx, cot_flat)))
+            emit({"phase": "kernels", "kernel": "K1+K2", "layout": label,
+                  "kind": index.layout.kind, "B": B, "P": P, "U": U, "N": N,
+                  "large_bins": int(index.large_bins.numel()),
+                  "largest_bin": int((index.offsets[1:] - index.offsets[:-1]).max()),
+                  "k1_exact": True, **{f"k1_{k}": v for k, v in k1.items()},
+                  "k2_rel_err": k2_err, **{f"k2_{k}": v for k, v in k2.items()}})
+            record("K1", 0.0, k1 if keep_times and B == 1 else None)
+            record("K2", k2_abs, k2 if keep_times and B == 1 else None)
+            del out, cot, cot_flat, seg
+        del full_idx
+        torch.cuda.empty_cache()
 
     for n in (VI_SHAPE,) + SHAPES_MAIN:  # ascending: the summary keeps 4096²'s times
         full = (n, n)
@@ -308,48 +406,13 @@ def main() -> int:
         else:  # the exact geoVI grid of phase 8, as its model's finalize() builds it
             index = grid_index(full)
             index_d = copy.deepcopy(index).to(dev)
-        U, P, N = index.n_unique, index.n_packed, n * n
-        # the yardsticks' full-grid int32 index, made once for them only
-        full_idx = ce.expand_to_grid_plain(
-            torch.arange(U, dtype=torch.float64), index, full).reshape(-1).to(dev, torch.int32)
-        for B in (1, 2, 4):
-            batch = () if B == 1 else (B,)
-            tab = torch.randn((U,) + batch, generator=g, device=dev)
-            out = ce.expand_to_grid(tab, index_d, full)
-            if not torch.equal(out, ce.expand_to_grid_plain(tab, index_d, full)):
-                fail(f"K1 differs from its plain version at {n}² B={B}")
-            if not torch.equal(out.reshape((N,) + batch), tab.index_select(0, full_idx)):
-                fail(f"K1 differs from tab[full_idx] at {n}² B={B}")
-            n_bytes = 4 * U * B + 4 * P + 4 * N * B  # table, packed index, grid
-            k1 = timing(device_ms(lambda: ce.expand_to_grid(tab, index_d, full)),
-                        device_ms(lambda: ce.expand_to_grid_plain(tab, index_d, full)),
-                        n_bytes,
-                        library_ms=device_ms(lambda: tab.index_select(0, full_idx)))
-            cot = torch.randn(full + batch, generator=g, device=dev)
-            seg = ce.collapse_from_grid(cot, index_d, full)
-            if not torch.equal(seg, ce.collapse_from_grid(cot, index_d, full)):
-                fail(f"K2 is not deterministic at {n}² B={B}")
-            seg_ref = ce.collapse_from_grid_plain(cot.double().cpu(), index, full)
-            k2_err = rel_max(seg.double().cpu(), seg_ref)
-            if not k2_err <= TOL["k2"]:
-                fail(f"K2 relative error {k2_err} > {TOL['k2']} at {n}² B={B}")
-            k2_abs = float((seg.double().cpu() - seg_ref).abs().max())
-            cot_flat = cot.reshape((N,) + batch)
-            k2 = timing(device_ms(lambda: ce.collapse_from_grid(cot, index_d, full)),
-                        device_ms(lambda: ce.collapse_from_grid_plain(cot, index_d, full)),
-                        n_bytes,
-                        library_ms=device_ms(lambda: cot.new_zeros((U,) + batch).index_add_(
-                            0, full_idx, cot_flat)))
-            emit({"phase": "kernels", "kernel": "K1+K2", "layout": f"{n}x{n}_exact",
-                  "kind": index.layout.kind, "B": B, "P": P, "U": U, "N": N,
-                  "large_bins": int(index.large_bins.numel()),
-                  "k1_exact": True, **{f"k1_{k}": v for k, v in k1.items()},
-                  "k2_rel_err": k2_err, **{f"k2_{k}": v for k, v in k2.items()}})
-            record("K1", 0.0, k1 if B == 1 else None)
-            record("K2", k2_abs, k2 if B == 1 else None)
-            del out, cot, cot_flat, seg
-        del full_idx, index_d
-        torch.cuda.empty_cache()
+        k1k2_rows(f"{n}x{n}_exact", index, index_d, full, True)
+        del index_d
+    # the spherical field's own index (phase 14's nside), as its finalize() builds
+    # it: a flat 1-D layout onto the packed alm, bins of up to 2l + 1 members
+    index = sphere_index(SPHERE["field"])
+    k1k2_rows(f"sphere_nside{SPHERE['field']}_flat", index, copy.deepcopy(index).to(dev),
+              tuple(index.layout.core_shape), False)
 
     for n in SHAPES_HARTLEY:
         x = torch.randn((n, n), generator=g, device=dev)
@@ -415,8 +478,12 @@ def main() -> int:
 
     # -- 4. main path -----------------------------------------------------
     def rel_l2(got, ref):
-        num = sum(float(((got[k].double().cpu() - ref[k]) ** 2).sum()) for k in ref)
-        return (num / sum(float((ref[k] ** 2).sum()) for k in ref)) ** 0.5
+        """Relative L2 of ``got`` (on the card) against ``ref`` (on the CPU),
+        dicts of tensors or of lists of them (an ICR field's levels)."""
+        pairs = [(a, b) for k in ref for a, b in zip(torch.utils._pytree.tree_leaves(got[k]),
+                                                     torch.utils._pytree.tree_leaves(ref[k]))]
+        num = sum(float(((a.double().cpu() - b) ** 2).sum()) for a, b in pairs)
+        return (num / sum(float((b**2).sum()) for _, b in pairs)) ** 0.5
 
     def event_ms(fn, reps):
         """The ms of each of ``reps`` calls between CUDA events, host dispatch in."""
@@ -486,7 +553,7 @@ def main() -> int:
             lh_small, p_small, t_small = lh, p, t
         del lh, p, t
         torch.cuda.empty_cache()
-    read_launches("main_path", NAMES)
+    read_launches("main_path", FIELD)
 
     # -- 5. a few CG steps: (M + 1) x = b at 1280² -------------------------
     def mat(x):
@@ -510,7 +577,7 @@ def main() -> int:
     last = residual(CG_ITERS)
     torch.cuda.synchronize()
     cg_s = time.perf_counter() - t0
-    read_launches("cg", NAMES)
+    read_launches("cg", FIELD)
     emit({"phase": "cg", "shape": [SHAPES_MAIN[0]] * 2, "iterations": CG_ITERS,
           "residual_over_rhs_after_1": first, f"residual_over_rhs_after_{CG_ITERS}": last,
           "seconds": cg_s})
@@ -560,8 +627,9 @@ def main() -> int:
         trees = [("position", samples.pos)] + [(f"sample {i}", s) for i, s in enumerate(samples)]
         for what, tree in trees:
             for k, v in tree.items():
-                if v.device != dev or not bool(torch.isfinite(v).all()):
-                    fail(f"{phase} {mode}: {what} leaf {k} on {v.device} or non-finite")
+                for leaf in torch.utils._pytree.tree_leaves(v):  # an ICR key: a leaf a level
+                    if leaf.device != dev or not bool(torch.isfinite(leaf).all()):
+                        fail(f"{phase} {mode}: {what} leaf {k} on {leaf.device} or non-finite")
         kl_before = float(opt_vi.kl_value_and_grad(start.pos, primals_samples=samples)[0])
         kl_after = float(new_state.minimization_state.fun)
         timed = seconds[1:] or seconds
@@ -649,14 +717,14 @@ def main() -> int:
         start = nt.Samples(pos=nt.position_from_numpy(lh_x.forward_model, start_np))
         info = {"shape": [n, n], "knots": None}
         name = "mgvi" if mode == "linear_resample" else "geovi"
-        smpls, per_vmap = vi_phase(f"exact_{name}_vmap", NAMES, (), nt.OptimizeVI(lh_x, 1), start,
+        smpls, per_vmap = vi_phase(f"exact_{name}_vmap", FIELD, (), nt.OptimizeVI(lh_x, 1), start,
                                    mode, seed, 3, maps="vmap", **info)
         if mode == "linear_resample":
             _, per_lmap = vi_phase(
-                f"exact_{name}_lmap", NAMES, (),
+                f"exact_{name}_lmap", FIELD, (),
                 nt.OptimizeVI(lh_x, 1, kl_map="lmap", residual_map="lmap"), start, mode, seed, 1,
                 maps="lmap", **info)
-            fewer_launches("exact_vi", per_vmap, per_lmap, NAMES)
+            fewer_launches("exact_vi", per_vmap, per_lmap, FIELD)
             exact = {"likelihood": lh_x, "samples": smpls}
         del lh_x, start, smpls
         torch.cuda.empty_cache()
@@ -671,7 +739,7 @@ def main() -> int:
             output_directory=tmp, **ELBO)
         torch.cuda.synchronize()
         elbo_s = time.perf_counter() - t0
-        read_launches("elbo", NAMES)
+        read_launches("elbo", FIELD)
         with np.load(os.path.join(tmp, "metric_eigsys.npz")) as f:
             evals, evecs = f["eigenvalues"], torch.from_numpy(f["eigenvectors"]).to(dev)
     met, _, _, _ = _ravel_metric(nt.StandardHamiltonian(lh_x).metric, post.pos)
@@ -705,7 +773,7 @@ def main() -> int:
         step_size=MCMC["step_size"])
     torch.cuda.synchronize()
     nuts_s = time.perf_counter() - t0
-    read_launches("mcmc_nuts", NAMES, batch=NAMES)
+    read_launches("mcmc_nuts", FIELD, batch=FIELD)
     for i, smp in enumerate(samples):
         for k, v in smp.items():
             if v.device != dev or not bool(torch.isfinite(v).all()):
@@ -741,7 +809,7 @@ def main() -> int:
         native.reset_launches()
         by_map[cmap], _ = nuts_chain.generate_n_samples(keys, last, 1, chain_map=cmap)
         torch.cuda.synchronize()
-        read_launches(f"mcmc_nuts_{cmap}", NAMES, batch=NAMES if cmap == "vmap" else ())
+        read_launches(f"mcmc_nuts_{cmap}", FIELD, batch=FIELD if cmap == "vmap" else ())
     if any(batched["mcmc_nuts_lmap"].values()):
         fail(f"mcmc: a batch of chains under lmap ({batched['mcmc_nuts_lmap']})")
     maps_err = [rel_l2({k: v[c, 0] for k, v in by_map["lmap"].samples.items()},
@@ -758,7 +826,7 @@ def main() -> int:
     hmc_out, _ = hmc_chain.generate_n_samples(keys, last, 1)
     torch.cuda.synchronize()
     hmc_s = time.perf_counter() - t0
-    read_launches("mcmc_hmc", NAMES, batch=NAMES)
+    read_launches("mcmc_hmc", FIELD, batch=FIELD)
     if not all(bool(torch.isfinite(v).all()) for v in hmc_out.samples.values()):
         fail("mcmc: an HMC sample is non-finite")
     # ΔH of 8 leapfrog steps of the 4 chains in one batch, from their last
@@ -784,7 +852,7 @@ def main() -> int:
           "gradient_evaluations_per_transition_batch": [2 * x for x in steps],
           "batched_gradient_ms_median": grad_ms,
           "launches_per_transition": {k: launches["mcmc_nuts"].get(NAMES[k], 0) / n_trans
-                                      for k in NAMES},
+                                      for k in FIELD},
           "step_size": eps, "acceptance": info["acceptance"].tolist(),
           "divergences": info["divergences"].tolist(),
           "warmup_divergences": info["warmup_divergences"].tolist(),
@@ -889,7 +957,7 @@ def main() -> int:
         if not err <= TOL["metric"]:
             fail(f"likelihoods: {name} metric at {n}²: relative L2 {err} > {TOL['metric']}")
     torch.cuda.synchronize()
-    read_launches("likelihoods", NAMES)
+    read_launches("likelihoods", FIELD)
     emit({"phase": "likelihoods", "shape": [n, n], "variant": "exact", "dtype": "float32",
           "models": {k: v[0] for k, v in cases.items()}, "rel_l2_vs_cpu_f64": lik})
     del cf32, cf64, data
@@ -913,7 +981,7 @@ def main() -> int:
     native.reset_launches()
     p, _ = metric_phase("matern", "table", n, nt.Poissonian(counts, device=dev).amend(
         nt.ChainModel(torch.exp, tab32)), pos_np, tan_np, tab64)
-    read_launches("matern_table", NAMES)
+    read_launches("matern_table", FIELD)
     pix32 = matern_field(n, dev, f32, pixel_expansion=True)
     native.reset_launches()
     metric_phase("matern", "pixel", n, nt.Poissonian(counts, device=dev).amend(
@@ -933,7 +1001,7 @@ def main() -> int:
     native.reset_launches()
     m4 = lh_v.metric(p4, t4)
     torch.cuda.synchronize()
-    read_launches("vmodel", NAMES, batch=NAMES)
+    read_launches("vmodel", FIELD, batch=FIELD)
     vm_ms = float(np.median(event_ms(lambda: lh_v.metric(p4, t4), 5)))
     separate = [nt.Poissonian(counts4[i].astype(np.int32), device=dev).amend(
         nt.ChainModel(torch.exp, cf4)).metric({k: v[i] for k, v in p4.items()},
@@ -955,7 +1023,7 @@ def main() -> int:
     rate = nt.ChainModel(lambda f: f[cut], dens)
     lh_d = nt.Poissonian(density_counts(shape, MODELS["density_events"]), device=dev).amend(rate)
     start = nt.Samples(pos=nt.position_from_numpy(rate, latent_draw(rate.domain, 2)))
-    vi_phase("density_mgvi_vmap", NAMES, (), nt.OptimizeVI(lh_d, 1), start, "linear_resample",
+    vi_phase("density_mgvi_vmap", FIELD, (), nt.OptimizeVI(lh_d, 1), start, "linear_resample",
              seed, 2, maps="vmap", shape=list(shape), padded=list(pshape),
              n_unique=dens.correlated_field.indexes[0].n_unique, events=MODELS["density_events"])
     del dens, rate, lh_d, start
@@ -979,7 +1047,7 @@ def main() -> int:
         native.reset_launches()
         e32 = float(lh.energy(nt.position_from_numpy(fwd, pos_np)))
         p, _ = metric_phase("ndvcg", name, n, lh, pos_np, tan_np, lh64)
-        read_launches(name, NAMES, batch=NAMES)
+        read_launches(name, FIELD, batch=FIELD)
         e64 = float(lh64.energy(nt.position_from_numpy(fwd64, pos_np)))
         # a sum of 2 n² terms of order one and both signs: held at the scale of their count
         ndvcg[name] = err = abs(e32 - e64) / max(abs(e64), data.size)
@@ -1029,7 +1097,7 @@ def main() -> int:
     mf.fit(MODELS["seed"], n_steps=MODELS["vi_steps"], callback=lambda i, q, v: losses.append(v))
     torch.cuda.synchronize()
     mf_s = time.perf_counter() - t0
-    read_launches("vi_meanfield", NAMES, batch=NAMES)
+    read_launches("vi_meanfield", FIELD, batch=FIELD)
     finite(mf.params, "MeanFieldVI's parameters")
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     if not (np.all(np.isfinite(losses)) and last < first):
@@ -1087,7 +1155,7 @@ def main() -> int:
                        "above_inputs_bytes": torch.cuda.max_memory_allocated() - base}
         if name != "plain_again":
             finite(out[name], f"remat: the {name} metric")
-    read_launches("remat", NAMES)
+    read_launches("remat", FIELD)
     remat_err = rel_tree(out["remat"], out["plain"])
     emit({"phase": "remat", "shape": [n, n], "variant": "exact", "peak_memory": peaks,
           "rel_l2_remat_vs_plain": remat_err})
@@ -1131,7 +1199,7 @@ def main() -> int:
     m1, m2 = pull_model(cot)[0], pull_model(cot)[0]
     model_diff = {k: float((m1[k] - m2[k]).abs().max()) for k in m1}
     torch.cuda.synchronize()
-    read_launches("responses_tomography", NAMES)
+    read_launches("responses_tomography", FIELD)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         with nt.extra.no_host_transfers("log"):
@@ -1145,7 +1213,7 @@ def main() -> int:
           "metric_syncs": len(syncs), "metric_sync_messages": sorted(set(syncs))})
     if not same_los:
         fail("tomography: two pull-backs of one cotangent through the LOS differ")
-    vi_phase("responses_tomography_mgvi_vmap", NAMES, (), nt.OptimizeVI(lh_t, 1),
+    vi_phase("responses_tomography_mgvi_vmap", FIELD, (), nt.OptimizeVI(lh_t, 1),
              nt.Samples(pos=nt.position_from_numpy(lh_t.forward_model, start_np)),
              "linear_resample", seed, 2, maps="vmap", shape=[n, n], rays=rays)
     del lh_t64, p, t, pull_los, pull_model, m1, m2
@@ -1310,10 +1378,243 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit({"phase": "responses_total", "seconds": time.perf_counter() - t13})
 
+    # -- 14. the sphere: K5/K6, the synthesis, the spherical field at nside 256 --
+    from nifty_tpu_torch.ops import cuda_legendre as cl
+    from nifty_tpu_torch.ops import sht
+
+    t14 = time.perf_counter()
+    S = SPHERE
+
+    def legendre_work(plan, B):
+        """Bytes, f32 and f64 operations of one K5 or K6 call: every (l, m,
+        ring) triple a recurrence step (3 f64 operations) and 2 B
+        multiply-adds into the hemispheres' even and odd sums."""
+        M = plan.mmax + 1
+        triples = plan.n_half * sum(plan.lmax - m + 1 for m in range(M))
+        n_bytes = (4 * B * plan.size + 8 * B * plan.n_rings * M  # alm, ring coefficients
+                   + 16 * M * (plan.lmax + 1) + 8 * M * plan.n_half + 8 * plan.n_half)  # tables
+        return n_bytes, 4.0 * B * triples, 3.0 * triples
+
+    # 14a. K5/K6 against their plain versions (float64 on the card): the square
+    # plans (lmax = mmax = 2 nside) at B = 1, 2, 4, and the plans and batches that
+    # 14d (lmax 3/2 nside, B = 1) and 14e (the regular axis in the batch) give them,
+    # and a batch that ends in a partial group of 4 samples
+    n_sph, n_reg = S["product"]
+    cases = {(nside, 2 * nside): [(B, "14a") for B in (1, 2, 4)] for nside in S["kernel_nsides"]}
+    cases.setdefault((n_sph, 2 * n_sph), []).extend([(n_reg, "14e"), (6, "partial group")])
+    cases.setdefault((S["analysis"], 3 * S["analysis"] // 2), []).append((1, "14d"))
+    for (nside, lmax), batches in cases.items():
+        plan = cl.LegendrePlan(sht.healpix_ring_geometry(nside)[0], lmax, lmax)
+        plan_d = copy.deepcopy(plan).to(dev)
+        for B, shape_of in batches:
+            alm = torch.randn((B, plan.size), generator=g, device=dev)
+            out = cl.legendre_contract(alm, plan_d)
+            ref = cl.legendre_contract_plain(alm.double(), plan_d)
+            e5 = rel_max(out.double(), ref)
+            cot = torch.randn((B, plan.n_rings, plan.mmax + 1, 2), generator=g, device=dev)
+            back = cl.legendre_contract_t(cot, plan_d)
+            same = torch.equal(back, cl.legendre_contract_t(cot, plan_d))
+            ref6 = cl.legendre_contract_t_plain(cot.double(), plan_d)
+            e6 = rel_max(back.double(), ref6)
+            n_bytes, f32_ops, f64_ops = legendre_work(plan, B)
+            plain_iters = dict(iters=1, warmup=1)  # a loop over l: thousands of launches a call
+            k5 = timing(device_ms(lambda: cl.legendre_contract(alm, plan_d)),
+                        device_ms(lambda: cl.legendre_contract_plain(alm, plan_d), **plain_iters),
+                        n_bytes, f32_ops, flops64=f64_ops)
+            k6 = timing(device_ms(lambda: cl.legendre_contract_t(cot, plan_d)),
+                        device_ms(lambda: cl.legendre_contract_t_plain(cot, plan_d), **plain_iters),
+                        n_bytes, f32_ops, flops64=f64_ops)
+            line = {"phase": "kernels", "kernel": "K5+K6", "nside": nside, "lmax": plan.lmax,
+                    "B": B, "shape_of": shape_of, "alm": plan.size, "rings": plan.n_rings,
+                    "k5_rel_err": e5, "k6_rel_err": e6, "k6_same_bits": same,
+                    **{f"k5_{k}": v for k, v in k5.items()}, **{f"k6_{k}": v for k, v in k6.items()}}
+            if B == 1 and shape_of == "14a":  # by m band: the seed underflows float32 at large m
+                bands = np.array_split(np.arange(plan.mmax + 1), 4)
+                line["k5_rel_err_by_m_band"] = {
+                    f"{b[0]}-{b[-1]}": rel_max(out[..., b[0]:b[-1] + 1, :].double(),
+                                               ref[..., b[0]:b[-1] + 1, :]) for b in bands}
+            emit(line)
+            if not (e5 <= TOL["legendre"] and e6 <= TOL["legendre"] and same):
+                fail(f"K5/K6 at nside {nside} lmax {lmax} B={B}: {e5}, {e6} (> {TOL['legendre']}?), "
+                     f"K6 the same bits twice: {same}")
+            keep = nside == S["field"] and B == 1  # the field's plan
+            record("K5", float((out.double() - ref).abs().max()), k5 if keep else None)
+            record("K6", float((back.double() - ref6).abs().max()), k6 if keep else None)
+            del alm, out, ref, cot, back, ref6
+        del plan, plan_d
+        torch.cuda.empty_cache()
+
+    # 14b. the synthesis: device and wall ms; against float64 on the CPU
+    rng14 = np.random.default_rng(14)
+    for nside in S["kernel_nsides"]:
+        t0 = time.perf_counter()
+        synth64 = sht.HealpixSynthesis(nside)  # float64 tables on the host
+        build_s = time.perf_counter() - t0
+        synth = copy.deepcopy(synth64).to(dev, f32)
+        x = rng14.standard_normal(synth.size).astype(np.float32)
+        xd = torch.from_numpy(x).to(dev)
+        y = synth(xd)
+        finite(y, f"synthesis at nside {nside}")
+        line = {"phase": "sphere_synthesis", "nside": nside, "lmax": synth.lmax,
+                "pixels": synth.npix, "alm": synth.size, "tables_s": build_s,
+                "device_ms": device_ms(lambda: synth(xd)),
+                "ms_median": float(np.median(event_ms(lambda: synth(xd), 10)))}
+        if nside in S["checked"]:
+            line["rel_max_vs_cpu_f64"] = err = rel_max(y.double().cpu(),
+                                                       synth64(torch.from_numpy(x).double()))
+            if not err <= TOL["synthesis"]:
+                fail(f"synthesis at nside {nside}: {err} > {TOL['synthesis']} against CPU f64")
+        emit(line)
+        del synth64, synth, xd, y
+        torch.cuda.empty_cache()
+
+    # 14c. the spherical field at nside 256: a metric apply and one MGVI iteration
+    n = S["field"]
+    t0 = time.perf_counter()
+    sky32, sky64 = sphere_field(n, dev, f32), sphere_field(n, "cpu", f64)
+    lh_s, lh_s64 = gaussian_at_own_draw(sky32, sky64, S["noise"], dev)
+    build_s = time.perf_counter() - t0
+    pos_np, tan_np = latent_draw(sky32.domain, 51), latent_draw(sky32.domain, 52)
+    p, t = (nt.position_from_numpy(sky32, v) for v in (pos_np, tan_np))
+    native.reset_launches()
+    m = lh_s.metric(p, t)
+    torch.cuda.synchronize()
+    read_launches("sphere_metric", SPHERE_KERNELS, refuse=("K3", "K4"))
+    finite(m, "the spherical metric")
+    times = event_ms(lambda: lh_s.metric(p, t), 10)
+    err = rel_l2(m, lh_s64.metric(*(nt.position_from_numpy(sky64, v) for v in (pos_np, tan_np))))
+    emit({"phase": "sphere_metric", "nside": n, "pixels": 12 * n * n,
+          "alm": int(sky32.domain["skyxi"].shape[0]), "models_s": build_s,
+          "metric_apply_ms_median": float(np.median(times)), "metric_apply_ms_all": times,
+          "rel_l2_vs_cpu_f64": err, "launches": launches["sphere_metric"]})
+    if not err <= TOL["metric"]:
+        fail(f"the spherical metric at nside {n}: relative L2 {err} > {TOL['metric']}")
+    start = nt.Samples(pos=nt.position_from_numpy(sky32, latent_draw(sky32.domain, 2)))
+    vi_phase("sphere_mgvi_vmap", SPHERE_KERNELS, ("K3", "K4"), nt.OptimizeVI(lh_s, 1), start,
+             "linear_resample", seed, 2, maps="vmap", nside=n, pixels=12 * n * n)
+    del sky32, sky64, lh_s, lh_s64, p, t, m, start
+    torch.cuda.empty_cache()
+
+    # 14d. the analysis' round trip on a band-limited map
+    na = S["analysis"]
+    la = 3 * na // 2
+    alm = torch.from_numpy(rng14.standard_normal(cl.alm_size(la, la))).to(dev, f32)
+    native.reset_launches()
+    t0 = time.perf_counter()
+    back = sht.healpix_analysis(sht.healpix_synthesis(alm, na, la), na, la)
+    torch.cuda.synchronize()
+    ana_s = time.perf_counter() - t0
+    read_launches("sphere_analysis", ("K5", "K6"), refuse=FIELD)
+    ana_err = float(torch.linalg.vector_norm(back - alm) / torch.linalg.vector_norm(alm))
+    emit({"phase": "sphere_analysis", "nside": na, "lmax": la, "seconds": ana_s,
+          "rel_l2_alm": ana_err})
+    if not ana_err <= TOL["analysis"]:
+        fail(f"analysis at nside {na}: the alm back within {ana_err} > {TOL['analysis']}")
+
+    # 14e. a sphere times a regular axis: the metric against float64 on the CPU
+    prod32 = sphere_field(n_sph, dev, f32, regular=n_reg)
+    prod64 = sphere_field(n_sph, "cpu", f64, regular=n_reg)
+    lh_p, lh_p64 = gaussian_at_own_draw(prod32, prod64, S["noise"], dev)
+    pos_np, tan_np = latent_draw(prod32.domain, 53), latent_draw(prod32.domain, 54)
+    p, t = (nt.position_from_numpy(prod32, v) for v in (pos_np, tan_np))
+    native.reset_launches()
+    m = lh_p.metric(p, t)
+    torch.cuda.synchronize()
+    read_launches("sphere_product", SPHERE_KERNELS)
+    times = event_ms(lambda: lh_p.metric(p, t), 5)
+    err = rel_l2(m, lh_p64.metric(*(nt.position_from_numpy(prod64, v) for v in (pos_np, tan_np))))
+    emit({"phase": "sphere_product", "nside": n_sph, "regular": n_reg,
+          "shape": [12 * n_sph**2, n_reg], "metric_apply_ms_median": float(np.median(times)),
+          "rel_l2_vs_cpu_f64": err})
+    if not err <= TOL["metric"]:
+        fail(f"the sphere x regular metric: relative L2 {err} > {TOL['metric']}")
+    del prod32, prod64, lh_p, lh_p64, p, t, m
+    torch.cuda.empty_cache()
+    emit({"phase": "sphere_total", "seconds": time.perf_counter() - t14})
+
+    # -- 15. the multi-grid ICR fields (no kernel of this port runs here) --------
+    from nifty_tpu_torch import multi_grid as mg
+
+    t15 = time.perf_counter()
+
+    def within_limit(build, depth):
+        """``build(depth)`` (a float64 CPU model), the depth lowered one step
+        at a time while a build takes more than ICR["build_limit_s"]."""
+        while True:
+            t0 = time.perf_counter()
+            model = build(depth)
+            secs = time.perf_counter() - t0
+            if secs <= ICR["build_limit_s"] or depth <= 1:
+                return model, depth, secs
+            emit({"phase": "icr_build", "depth": depth, "seconds": secs, "lowered": True})
+            depth -= 1
+
+    def icr_check(name, f32m, f64m, info, seed_):
+        """Forward ms and the forward and the Gaussian metric against float64
+        on the CPU; no kernel of the port may launch."""
+        lh, lh64 = gaussian_at_own_draw(f32m, f64m, ICR["noise"], dev)
+        pos_np, tan_np = latent_draw(f32m.domain, seed_), latent_draw(f32m.domain, seed_ + 1)
+        p, t = (nt.position_from_numpy(f32m, v) for v in (pos_np, tan_np))
+        native.reset_launches()
+        fwd = f32m(p)
+        m = lh.metric(p, t)
+        torch.cuda.synchronize()
+        finite(fwd, f"icr {name}: the forward")
+        finite(m, f"icr {name}: the metric")
+        fwd_ms = float(np.median(event_ms(lambda: f32m(p), 10)))
+        met_ms = float(np.median(event_ms(lambda: lh.metric(p, t), 10)))
+        read_launches(f"icr_{name}", (), refuse=NAMES)
+        with torch.no_grad():
+            fwd_err = rel_max(fwd.double().cpu(), f64m(nt.position_from_numpy(f64m, pos_np)))
+        met_err = rel_l2(m, lh64.metric(*(nt.position_from_numpy(f64m, v) for v in (pos_np, tan_np))))
+        emit({"phase": "icr", "field": name, **info, "fine_shape": list(fwd.shape),
+              "forward_ms_median": fwd_ms, "metric_apply_ms_median": met_ms,
+              "forward_rel_max_vs_cpu_f64": fwd_err, "metric_rel_l2_vs_cpu_f64": met_err})
+        if not (fwd_err <= TOL["metric"] and met_err <= TOL["metric"]):
+            fail(f"icr {name}: forward {fwd_err}, metric {met_err} against CPU f64 > {TOL['metric']}")
+        return lh
+
+    # 15a-b. bench_extra.py:305's field and demo 4's learned Matérn field, MGVI of the first
+    fields = icr_fields(dev, ICR["depth"])
+    for name, (f32m, f64m, build_s) in fields.items():
+        lh = icr_check(name, f32m, f64m, {"grid": "SimpleOpenGrid((16, 16), padding 1)",
+                                           "depth": ICR["depth"], "build_s": build_s}, 61)
+        if name == "fixed":
+            start = nt.Samples(pos=nt.position_from_numpy(f32m, latent_draw(f32m.domain, 2)))
+            vi_phase("icr_mgvi_vmap", (), NAMES, nt.OptimizeVI(lh, 1), start, "linear_resample",
+                     seed, 2, maps="vmap", fine_shape=list(f32m.grid.shapes[-1]))
+        del lh
+    del fields
+    torch.cuda.empty_cache()
+
+    # 15c. HEALPix charted refinement
+    nside0, depth = ICR["healpix"]
+    hp64, depth, build_s = within_limit(lambda d: mg.HEALPixICRField(
+        mg.HEALPixRefinementGrid(nside0=nside0, depth=d), lambda r: torch.exp(-r / 0.2),
+        device="cpu", dtype=f64), depth)
+    icr_check("healpix", copy.deepcopy(hp64).to(dev, f32), hp64,
+              {"nside0": nside0, "depth": depth, "nside": nside0 << depth, "build_s": build_s}, 63)
+    del hp64
+
+    # 15d. sphere x log-radius
+    nside0, n_r0, depth = ICR["sphere_radius"]
+    sr64, depth, build_s = within_limit(lambda d: mg.SphereRadiusICRField(
+        mg.SphereLogRadiusGrid(nside0=nside0, n_r0=n_r0, r_min=1.0, r_max=100.0, depth=d),
+        lambda r: torch.exp(-r / 20.0), device="cpu", dtype=f64), depth)
+    icr_check("sphere_radius", copy.deepcopy(sr64).to(dev, f32), sr64,
+              {"nside0": nside0, "n_r0": n_r0, "depth": depth, "build_s": build_s}, 65)
+    del sr64
+    torch.cuda.empty_cache()
+    emit({"phase": "icr_total", "seconds": time.perf_counter() - t15})
+
     sources = {"K1": ("nifty_tpu_torch/csrc/expand.cu", "nifty_tpu/ops/pallas_expand.py:108"),
                "K2": ("nifty_tpu_torch/csrc/expand.cu", "nifty_tpu/ops/pallas_expand.py:161"),
                "K3": ("nifty_tpu_torch/csrc/hartley.cu", "nifty_tpu/ops/pallas_fft.py:169"),
-               "K4": ("nifty_tpu_torch/csrc/hartley.cu", "nifty_tpu/ops/pallas_fft.py:246")}
+               "K4": ("nifty_tpu_torch/csrc/hartley.cu", "nifty_tpu/ops/pallas_fft.py:246"),
+               "K5": ("nifty_tpu_torch/csrc/legendre.cu",
+                      "nifty_tpu/ops/sht.py:338 nifty_legendre_contract (XLA primitive, not Pallas)"),
+               "K6": ("nifty_tpu_torch/csrc/legendre.cu",
+                      "nifty_tpu/ops/sht.py:338 nifty_legendre_contract (XLA primitive, not Pallas)")}
     kernels = [
         {"name": f"{k} {NAMES[k]}", "route": "cuda", "source": sources[k][0],
          "replaces": sources[k][1],

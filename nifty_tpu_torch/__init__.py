@@ -23,7 +23,7 @@ runs its plain PyTorch version.
 The package imports torch and never jax.
 """
 
-from . import config, extra, hmc, operators
+from . import config, extra, hmc, multi_grid, operators
 from .conjugate_gradient import CGResults, SteihaugResults, cg, cg_steihaug, static_cg
 from .evi import (
     Samples,
@@ -81,6 +81,7 @@ from .models.correlated_field import (
     NonParametricAmplitude,
     density_estimator,
     get_fourier_mode_distributor,
+    get_spherical_mode_distributor,
     make_grid,
 )
 from .models.gauss_markov import (

@@ -29,7 +29,10 @@ warm-up.  With ``--los RAYS`` the model is ``chip_smoke.py`` phase 13a's
 tomography instead (the exact field through ``exp`` and ``ExactGridLOS``
 over ``RAYS`` rays, :func:`nifty_tpu_torch.bench.workload.tomography`):
 its metric applies, or with ``--vi`` one MGVI iteration; the LOS's
-gathers are a kind of their own.  Copies (the layout change of a batch between K1's trailing
+gathers are a kind of their own.  With ``--sphere`` the sizes are nsides
+and the model is ``chip_smoke.py`` phase 14c's spherical field under a
+Gaussian at its own draw: its metric applies, or with ``--vi`` one MGVI
+iteration; K5 and K6 are kinds of their own.  Copies (the layout change of a batch between K1's trailing
 sample axis and the Hartley's leading one, among others) are their own
 kind.  Run from the root of another tree of the port with this folder,
 it times that tree.
@@ -53,6 +56,8 @@ KINDS = (  # (kind, substrings of the kernel name), first match wins
     ("K2 collapse", ("collapse_fold", "segsum")),
     ("K3 hartley_rows", ("hartley_rows",)),
     ("K4 hartley_cols", ("hartley_cols",)),
+    ("K6 legendre_contract_t", ("legendre_contract_t", "chunk_sum")),
+    ("K5 legendre_contract", ("legendre_contract",)),
     ("copy", ("copy_kernel",)),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
     ("cat", ("CatArray", "cat_")),
@@ -174,6 +179,14 @@ def _profile_nuts(nt, workload, n, dev, knots, ranges, head, chains=4):
     print(json.dumps(line), flush=True)
 
 
+def _sphere(workload, nside, dev):
+    """Phase 14c's spherical field under a Gaussian at its own draw."""
+    import torch
+
+    sky = workload.sphere_field(nside, dev, torch.float32)
+    return workload.gaussian_at_own_draw(sky, sky, 0.2, dev)[0]
+
+
 def main() -> int:
     import torch
 
@@ -187,6 +200,9 @@ def main() -> int:
                     help="--vi: how the samples are mapped")
     ap.add_argument("--los", type=int, default=None, metavar="RAYS",
                     help="the tomography model of chip_smoke.py phase 13a with this many rays "
+                         "(metric applies, or with --vi an MGVI iteration)")
+    ap.add_argument("--sphere", action="store_true",
+                    help="the spherical field of chip_smoke.py phase 14c at nside --sizes "
                          "(metric applies, or with --vi an MGVI iteration)")
     ap.add_argument("--nuts", action="store_true",
                     help="profile batched gradients and a NUTS transition of 4 chains "
@@ -203,8 +219,8 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda:0")
-    if args.los:
-        args.knots = None  # the tomography field is exact
+    if args.los or args.sphere:
+        args.knots = None  # the tomography and the spherical fields are exact
     elif args.vi:
         args.knots = 64 if args.knots is None else args.knots or None
     ranges = ()
@@ -212,12 +228,17 @@ def main() -> int:
         _annotate_pwl()
         ranges = (PWL_RANGE,)
     for n in args.sizes:
-        head = {"card": smi, "n": n, "knots": args.knots, "rays": args.los}
+        head = {"card": smi, "n": n, "knots": args.knots, "rays": args.los,
+                "sphere": args.sphere}
         if args.nuts:
             _profile_nuts(nt, workload, n, dev, args.knots, ranges, head)
         elif args.vi:
             if args.los:
                 lh, _, start_np, _ = workload.tomography(n, args.los, dev)
+                modes = ("linear_resample",)
+            elif args.sphere:
+                lh = _sphere(workload, n, dev)
+                start_np = workload.latent_draw(lh.forward_model.domain, 2)
                 modes = ("linear_resample",)
             else:
                 lh, start_np = workload.build_vi_likelihood(n, dev, torch.float32, args.knots)
@@ -236,6 +257,9 @@ def main() -> int:
             if args.los:
                 lh, _, pos, _ = workload.tomography(n, args.los, dev)
                 tan = workload.latent_draw(lh.forward_model.domain, 3)
+            elif args.sphere:
+                lh = _sphere(workload, n, dev)
+                pos, tan = (workload.latent_draw(lh.forward_model.domain, s) for s in (51, 52))
             else:
                 lh, pos, tan = workload.build_likelihood(n, dev, torch.float32,
                                                          n_mode_knots=args.knots)

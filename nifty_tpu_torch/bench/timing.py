@@ -5,16 +5,20 @@ from __future__ import annotations
 
 import math
 
-__all__ = ["F32_FLOPS_PER_MS", "HBM_BYTES_PER_MS", "bound", "device_ms", "fft_flops"]
+__all__ = ["F32_FLOPS_PER_MS", "F64_FLOPS_PER_MS", "HBM_BYTES_PER_MS", "bound", "device_ms",
+           "fft_flops"]
 
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM: 3.35 TB/s
 F32_FLOPS_PER_MS = 67e9  # H100 SXM: 67 TFLOP/s f32 outside the tensor cores
+F64_FLOPS_PER_MS = 34e9  # H100 SXM: 34 TFLOP/s f64 outside the tensor cores (NVIDIA data sheet)
 
 
-def bound(n_bytes, flops=0.0):
-    """``(bound_ms, bound_by)``: the larger of bytes over the memory rate
-    and flops over the f32 rate."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_MS, flops / F32_FLOPS_PER_MS
+def bound(n_bytes, flops=0.0, flops64=0.0):
+    """``(bound_ms, bound_by)``: the largest of bytes over the memory rate,
+    f32 flops over the f32 rate and f64 flops over the f64 rate (separate
+    units on an H100's SMs)."""
+    t_bytes = n_bytes / HBM_BYTES_PER_MS
+    t_ops = max(flops / F32_FLOPS_PER_MS, flops64 / F64_FLOPS_PER_MS)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 

@@ -3,7 +3,8 @@ metric-apply rows (exact and 64-knot) and ``bench_extra.py``'s VI rows,
 the energy change of a leapfrog trajectory on a model's standardized
 posterior, the models of ``chip_smoke.py``'s phase 12 (a Matérn
 field, the density estimator's events, the full-covariance Gaussian's
-forward model) and phase 13's tomography (demo 1 at full width)."""
+forward model), phase 13's tomography (demo 1 at full width) and phases
+14-15's spherical and multi-grid fields."""
 
 from __future__ import annotations
 
@@ -12,12 +13,16 @@ __all__ = [
     "build_likelihood",
     "build_vi_likelihood",
     "density_counts",
+    "gaussian_at_own_draw",
     "grid_index",
+    "icr_fields",
     "latent_draw",
     "leapfrog_energy_change",
     "matern_field",
     "ndvcg_forward",
     "poisson_at_own_draw",
+    "sphere_field",
+    "sphere_index",
     "tomography",
     "tomography_rays",
     "vi_settings",
@@ -33,6 +38,19 @@ def grid_index(full):
     pd, um, _ = get_fourier_mode_distributor(tuple(full), 1.0)
     core = pd[tuple(slice(0, n // 2 + 1) for n in full)]
     return me.ExpandIndex(*me.build_expand_layout(core, um.size))
+
+
+def sphere_index(nside):
+    """The spherical correlated field's mode index (on the CPU), as
+    ``finalize()`` builds it: the l of each packed alm, a flat 1-D layout."""
+    import numpy as np
+
+    from nifty_tpu_torch.models.correlated_field import make_grid
+    from nifty_tpu_torch.ops import mode_expand as me
+
+    hg = make_grid((nside,), None, "spherical").harmonic_grid
+    pd = np.asarray(hg.power_distributor, dtype=np.int32)
+    return me.ExpandIndex(*me.build_expand_layout(pd, int(hg.mode_lengths.size)))
 
 
 def bench_field(n, device, dtype, n_mode_knots=None):
@@ -153,12 +171,18 @@ def ndvcg_forward(cf, channels=5):
 
 def latent_draw(domain, seed):
     """Standard normals over ``domain`` from numpy ``seed``, key by key in
-    sorted order: :func:`build_vi_likelihood`'s latent draws (seed 0 made
-    its data)."""
+    sorted order (a key of per-level leaves, an ICR field's, level by
+    level): :func:`build_vi_likelihood`'s latent draws (seed 0 made its
+    data)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    return {k: rng.standard_normal(v.shape) for k, v in sorted(domain.items())}
+
+    def draw(v):
+        return [rng.standard_normal(s.shape) for s in v] if isinstance(v, list) else \
+            rng.standard_normal(v.shape)
+
+    return {k: draw(v) for k, v in sorted(domain.items())}
 
 
 def leapfrog_energy_change(likelihood, position, momentum, step_size, n_steps):
@@ -253,3 +277,73 @@ def tomography(n, n_rays, device, noise=1e-2):
     lh64 = nt.Gaussian(data, noise_cov_inv=1.0 / std**2, device="cpu").amend(fwd64)
     lh32 = nt.Gaussian(data.astype(np.float32), noise_cov_inv=1.0 / std**2, device=device).amend(fwd32)
     return lh32, lh64, latent_draw(fwd32.domain, 2), table_s
+
+
+def sphere_field(nside, device, dtype, regular=None):
+    """``bench_extra.py:98-125``'s spherical correlated field (HEALPix,
+    lmax 2 nside); with ``regular``, its outer product with a regular axis
+    of that many pixels (the synthesis over the sphere's axis, the Hartley
+    over the other)."""
+    import nifty_tpu_torch as nt
+
+    cfm = nt.CorrelatedFieldMaker("sky")
+    cfm.set_amplitude_total_offset(offset_mean=0.0, offset_std=(1e-1, 3e-2))
+    cfm.add_fluctuations((nside,), distances=None, fluctuations=(1.0, 5e-1),
+                         loglogavgslope=(-3.0, 2e-1), flexibility=(1e0, 2e-1),
+                         harmonic_type="spherical")
+    if regular:
+        cfm.add_fluctuations((regular,), distances=1.0 / regular, fluctuations=(1.0, 5e-1),
+                             loglogavgslope=(-2.0, 2e-1), prefix="r")
+    return cfm.finalize(device=device, dtype=dtype)
+
+
+def gaussian_at_own_draw(model32, model64, noise, device, seed=1):
+    """Gaussian likelihoods of ``model32`` (float32 on ``device``) and of its
+    float64 twin ``model64`` (on the CPU; ``model32`` itself where no twin is
+    needed) whose data are ``model64`` at its own latent draw (numpy seed 0)
+    plus ``noise`` times standard normals (numpy ``seed``)."""
+    import numpy as np
+    import torch
+
+    import nifty_tpu_torch as nt
+
+    with torch.no_grad():
+        truth = model64(nt.position_from_numpy(model64, latent_draw(model64.domain, 0)))
+    truth = truth.double().cpu().numpy()
+    data = truth + noise * np.random.default_rng(seed).standard_normal(truth.shape)
+    lh32 = nt.Gaussian(data.astype(np.float32), noise_cov_inv=1.0 / noise**2,
+                       device=device).amend(model32)
+    return lh32, nt.Gaussian(data, noise_cov_inv=1.0 / noise**2, device="cpu").amend(model64)
+
+
+def icr_fields(device, depth=6):
+    """``bench_extra.py:305``'s ICR field (a 16² open grid, ``depth``
+    refinements, padding 1, the fixed covariance exp(-r²/(2·0.1²))) and
+    demo 4's learned Matérn field on the same grid, each in float64 on the
+    CPU and copied in float32 to ``device``: ``{name: (card, cpu64,
+    build seconds)}``.  The Matérn table starts at r = 1e-3, not demo 4's
+    0.05: at depth 6 the stencils' distances go down to 1/64, and a table
+    clamped below 0.05 makes their covariances (near-)singular."""
+    import copy
+    import time
+
+    import torch
+
+    from nifty_tpu_torch import multi_grid as mg
+
+    def fixed(**kw):
+        return mg.ICRField(mg.SimpleOpenGrid(shape0=(16, 16), depth=depth, padding=1),
+                           lambda r: torch.exp(-0.5 * (r / 0.1) ** 2), **kw)
+
+    def matern(**kw):
+        cov = mg.MaternCovarianceModel(ndim=2, r_min=1e-3, r_max=20.0, scale=(1.0, 0.3),
+                                       cutoff=(2.0, 0.5), loglogslope=(-3.5, 0.5),
+                                       n_integrate=600, n_interpolate=128)
+        return mg.ICRField(mg.SimpleOpenGrid(shape0=(16, 16), depth=depth, padding=1), cov, **kw)
+
+    out = {}
+    for name, build in (("fixed", fixed), ("matern", matern)):
+        t0 = time.perf_counter()
+        f64 = build(device="cpu", dtype=torch.float64)
+        out[name] = (copy.deepcopy(f64).to(device, torch.float32), f64, time.perf_counter() - t0)
+    return out

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["Const", "resolve"]
+__all__ = ["Const", "Float64Tables", "resolve"]
 
 
 def resolve(device=None) -> torch.device:
@@ -46,3 +46,29 @@ class Const:
         if t is None:
             t = self._copies[key] = torch.as_tensor(self.a, device=x.device, dtype=dtype)
         return t
+
+
+class Float64Tables(torch.nn.Module):
+    """A module whose buffers registered by :meth:`register_f64` stay
+    float64 whatever dtype ``.to`` (``.float()``, ``.half()``) is given;
+    a device given to ``.to`` moves them.  For tables whose rounding to
+    the field's dtype would cost more accuracy than the field has."""
+
+    def __init__(self):
+        super().__init__()
+        self._f64_names = []
+
+    def register_f64(self, name, values):
+        """Register ``values`` (numpy or a tensor) as the float64 buffer ``name``."""
+        t = values if isinstance(values, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(values, dtype=np.float64))
+        self.register_buffer(name, t.to(torch.float64))
+        self._f64_names.append(name)
+
+    def _apply(self, fn, recurse=True):
+        before = {k: self._buffers[k] for k in self._f64_names}
+        super()._apply(fn, recurse)
+        for k, t in before.items():
+            if self._buffers[k].dtype != torch.float64:
+                self._buffers[k] = t.to(self._buffers[k].device)
+        return self

@@ -15,7 +15,10 @@ residuals, each leaf of these with a leading sample axis.
 A :class:`~.model.VModel`'s domain carries its mapped axis, so its
 positions go through ``position_from_numpy`` as any model's; so does a
 likelihood's pair domain (``NDVariableCovarianceGaussian(...).domain``,
-``(mean, mat)``).  ``params_from_numpy`` carries the parameters of
+``(mean, mat)``).  The spherical correlated field's excitations are the
+packed real alm (one array); an ICR field's are a list, one array a
+refinement level, which takes the JAX package's list (or any sequence)
+of arrays.  ``params_from_numpy`` carries the parameters of
 :class:`~.variational_models.MeanFieldVI` and ``FullCovarianceVI``
 (``{k: np.asarray(v) for k, v in vi.params.items()}`` of the JAX
 package's), which share the JAX package's raveled layout.
@@ -66,6 +69,11 @@ def position_from_numpy(model, arrays, device=None, dtype=None, batch=()):
         return torch.as_tensor(a, device=device, dtype=shape.dtype or dtype)
 
     def convert_tree(shapes, a, where):
+        if isinstance(shapes, (list, tuple)):  # per-level leaves: any sequence of arrays
+            if not isinstance(a, (list, tuple)) or len(a) != len(shapes):
+                raise ValueError(f"{where}: {len(shapes)} arrays expected")
+            return type(shapes)(convert_tree(s, x, f"{where}[{i}]")
+                                for i, (s, x) in enumerate(zip(shapes, a)))
         return tree_map(lambda s, x: convert(s, x, where), shapes, a,
                         is_leaf=lambda x: isinstance(x, ShapeWithDtype))
 

@@ -25,8 +25,15 @@ renormalisations sum in float64: at 4096² a sum runs over 1.6-6.6 M core
 pixels.  :func:`density_estimator` is the exponentiated Matérn field on a
 padded grid.
 
-Spherical grids and field-sharded execution are not part of this port
-yet.
+On the HEALPix sphere (``harmonic_type="spherical"``, the shape the
+single nside) the exact spectrum has one value per l; K1 expands it onto
+the packed real-alm vector (a flat 1-D layout; K2 is its adjoint) and the
+spherical-harmonic synthesis (:mod:`..ops.sht`, K5 and its adjoint K6)
+maps it to the RING-ordered map, with the harmonic volume 1/(4π).  A
+sphere and a regular grid combine as an outer product: the Hartley over
+the regular axes, the synthesis over the sphere's axis.
+
+Field-sharded execution is not part of this port yet.
 """
 
 from __future__ import annotations
@@ -43,21 +50,26 @@ from .. import device as _device
 from ..model import ChainModel, Model, WrappedCall
 from ..num.stats_distributions import lognormal_prior, normal_prior
 from ..ops.cuda_expand import mirror_unfold
+from ..ops.cuda_legendre import alm_size, real_alm_index_maps
 from ..ops.fft import hartley
 from ..ops.mode_expand import ExpandIndex, build_expand_layout, mode_expand_grid
 from ..ops.pwl import PwlFeatures
+from ..ops.sht import HealpixSynthesis
 from ..utils.tree import ShapeWithDtype
 from .gauss_markov import IntegratedWienerProcess
 
 __all__ = [
     "CorrelatedField",
     "CorrelatedFieldMaker",
+    "HEALPixGrid",
+    "LMGrid",
     "MaternAmplitude",
     "NonParametricAmplitude",
     "RegularCartesianGrid",
     "RegularFourierGrid",
     "density_estimator",
     "get_fourier_mode_distributor",
+    "get_spherical_mode_distributor",
     "make_grid",
 ]
 
@@ -92,11 +104,46 @@ def get_fourier_mode_distributor(shape, distances, uniqueness_rtol=1e-12):
     return _unique_mode_distributor(np.sqrt(k2), uniqueness_rtol=uniqueness_rtol)
 
 
+def get_spherical_mode_distributor(nside, lmax=None, mmax=None, uniqueness_rtol=1e-12):
+    """l-binning of the spherical-harmonic modes in the packed real-alm
+    layout: the distributor of :func:`get_fourier_mode_distributor` and
+    ``(lmax, mmax, size)``."""
+    lmax = 2 * nside if lmax is None else int(lmax)
+    if lmax < 0:
+        raise ValueError("lmax must be >= 0")
+    mmax = lmax if mmax is None else int(mmax)
+    if mmax < 0 or mmax > lmax:
+        raise ValueError("mmax must be in [0, lmax]")
+    size = alm_size(lmax, mmax)
+    idx_re, msk_re, idx_im, msk_im = real_alm_index_maps(lmax, mmax)
+    ell = np.broadcast_to(np.arange(lmax + 1, dtype=np.float64)[:, None], idx_re.shape)
+    ldist = np.empty(size)
+    for idx, msk in ((idx_re, msk_re), (idx_im, msk_im)):
+        ldist[idx[msk > 0]] = ell[msk > 0]
+    return (_unique_mode_distributor(ldist, uniqueness_rtol=uniqueness_rtol), (lmax, mmax, size))
+
+
 # --- grids -------------------------------------------------------------------
 
 RegularCartesianGrid = namedtuple(
     "RegularCartesianGrid",
     ("shape", "total_volume", "distances", "harmonic_grid"),
+)
+
+HEALPixGrid = namedtuple("HEALPixGrid", ("nside", "shape", "total_volume", "harmonic_grid"))
+
+LMGrid = namedtuple(
+    "LMGrid",
+    (
+        "lmax",
+        "mmax",
+        "shape",
+        "power_distributor",
+        "mode_multiplicity",
+        "mode_lengths",
+        "relative_log_mode_lengths",
+        "log_volume",
+    ),
 )
 
 RegularFourierGrid = namedtuple(
@@ -192,13 +239,23 @@ def _max_rel_log_k(shape, distances):
 
 
 def make_grid(shape, distances, harmonic_type="fourier", mode_tables: bool = True):
-    """The (position, harmonic) grid pair of a regular Cartesian subgrid.
-    ``mode_tables=False`` (the knot form) skips the unique-|k| tables, which
-    the per-pixel amplitude never reads and which cost tens of seconds of
-    host time at 10⁸ pixels."""
-    if harmonic_type.lower() != "fourier":
-        raise NotImplementedError("only regular Fourier grids are ported")
+    """The (position, harmonic) grid pair of a subgrid: a regular Cartesian
+    grid (``"fourier"``) or the HEALPix sphere (``"spherical"``, ``shape``
+    its nside).  ``mode_tables=False`` (the knot form) skips a regular
+    grid's unique-|k| tables, which the per-pixel amplitude never reads and
+    which cost tens of seconds of host time at 10⁸ pixels."""
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    ht = harmonic_type.lower()
+    if ht == "spherical":
+        if len(shape) != 1:
+            raise ValueError("spherical `shape` is the single nside value")
+        nside = shape[0]
+        (m_length_idx, m_length, m_count), (lmax, mmax, size) = get_spherical_mode_distributor(nside)
+        um, log_vol = _log_modes(m_length)
+        harmonic_grid = LMGrid(lmax, mmax, (size,), m_length_idx, m_count, m_length, um, log_vol)
+        return HEALPixGrid(nside, (12 * nside**2,), 4 * np.pi, harmonic_grid)
+    if ht != "fourier":
+        raise ValueError(f"invalid harmonic_type {harmonic_type!r}")
     distances = tuple(float(d) for d in np.broadcast_to(distances, (len(shape),)))
     totvol = float(np.prod(np.array(shape) * np.array(distances)))
     if not mode_tables:
@@ -254,6 +311,8 @@ class NonParametricAmplitude(Model):
             raise ValueError(f"invalid kind {kind!r}")
         knots = None
         if n_mode_knots is not None:
+            if not isinstance(grid, RegularCartesianGrid):
+                raise TypeError("n_mode_knots requires a regular Cartesian grid")
             if n_mode_knots < 2:
                 raise ValueError("need at least two spectral knots")
             knots = np.linspace(0.0, _max_rel_log_k(grid.shape, grid.distances), n_mode_knots)
@@ -427,6 +486,8 @@ class MaternAmplitude(Model):
         kind = kind.lower()
         if kind not in ("amplitude", "power"):
             raise ValueError(f"invalid kind {kind!r}")
+        if pixel_expansion and not isinstance(grid, RegularCartesianGrid):
+            raise TypeError("pixel_expansion requires a regular Cartesian grid")
         cutoff = WrappedCall(cutoff, name=prefix + "cutoff")
         loglogslope = WrappedCall(loglogslope, name=prefix + "loglogslope")
         scale = WrappedCall(scale, name=prefix + "scale") if scale is not None else None
@@ -528,6 +589,17 @@ class MaternAmplitude(Model):
 # --- the finalized model -----------------------------------------------------
 
 
+class _Hartley(torch.nn.Module):
+    """The Hartley transform over the axes of one regular subgrid."""
+
+    def __init__(self, axes):
+        super().__init__()
+        self.axes = axes
+
+    def forward(self, x):
+        return hartley(x, axes=self.axes)
+
+
 class CorrelatedField(Model):
     """ξ coloured by the outer product of the expanded amplitudes, mapped
     through the harmonic transform(s), plus the offset.  ``indexes`` holds
@@ -546,7 +618,8 @@ class CorrelatedField(Model):
         self.azm = azm
         self.offset_mean = offset_mean
         self.xi_key = xi_key
-        self.harmonic_transforms = tuple(harmonic_transforms)
+        self.harmonic_volumes = tuple(dvol for dvol, _ in harmonic_transforms)
+        self.harmonic_transforms = torch.nn.ModuleList(ht for _, ht in harmonic_transforms)
 
     def forward(self, p):
         azm = self.azm(p)
@@ -567,7 +640,7 @@ class CorrelatedField(Model):
             # order matters: it must match the excitation axes
             outer = ea if outer is None else torch.tensordot(outer, ea, dims=0)
         out = azm * outer * p[self.xi_key]
-        for dvol, ht in self.harmonic_transforms:
+        for dvol, ht in zip(self.harmonic_volumes, self.harmonic_transforms):
             out = dvol * ht(out)
         return self.offset_mean + out
 
@@ -695,14 +768,19 @@ class CorrelatedFieldMaker:
             sub_shp = g.harmonic_grid.shape
             excitation_shape += sub_shp
             n = len(excitation_shape)
-            axes = tuple(range(n - len(sub_shp), n))
-            harmonic_transforms.append((1.0 / g.total_volume, partial(hartley, axes=axes)))
+            if isinstance(g, HEALPixGrid):
+                hg = g.harmonic_grid
+                trafo = HealpixSynthesis(g.nside, hg.lmax, hg.mmax, axis=n - 1)
+            else:
+                trafo = _Hartley(tuple(range(n - len(sub_shp), n)))
+            harmonic_transforms.append((1.0 / g.total_volume, trafo))
             if amp.per_pixel:
                 amp.attach_core_grid(device)
                 continue
             pd = np.asarray(g.harmonic_grid.power_distributor, dtype=np.int32)
-            core = pd[tuple(slice(0, h) for h in _core_shape(pd.shape))]
-            packed, layout = build_expand_layout(core, int(g.harmonic_grid.mode_lengths.size))
+            if isinstance(g, RegularCartesianGrid):  # |k| is mirror symmetric per axis
+                pd = pd[tuple(slice(0, h) for h in _core_shape(pd.shape))]
+            packed, layout = build_expand_layout(pd, int(g.harmonic_grid.mode_lengths.size))
             indexes.append(ExpandIndex(packed, layout))
         xi_key = self._prefix + "xi"
         self._parameter_tree[xi_key] = ShapeWithDtype(excitation_shape)

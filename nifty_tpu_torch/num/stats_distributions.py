@@ -17,6 +17,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..device import Float64Tables
+
 __all__ = [
     "Interpolator",
     "beta_prior",
@@ -136,7 +138,7 @@ def interp(x, xp, fp):
     return torch.where(x > xp[-1], fp[-1], f)
 
 
-class Interpolator(torch.nn.Module):
+class Interpolator(Float64Tables):
     """The linear interpolant of a table ``ys`` over knots ``xs`` (float64
     buffers), evaluated in float64 and returned in the input's dtype;
     ``post`` (an inverse table transform) is applied to the interpolated
@@ -147,16 +149,9 @@ class Interpolator(torch.nn.Module):
     def __init__(self, xs, ys, *, pre: Optional[Callable] = None, post: Optional[Callable] = None,
                  scale=None):
         super().__init__()
-        self._tables = (np.asarray(xs, np.float64), np.asarray(ys, np.float64))
-        self.register_buffer("xs", torch.from_numpy(self._tables[0]))
-        self.register_buffer("ys", torch.from_numpy(self._tables[1]))
+        self.register_f64("xs", xs)
+        self.register_f64("ys", ys)
         self.pre, self.post, self.scale = pre, post, scale
-
-    def _apply(self, fn, recurse=True):
-        super()._apply(fn, recurse)
-        if self.xs.dtype != torch.float64 and self.xs.device.type != "meta":
-            self.xs, self.ys = (torch.from_numpy(a).to(self.xs.device) for a in self._tables)
-        return self
 
     def forward(self, x):
         y = x.to(torch.float64)

@@ -174,9 +174,10 @@ def _lead(s, x):
 
 
 def tree_axpy(alpha, x, y):
-    """``y + alpha * x`` over the trees; a ``(B,)`` ``alpha`` scales each
-    sample of forests ``x``, ``y``."""
-    return tree_map(lambda xe, ye: ye + _lead(alpha, xe) * xe, x, y)
+    """``y + alpha * x`` over the trees, in ``y``'s dtypes (a float64 step
+    times a 0-d float32 leaf would promote it); a ``(B,)`` ``alpha`` scales
+    each sample of forests ``x``, ``y``."""
+    return tree_map(lambda xe, ye: ye + (_lead(alpha, xe) * xe).to(ye.dtype), x, y)
 
 
 def where(cond, a, b):

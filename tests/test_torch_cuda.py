@@ -573,3 +573,135 @@ def test_nufft2_on_card_matches_cpu(cuda_device):
     ref = nt.nufft2(torch.from_numpy(x), torch.from_numpy(coords.astype(np.float32)).double())
     assert got.device.type == "cuda" and got.dtype == torch.complex64
     assert _rel(got.cpu().to(torch.complex128), ref) <= 1e-5
+
+
+# --- K5/K6: the Legendre contraction of the spherical-harmonic synthesis
+
+
+def _legendre_plan(kind):
+    from nifty_tpu_torch.ops import cuda_legendre as cl
+    from nifty_tpu_torch.ops import sht
+
+    if kind == "healpix_64":
+        z, lmax, mmax = sht.healpix_ring_geometry(64)[0], 128, 128
+    elif kind == "healpix_64_lmax96":  # the analysis' plan in chip_smoke.py
+        z, lmax, mmax = sht.healpix_ring_geometry(64)[0], 96, 96
+    elif kind == "healpix_16_mmax":
+        z, lmax, mmax = sht.healpix_ring_geometry(16)[0], 32, 20
+    else:  # an odd lmax: an even ring count, no equator ring
+        z, lmax, mmax = sht.gauss_legendre_grid(63)[0], 63, 63
+    return cl.LegendrePlan(z, lmax, mmax)
+
+
+@pytest.mark.parametrize("kind,B", [(kind, B) for kind in ("healpix_64", "healpix_64_lmax96",
+                                                             "healpix_16_mmax", "gauss_legendre_63")
+                                     for B in (1, 2, 3, 5)] + [("healpix_64", 256)])
+def test_legendre_kernels_match_plain(cuda_device, kind, B):
+    """K5 and K6 in float32 against their plain versions in float64 on the
+    CPU: max|Δ| <= 1e-5 max|ref| (float32 sums over up to lmax + 1 terms);
+    K6 the same bits twice; the batches of 3 and 5 take the 4-sample
+    kernel with a partial group, 256 (a sphere times a regular 256 axis)
+    64 groups along the grid's z."""
+    from nifty_tpu_torch.ops import cuda_legendre as cl
+
+    plan = _legendre_plan(kind)
+    plan_d = copy.deepcopy(plan).to(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(B)
+    alm = torch.randn((B, plan.size), generator=g, device=cuda_device)
+    n0 = native.launches["legendre_contract"]
+    out = cl.legendre_contract(alm, plan_d)
+    assert native.launches["legendre_contract"] == n0 + 1
+    assert _rel(out.double().cpu(), cl.legendre_contract_plain(alm.double().cpu(), plan)) <= 1e-5
+    cot = torch.randn((B, plan.n_rings, plan.mmax + 1, 2), generator=g, device=cuda_device)
+    back = cl.legendre_contract_t(cot, plan_d)
+    assert torch.equal(back, cl.legendre_contract_t(cot, plan_d))
+    assert _rel(back.double().cpu(), cl.legendre_contract_t_plain(cot.double().cpu(), plan)) <= 1e-5
+
+
+def test_legendre_wrappers_raise_on_bad_cuda_input(cuda_device):
+    from nifty_tpu_torch.ops import cuda_legendre as cl
+
+    plan = copy.deepcopy(_legendre_plan("healpix_16_mmax")).to(cuda_device)
+    good = torch.zeros((2, plan.size), device=cuda_device)
+    for bad, exc in ((good.double(), TypeError), (good[:, :-1], ValueError),
+                     (good.t().contiguous().t(), ValueError)):
+        with pytest.raises(exc):
+            cl.legendre_contract(bad, plan)
+    with pytest.raises(ValueError):
+        cl.legendre_contract_t(torch.zeros((2, plan.n_rings, plan.mmax, 2), device=cuda_device), plan)
+
+
+def test_healpix_synthesis_on_card_matches_cpu_f64(cuda_device):
+    """The synthesis at nside 32 and its pull-back (K5, K6) against float64
+    on the CPU, 1e-5 of the maximum; a vmapped batch of 3 is one launch of
+    each kernel."""
+    from nifty_tpu_torch.ops import sht
+
+    synth64 = sht.HealpixSynthesis(32)
+    synth = copy.deepcopy(synth64).to(cuda_device, torch.float32)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((3, synth.size))
+    y = rng.standard_normal((3, synth.npix))
+    xd = torch.from_numpy(x).to(cuda_device, torch.float32)
+    yd = torch.from_numpy(y).to(cuda_device, torch.float32)
+    native.reset_launches()
+    out, pull = torch.func.vjp(torch.func.vmap(synth), xd)
+    back = pull(yd)[0]
+    assert native.launches["legendre_contract"] == native.launches["legendre_contract_t"] == 1
+    assert native.batched_launches["legendre_contract_t"] == 1
+    ref, pull64 = torch.func.vjp(torch.func.vmap(synth64), torch.from_numpy(x))
+    assert _rel(out.double().cpu(), ref) <= 1e-5
+    assert _rel(back.double().cpu(), pull64(torch.from_numpy(y))[0]) <= 1e-5
+
+
+def test_spherical_metric_on_card_matches_cpu_f64(cuda_device):
+    """The spherical correlated field at nside 16 under a Gaussian: the
+    metric through K1, K2 (the flat 1-D layout), K5 and K6, against float64
+    on the CPU (1e-4)."""
+    def sky(**kw):
+        cfm = nt.CorrelatedFieldMaker("sky")
+        cfm.set_amplitude_total_offset(offset_mean=0.0, offset_std=(1e-1, 3e-2))
+        cfm.add_fluctuations((16,), distances=None, fluctuations=(1.0, 0.5),
+                             loglogavgslope=(-3.0, 0.5), flexibility=(1.0, 0.3),
+                             harmonic_type="spherical")
+        return cfm.finalize(**kw)
+
+    cf, cf64 = sky(), sky(device="cpu", dtype=torch.float64)
+    rng = np.random.default_rng(1)
+    pos = {k: 0.5 * rng.standard_normal(v.shape) for k, v in cf.domain.items()}
+    tan = {k: rng.standard_normal(v.shape) for k, v in cf.domain.items()}
+    data = rng.standard_normal(12 * 16**2)
+    lh = nt.Gaussian(torch.from_numpy(data).to(cuda_device, torch.float32),
+                     noise_cov_inv=lambda x: x / 0.04).amend(cf)
+    lh64 = nt.Gaussian(torch.from_numpy(data), noise_cov_inv=lambda x: x / 0.04).amend(cf64)
+    native.reset_launches()
+    m = lh.metric(nt.position_from_numpy(cf, pos), nt.position_from_numpy(cf, tan))
+    for k in ("expand_to_grid", "collapse_from_grid", "legendre_contract", "legendre_contract_t"):
+        assert native.launches[k] >= 1, k
+    ref = lh64.metric(nt.position_from_numpy(cf64, pos), nt.position_from_numpy(cf64, tan))
+    num = sum(float(((m[k].double().cpu() - ref[k]) ** 2).sum()) for k in ref)
+    assert (num / sum(float((ref[k] ** 2).sum()) for k in ref)) ** 0.5 <= 1e-4
+
+
+def test_icr_field_on_card_matches_cpu_f64(cuda_device):
+    """A learned-Matérn ICR field on a 2-D open grid (the uniform levels as
+    convolutions, cuDNN's TF32 left on by the process): the forward on the
+    card within 1e-5 of float64 on the CPU."""
+    from nifty_tpu_torch import multi_grid as tm
+
+    def field(**kw):
+        matern = tm.MaternCovarianceModel(ndim=2, r_min=0.05, r_max=20.0, scale=(1.0, 0.3),
+                                          cutoff=(2.0, 0.5), loglogslope=(-3.5, 0.5))
+        return tm.ICRField(tm.SimpleOpenGrid(shape0=(16, 16), depth=3, padding=1), matern, **kw)
+
+    f, f64 = field(), field(device="cpu", dtype=torch.float64)
+    rng = np.random.default_rng(2)
+    pos = {k: [rng.standard_normal(s.shape) for s in v] if isinstance(v, list)
+           else rng.standard_normal(v.shape) for k, v in f.domain.items()}
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        out = f(nt.position_from_numpy(f, pos))
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    ref = f64(nt.position_from_numpy(f64, pos))
+    assert out.device.type == "cuda" and _rel(out.double().cpu(), ref) <= 1e-5

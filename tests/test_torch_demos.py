@@ -1,6 +1,6 @@
 """The port's demos (``demos_torch/``) on the CPU.
 
-The VI demos (0, 1, 5, 8, 9, 11, 12, 13) each run at their fast size in the
+The VI demos (0, 1, 2, 4, 5, 8, 9, 11, 12, 13) each run at their fast size in the
 default set (finite results, the demo's own check), and at full size
 against the JAX package's run of the same model on the same data from the
 port's starting latent (marked ``slow``): posterior mean and standard
@@ -95,6 +95,8 @@ def test_nuts_demo_matches_jax():
 FAST = {
     "0_intro.py": dict(fast=True),
     "1_tomography.py": dict(fast=True),
+    "2_sphere.py": dict(fast=True),
+    "4_multigrid_icr.py": dict(fast=True),
     "5_wiener_filter.py": dict(n_samples=2),
     "8_density_estimator.py": dict(fast=True),
     "9_classification.py": dict(fast=True),
@@ -141,8 +143,10 @@ def _agree(fields_t, fields_j, k=5.0, n=None):
 
 
 def _jax_vi(lh, start, key, **kw):
-    """The JAX package's ``optimize_kl`` from the port's starting latent."""
-    pos = nj.Vector({k: jnp.asarray(v) for k, v in start.items()})
+    """The JAX package's ``optimize_kl`` from the port's starting latent (a
+    key of per-level arrays, an ICR field's, as a list)."""
+    pos = nj.Vector({k: [jnp.asarray(u) for u in v] if isinstance(v, list) else jnp.asarray(v)
+                     for k, v in start.items()})
     return nj.optimize_kl(lh, pos, key=key, odir=None, **kw)[0]
 
 
@@ -311,3 +315,41 @@ def test_varcov_demo_matches_jax():
                       n_samples=2, draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=64)),
                       sample_mode="linear_resample")
     _agree(out["fields"], np.asarray(jax.vmap(lambda x: fwd(x)[0])(samples.samples)))
+
+
+@pytest.mark.slow
+def test_sphere_demo_matches_jax():
+    """The spherical field (nside 16) on the port's data from its starting
+    latent, MGVI with 2 sample pairs in both packages."""
+    mod = _load("2_sphere.py")
+    out = mod.run("cpu")
+    mod.check(out)
+    cfm = nj.CorrelatedFieldMaker("sky")
+    cfm.set_amplitude_total_offset(offset_mean=0.0, offset_std=(1e-1, 3e-2))
+    cfm.add_fluctuations((mod.NSIDE,), distances=None, fluctuations=(1.0, 0.5),
+                         loglogavgslope=(-3.0, 0.5), flexibility=(1.0, 0.3), harmonic_type="spherical")
+    sky = cfm.finalize()
+    lh = nj.Gaussian(jnp.asarray(out["data"]),
+                     noise_cov_inv=lambda x: x / out["noise_std"] ** 2).amend(sky)
+    samples = _jax_vi(lh, out["start"], random.PRNGKey(7), n_total_iterations=3, n_samples=2,
+                      draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=48)),
+                      sample_mode="linear_resample")
+    _agree(out["fields"], _fields(sky, samples))
+
+
+@pytest.mark.slow
+def test_multigrid_icr_demo_matches_jax():
+    """The learned-Matérn ICR field on the port's data from its starting
+    latent, MGVI with 2 sample pairs in both packages."""
+    from nifty_tpu.multi_grid import ICRField, MaternCovarianceModel, SimpleOpenGrid
+
+    mod = _load("4_multigrid_icr.py")
+    out = mod.run("cpu")
+    mod.check(out)
+    field = ICRField(SimpleOpenGrid(**mod.GRID), MaternCovarianceModel(**mod.MATERN), offset=0.0)
+    lh = nj.Gaussian(jnp.asarray(out["data"]),
+                     noise_cov_inv=lambda x: x / out["noise_std"] ** 2).amend(field)
+    samples = _jax_vi(lh, out["start"], random.PRNGKey(21), n_total_iterations=3, n_samples=2,
+                      draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=48)),
+                      sample_mode="linear_resample")
+    _agree(out["fields"], _fields(field, samples))

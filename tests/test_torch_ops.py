@@ -583,7 +583,8 @@ def test_mode_expand_grid_adjoint_and_transforms(full, B):
 def test_port_never_imports_jax():
     """Importing every module of the port (HMC, NUTS, the likelihoods,
     parametric VI, the tree linear algebra, the priors, the responses, the
-    dynamics priors, the operators and the checks among them), and
+    dynamics priors, the operators and the checks, the sphere and the
+    multi-grid fields among them), and
     chip_smoke.py, loads no jax, no optax (the card's machine has none) and
     nothing of nifty_tpu; no import statement in chip_smoke.py names them
     either (its imports run inside main)."""
@@ -603,7 +604,13 @@ def test_port_never_imports_jax():
             "nifty_tpu_torch.optimize", "nifty_tpu_torch.los", "nifty_tpu_torch.ski",
             "nifty_tpu_torch.ops.nufft", "nifty_tpu_torch.models.dynamics",
             "nifty_tpu_torch.operators", "nifty_tpu_torch.extra", "nifty_tpu_torch.ops.ndimage",
-            "nifty_tpu_torch.ops.gather_reduce"} <= set(modules)
+            "nifty_tpu_torch.ops.gather_reduce", "nifty_tpu_torch.ops.jhealpix",
+            "nifty_tpu_torch.ops.sht", "nifty_tpu_torch.ops.cuda_legendre",
+            "nifty_tpu_torch.num.unique", "nifty_tpu_torch.multi_grid",
+            "nifty_tpu_torch.multi_grid.grid", "nifty_tpu_torch.multi_grid.kernel",
+            "nifty_tpu_torch.multi_grid.matern", "nifty_tpu_torch.multi_grid.correlated_field",
+            "nifty_tpu_torch.multi_grid.healpix_grid",
+            "nifty_tpu_torch.multi_grid.sphere_radius"} <= set(modules)
     code = (
         f"import sys, importlib, chip_smoke; [importlib.import_module(m) for m in {modules!r}]; "
         "bad = [m for m in sys.modules if m in ('jax', 'optax', 'nifty_tpu')"
