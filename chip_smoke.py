@@ -146,10 +146,13 @@ JAX.  Phases, each printing one JSON line to stdout:
 14. sphere (``SPHERE``): (a) K5 (the Legendre contraction of the
    spherical-harmonic synthesis) and K6 (its adjoint) against their plain
    versions in float64 on the card at nside 64, 256 and 512 (lmax 2 nside),
-   B = 1, 2 and 4, and at the plans and batches (d) and (e) give them
-   (nside 64: lmax 96, B = 1; lmax 128, B = 256) and B = 6 (1e-5 of the
-   maximum, and by m band at B = 1; K6 the same bits twice), device ms,
-   bound (f32 and f64 operations), plain ms;
+   B = 1, 2 and 4, at nside 64 and 256 also B = 8 and 16 (the smallest
+   batches on the tensor cores), and at the plans and batches (d) and (e)
+   give them (nside 64: lmax 96, B = 1; lmax 128, B = 256) and B = 6 (1e-5
+   of the maximum, and by m band at B = 1; K6 the same bits twice), device
+   ms, bound (f32 operations and 4 f64 operations a recurrence step), plain
+   ms, and up to nside 256 the library yardstick: one ``torch.bmm`` against
+   a float32 λ table precomputed outside the timing (contraction only);
    (b) ``HealpixSynthesis`` at those nsides: its tables' host seconds,
    device and wall ms, at 64 and 256 against float64 on the CPU (1e-5);
    (c) ``bench_extra.py:98-125``'s spherical field at nside 256 (786,432
@@ -238,8 +241,11 @@ RESPONSES = dict(shape=1280, rays=16384, sampled_rays=1024, sampled_points=2560,
 # phase 14: K5/K6 and the synthesis at bench_extra.py:66,326,330's nsides (lmax 2 nside),
 # the spherical field of bench_extra.py:98-125 at nside 256 (noise std 0.2), the analysis'
 # round trip at nside 64 (lmax 1.5 nside), a sphere (nside 64) times a regular 256 axis
+# K5/K6 also at B = 8 and 16 at `tensor_core_nsides`; their library yardstick (a batched
+# matrix product against a float32 λ table, 1.1 GB at nside 256) up to `table_max_nside`:
+# at nside 512 the table and its float64 rows would hold ~26 GB of the card
 SPHERE = dict(kernel_nsides=(64, 256, 512), checked=(64, 256), field=256, noise=0.2,
-              analysis=64, product=(64, 256))
+              analysis=64, product=(64, 256), tensor_core_nsides=(64, 256), table_max_nside=256)
 # phase 15: bench_extra.py:305's ICR field (16², depth 6: 772² fine pixels) and demo 4's
 # learned Matérn one on that grid, a HEALPix field (nside0 8, depth 4: nside 128) and a
 # sphere x log-radius field (nside0 2, 16 shells, depth 3); a depth that takes more than
@@ -301,7 +307,8 @@ def main() -> int:
     from nifty_tpu_torch.bench.timing import bound, device_ms, fft_flops
     from nifty_tpu_torch.bench.workload import (
         bench_field, build_likelihood, build_vi_likelihood, density_counts, grid_index,
-        latent_draw, leapfrog_energy_change, matern_field, ndvcg_forward, poisson_at_own_draw,
+        latent_draw, leapfrog_energy_change, legendre_bmm_operands, legendre_table, matern_field,
+        ndvcg_forward, poisson_at_own_draw,
         tomography, tomography_rays, vi_settings, sphere_field, sphere_index, gaussian_at_own_draw,
         icr_fields)
     from nifty_tpu_torch.hmc_oo import Potential, Ravel
@@ -1387,25 +1394,29 @@ def main() -> int:
 
     def legendre_work(plan, B):
         """Bytes, f32 and f64 operations of one K5 or K6 call: every (l, m,
-        ring) triple a recurrence step (3 f64 operations) and 2 B
-        multiply-adds into the hemispheres' even and odd sums."""
+        ring) triple a recurrence step (two multiplies and an FMA: 4 f64
+        operations, the peak counting an FMA as 2) and 2 B multiply-adds
+        into the hemispheres' even and odd sums."""
         M = plan.mmax + 1
         triples = plan.n_half * sum(plan.lmax - m + 1 for m in range(M))
         n_bytes = (4 * B * plan.size + 8 * B * plan.n_rings * M  # alm, ring coefficients
                    + 16 * M * (plan.lmax + 1) + 8 * M * plan.n_half + 8 * plan.n_half)  # tables
-        return n_bytes, 4.0 * B * triples, 3.0 * triples
+        return n_bytes, 4.0 * B * triples, 4.0 * triples
 
     # 14a. K5/K6 against their plain versions (float64 on the card): the square
-    # plans (lmax = mmax = 2 nside) at B = 1, 2, 4, and the plans and batches that
-    # 14d (lmax 3/2 nside, B = 1) and 14e (the regular axis in the batch) give them,
-    # and a batch that ends in a partial group of 4 samples
+    # plans (lmax = mmax = 2 nside) at B = 1, 2, 4 (and 8, 16: the tensor cores), and
+    # the plans and batches that 14d (lmax 3/2 nside, B = 1) and 14e (the regular
+    # axis in the batch) give them, and a batch that ends in a partial group of 4
     n_sph, n_reg = S["product"]
     cases = {(nside, 2 * nside): [(B, "14a") for B in (1, 2, 4)] for nside in S["kernel_nsides"]}
+    for nside in S["tensor_core_nsides"]:
+        cases[(nside, 2 * nside)].extend([(8, "14a"), (16, "14a")])
     cases.setdefault((n_sph, 2 * n_sph), []).extend([(n_reg, "14e"), (6, "partial group")])
     cases.setdefault((S["analysis"], 3 * S["analysis"] // 2), []).append((1, "14d"))
     for (nside, lmax), batches in cases.items():
         plan = cl.LegendrePlan(sht.healpix_ring_geometry(nside)[0], lmax, lmax)
         plan_d = copy.deepcopy(plan).to(dev)
+        table = legendre_table(plan_d) if nside <= S["table_max_nside"] else None
         for B, shape_of in batches:
             alm = torch.randn((B, plan.size), generator=g, device=dev)
             out = cl.legendre_contract(alm, plan_d)
@@ -1418,14 +1429,23 @@ def main() -> int:
             e6 = rel_max(back.double(), ref6)
             n_bytes, f32_ops, f64_ops = legendre_work(plan, B)
             plain_iters = dict(iters=1, warmup=1)  # a loop over l: thousands of launches a call
+            lib5 = lib6 = None
+            if table is not None:  # contraction only, the table precomputed
+                c, G, _, _ = legendre_bmm_operands(plan_d, alm, cot)
+                lib5 = device_ms(lambda: torch.bmm(table, c))
+                lib6 = device_ms(lambda: torch.bmm(table.transpose(1, 2), G))
+                del c, G
             k5 = timing(device_ms(lambda: cl.legendre_contract(alm, plan_d)),
                         device_ms(lambda: cl.legendre_contract_plain(alm, plan_d), **plain_iters),
-                        n_bytes, f32_ops, flops64=f64_ops)
+                        n_bytes, f32_ops, library_ms=lib5, flops64=f64_ops)
             k6 = timing(device_ms(lambda: cl.legendre_contract_t(cot, plan_d)),
                         device_ms(lambda: cl.legendre_contract_t_plain(cot, plan_d), **plain_iters),
-                        n_bytes, f32_ops, flops64=f64_ops)
+                        n_bytes, f32_ops, library_ms=lib6, flops64=f64_ops)
             line = {"phase": "kernels", "kernel": "K5+K6", "nside": nside, "lmax": plan.lmax,
                     "B": B, "shape_of": shape_of, "alm": plan.size, "rings": plan.n_rings,
+                    "tensor_cores": cl.launch_config(plan, B).mma,
+                    "library": None if table is None else
+                    "torch.bmm against a float32 λ table: contraction only, table precomputed",
                     "k5_rel_err": e5, "k6_rel_err": e6, "k6_same_bits": same,
                     **{f"k5_{k}": v for k, v in k5.items()}, **{f"k6_{k}": v for k, v in k6.items()}}
             if B == 1 and shape_of == "14a":  # by m band: the seed underflows float32 at large m
@@ -1441,7 +1461,7 @@ def main() -> int:
             record("K5", float((out.double() - ref).abs().max()), k5 if keep else None)
             record("K6", float((back.double() - ref6).abs().max()), k6 if keep else None)
             del alm, out, ref, cot, back, ref6
-        del plan, plan_d
+        del plan, plan_d, table
         torch.cuda.empty_cache()
 
     # 14b. the synthesis: device and wall ms; against float64 on the CPU

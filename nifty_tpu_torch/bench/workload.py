@@ -3,8 +3,9 @@ metric-apply rows (exact and 64-knot) and ``bench_extra.py``'s VI rows,
 the energy change of a leapfrog trajectory on a model's standardized
 posterior, the models of ``chip_smoke.py``'s phase 12 (a Matérn
 field, the density estimator's events, the full-covariance Gaussian's
-forward model), phase 13's tomography (demo 1 at full width) and phases
-14-15's spherical and multi-grid fields."""
+forward model), phase 13's tomography (demo 1 at full width), phases
+14-15's spherical and multi-grid fields, and phase 14a's library yardstick
+for K5/K6 (a batched matrix product against a precomputed λ table)."""
 
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ __all__ = [
     "icr_fields",
     "latent_draw",
     "leapfrog_energy_change",
+    "legendre_bmm_operands",
+    "legendre_table",
     "matern_field",
     "ndvcg_forward",
     "poisson_at_own_draw",
@@ -295,6 +298,52 @@ def sphere_field(nside, device, dtype, regular=None):
         cfm.add_fluctuations((regular,), distances=1.0 / regular, fluctuations=(1.0, 5e-1),
                              loglogavgslope=(-2.0, 2e-1), prefix="r")
     return cfm.finalize(device=device, dtype=dtype)
+
+
+def legendre_table(plan):
+    """λ_{l,m}(θ_r) of ``plan`` (a ``cuda_legendre.LegendrePlan``) as one
+    float32 table (mmax+1, 2 Rh, lmax+1), zero where l < m: rows r < Rh the
+    northern rings, rows Rh + r their mirrors, signed by (-1)^(l+m).  One
+    ``torch.bmm`` of it with the coefficients computes K5, one of its
+    transpose with the cotangents K6: the library yardstick of
+    ``chip_smoke.py`` phase 14a (contraction only, the table precomputed)."""
+    import numpy as np
+    import torch
+
+    from ..ops import cuda_legendre as cl
+
+    lam = torch.stack([row for _, row in cl._lambda_rows(plan)], dim=2)  # (Rh, M, L) float64
+    lam = lam.permute(1, 0, 2)
+    L, M = plan.lmax + 1, plan.mmax + 1
+    sign = torch.from_numpy((-1.0) ** np.add.outer(np.arange(M), np.arange(L))).to(lam.device)
+    return torch.cat([lam, lam * sign[:, None, :]], dim=1).to(torch.float32)
+
+
+def legendre_bmm_operands(plan, alm, cot):
+    """The other operands of :func:`legendre_table`'s products, and how to
+    read them back: ``c`` (mmax+1, lmax+1, 2 B), the packed ``alm`` (B,
+    size) unpacked; ``G`` (mmax+1, 2 Rh, 2 B), the cotangent ``cot`` (B, R,
+    mmax+1, 2) by ring as the table's rows (zero for a mirror that is no
+    ring of its own); ``ring_side(F)`` turns ``bmm(table, c)`` into K5's
+    (B, R, mmax+1, 2) and ``packed(g)`` ``bmm(table.transpose(1, 2), G)``
+    into K6's (B, size)."""
+    import torch
+
+    B, Rh, R = alm.shape[0], plan.n_half, plan.n_rings
+    dense = torch.cat([alm, alm.new_zeros(B, 1)], dim=1)[:, plan.unpack_index]  # (B, L, M, 2)
+    c = dense.permute(2, 1, 0, 3).reshape(plan.mmax + 1, plan.lmax + 1, 2 * B)
+    south = torch.cat([cot[:, Rh:].flip(1), cot.new_zeros((B, 2 * Rh - R) + cot.shape[2:])], dim=1)
+    G = torch.cat([cot[:, :Rh], south], dim=1).permute(2, 1, 0, 3).reshape(plan.mmax + 1, 2 * Rh, 2 * B)
+
+    def ring_side(F):
+        F = F.reshape(plan.mmax + 1, 2 * Rh, B, 2).permute(2, 1, 0, 3)
+        return torch.cat([F[:, :Rh], F[:, Rh:Rh + R - Rh].flip(1)], dim=1)
+
+    def packed(g):
+        dense_g = g.reshape(plan.mmax + 1, plan.lmax + 1, B, 2).permute(2, 1, 0, 3)
+        return dense_g.reshape(B, -1)[:, plan.pack_index]
+
+    return c, G, ring_side, packed
 
 
 def gaussian_at_own_draw(model32, model64, noise, device, seed=1):

@@ -21,15 +21,20 @@ ring side as ``(B, R, mmax+1, 2)``: (cosine, sine) interleaved, which
 ``csrc/legendre.cu`` says how the kernels are laid out; the recurrence
 runs in float64 in both the kernels and the plain versions (float32
 underflows the seed at nside ≥ 256), the contraction in the coefficients'
-dtype.
+dtype (on the float64 tensor cores for batches of :data:`MMA_MIN_BATCH`
+or more, rounded once).
 
 :class:`LegendrePlan` holds the tables of one ring grid: float64 buffers
-that stay float64 under ``.to(dtype)``.  Each wrapper runs its plain
-PyTorch version (a loop over l) when its tensor lies on the CPU; for a
-CUDA tensor it launches its kernel or raises.
+that stay float64 under ``.to(dtype)``, and the column pairs a block of
+either kernel walks (:func:`column_pairs`).  :func:`launch_config` is the
+launch each wrapper makes.  Each wrapper runs its plain PyTorch version (a
+loop over l) when its tensor lies on the CPU; for a CUDA tensor it
+launches its kernel or raises.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -38,9 +43,12 @@ from .. import native
 from ..device import Float64Tables
 
 __all__ = [
-    "RINGS_PER_CHUNK",
+    "MMA_MIN_BATCH",
+    "LaunchConfig",
     "LegendrePlan",
     "alm_size",
+    "column_pairs",
+    "launch_config",
     "legendre_contract",
     "legendre_contract_plain",
     "legendre_contract_t",
@@ -49,12 +57,67 @@ __all__ = [
     "recurrence_tables",
 ]
 
-RINGS_PER_CHUNK = 256  # K6: the northern rings one block reduces (csrc/legendre.cu kChunk)
+# batches from this size on take the tensor-core kernels (csrc/legendre.cu, designs 4-5)
+MMA_MIN_BATCH = 8
+
+
+class LaunchConfig(NamedTuple):
+    """A launch of K5 or K6 (grid x: ring chunks, y: column groups, z:
+    sample groups): ``mma`` (the tensor-core kernel), ``rings_per_thread``
+    K, ``threads`` a block, ``n_chunks``, ``columns`` a block (0: the pair
+    ``plan.pairs[y]``; else ``columns`` consecutive columns from
+    ``columns y``, one a warp, over 32 rings, lane r taking ring 32 x + r),
+    ``samples`` a block."""
+
+    mma: bool
+    rings_per_thread: int
+    threads: int
+    n_chunks: int
+    columns: int
+    samples: int
+
+
+def launch_config(plan, B: int, transpose: bool = False) -> LaunchConfig:
+    """The launch of K5 (``transpose`` False) or K6 for a batch of ``B``
+    (``csrc/legendre.cu``'s constants).  On the CUDA cores block y walks the
+    column pair ``plan.pairs[y]``, thread ``tid`` of ring chunk c the rings
+    (c K + k) threads + tid, k < K, with up to 256 threads, 4 samples a
+    block and K (2 or 4) as the card's sweep chose it
+    (``bench/legendre_bench.py --k-sweep``).  On the tensor cores (B >=
+    :data:`MMA_MIN_BATCH`), 8 samples a block: K5 takes 8 consecutive
+    columns a block, a warp each, over 32 rings; K6 a pair, K = 1 ring a
+    thread up to 256 northern rings and 2 above, as on the CUDA cores.  K6
+    reduces a chunk's rings in the block: more than one chunk (over 1,024
+    northern rings on the CUDA cores, 512 on the tensor cores) adds a
+    second launch."""
+    Rh = plan.n_half
+    if B >= MMA_MIN_BATCH:
+        if not transpose:
+            return LaunchConfig(True, 1, 256, -(-Rh // 32), 8, 8)
+        k = 1 if Rh <= 256 else 2
+        threads = min(256, 32 * -(-Rh // (32 * k)))
+        return LaunchConfig(True, k, threads, -(-Rh // (k * threads)), 0, 8)
+    if transpose:
+        k = 2 if Rh <= 256 or (B == 1 and Rh <= 512) else 4
+    else:
+        k = 4 if B == 1 or 256 < Rh <= 512 else 2
+    threads = min(256, 32 * -(-Rh // (32 * k)))
+    return LaunchConfig(False, k, threads, -(-Rh // (threads * k)), 0,
+                        1 if B == 1 else 2 if B == 2 else 4)
 
 
 def alm_size(lmax: int, mmax: int) -> int:
     """The length of the packed real-alm vector."""
     return (lmax + 1) ** 2 - (lmax - mmax) * (lmax - mmax + 1)
+
+
+def column_pairs(mmax: int) -> np.ndarray:
+    """The columns a block of K5 or K6 walks, ``(mmax // 2 + 1, 2)`` int32:
+    row p is (p, mmax - p), or (p, -1) for the middle column of an even
+    mmax, so every block walks 2 lmax - mmax + 2 values of l (the middle
+    one half as many)."""
+    p = np.arange(mmax // 2 + 1)
+    return np.stack([p, np.where(mmax - p != p, mmax - p, -1)], axis=1).astype(np.int32)
 
 
 def real_alm_index_maps(lmax: int, mmax: int):
@@ -97,7 +160,8 @@ class LegendrePlan(Float64Tables):
     ``lmax`` and ``mmax``.  Buffers: ``cos_half`` (Rh,), ``seed``
     (mmax+1, Rh) = λ_{m,m}(θ_r), ``ab`` (mmax+1, lmax+1, 2) = (a_{l,m},
     b_{l,m}), all float64 whatever ``.to`` is given; ``col_offset``
-    (mmax+1,) int32, where column m starts in the packed alm; and for the
+    (mmax+1,) int32, where column m starts in the packed alm; ``pairs``
+    (:func:`column_pairs`); and for the
     plain versions ``unpack_index`` (lmax+1, mmax+1, 2) into the packed
     alm with one zero appended, and ``pack_index`` (size,) into the dense
     (lmax+1, mmax+1, 2) array."""
@@ -125,6 +189,7 @@ class LegendrePlan(Float64Tables):
         idx_re, msk_re, idx_im, msk_im = real_alm_index_maps(lmax, mmax)
         col = idx_re[np.arange(mmax + 1), np.arange(mmax + 1)]  # where (l = m, m) lies
         self.register_buffer("col_offset", torch.from_numpy(col.astype(np.int32)))
+        self.register_buffer("pairs", torch.from_numpy(column_pairs(mmax)))
         zero = self.size  # the appended zero
         unpack = np.stack([np.where(msk_re > 0, idx_re, zero), np.where(msk_im > 0, idx_im, zero)],
                           axis=-1)
@@ -134,10 +199,6 @@ class LegendrePlan(Float64Tables):
         live = unpack < zero
         pack[unpack[live]] = flat[live]
         self.register_buffer("pack_index", torch.from_numpy(pack))
-
-    @property
-    def n_chunks(self) -> int:
-        return -(-self.n_half // RINGS_PER_CHUNK)
 
 
 def _lambda_rows(plan):
@@ -202,11 +263,13 @@ def legendre_contract(alm, plan: LegendrePlan):
         return legendre_contract_plain(alm, plan)
     _check(alm, plan, "legendre_contract", alm.ndim == 2 and alm.shape[1] == plan.size)
     B = alm.shape[0]
+    cfg = launch_config(plan, B)
     out = torch.empty((B, plan.n_rings, plan.mmax + 1, 2), dtype=alm.dtype, device=alm.device)
     err = native.lib().nt_legendre_contract(
         alm.data_ptr(), plan.ab.data_ptr(), plan.seed.data_ptr(), plan.cos_half.data_ptr(),
-        plan.col_offset.data_ptr(), out.data_ptr(), B, plan.size, plan.lmax, plan.mmax,
-        plan.n_rings, plan.n_half, native.stream_of(alm))
+        plan.col_offset.data_ptr(), plan.pairs.data_ptr(), out.data_ptr(), B, plan.size,
+        plan.lmax, plan.mmax, plan.n_rings, plan.n_half, int(cfg.mma), cfg.rings_per_thread,
+        cfg.threads, cfg.n_chunks, native.stream_of(alm))
     native.check(err, "legendre_contract")
     native.launches["legendre_contract"] += 1
     native.batched_launches["legendre_contract"] += B > 1
@@ -219,14 +282,16 @@ def legendre_contract_t(cot, plan: LegendrePlan):
         return legendre_contract_t_plain(cot, plan)
     _check(cot, plan, "legendre_contract_t",
            cot.ndim == 4 and tuple(cot.shape[1:]) == (plan.n_rings, plan.mmax + 1, 2))
-    B, n_chunks = cot.shape[0], plan.n_chunks
+    B = cot.shape[0]
+    cfg = launch_config(plan, B, transpose=True)
     out = torch.empty((B, plan.size), dtype=cot.dtype, device=cot.device)
-    partial = out if n_chunks == 1 else torch.empty(
-        (n_chunks, B, plan.size), dtype=cot.dtype, device=cot.device)
+    partial = out if cfg.n_chunks == 1 else torch.empty(
+        (cfg.n_chunks, B, plan.size), dtype=cot.dtype, device=cot.device)
     err = native.lib().nt_legendre_contract_t(
         cot.data_ptr(), plan.ab.data_ptr(), plan.seed.data_ptr(), plan.cos_half.data_ptr(),
-        plan.col_offset.data_ptr(), partial.data_ptr(), out.data_ptr(), B, plan.size, plan.lmax,
-        plan.mmax, plan.n_rings, plan.n_half, n_chunks, native.stream_of(cot))
+        plan.col_offset.data_ptr(), plan.pairs.data_ptr(), partial.data_ptr(), out.data_ptr(), B,
+        plan.size, plan.lmax, plan.mmax, plan.n_rings, plan.n_half, int(cfg.mma),
+        cfg.rings_per_thread, cfg.threads, cfg.n_chunks, native.stream_of(cot))
     native.check(err, "legendre_contract_t")
     native.launches["legendre_contract_t"] += 1
     native.batched_launches["legendre_contract_t"] += B > 1

@@ -588,6 +588,8 @@ def _legendre_plan(kind):
         z, lmax, mmax = sht.healpix_ring_geometry(64)[0], 96, 96
     elif kind == "healpix_16_mmax":
         z, lmax, mmax = sht.healpix_ring_geometry(16)[0], 32, 20
+    elif kind == "healpix_256_lmax64":  # 512 northern rings: one K6 block on the CUDA cores
+        z, lmax, mmax = sht.healpix_ring_geometry(256)[0], 64, 64
     else:  # an odd lmax: an even ring count, no equator ring
         z, lmax, mmax = sht.gauss_legendre_grid(63)[0], 63, 63
     return cl.LegendrePlan(z, lmax, mmax)
@@ -595,13 +597,18 @@ def _legendre_plan(kind):
 
 @pytest.mark.parametrize("kind,B", [(kind, B) for kind in ("healpix_64", "healpix_64_lmax96",
                                                              "healpix_16_mmax", "gauss_legendre_63")
-                                     for B in (1, 2, 3, 5)] + [("healpix_64", 256)])
+                                     for B in (1, 2, 3, 4, 5, 8, 16)]
+                         + [("healpix_256_lmax64", B) for B in (1, 4, 8, 16)]
+                         + [("healpix_64", 256)])
 def test_legendre_kernels_match_plain(cuda_device, kind, B):
     """K5 and K6 in float32 against their plain versions in float64 on the
     CPU: max|Δ| <= 1e-5 max|ref| (float32 sums over up to lmax + 1 terms);
-    K6 the same bits twice; the batches of 3 and 5 take the 4-sample
-    kernel with a partial group, 256 (a sphere times a regular 256 axis)
-    64 groups along the grid's z."""
+    K6 the same bits twice.  The batches of 3 and 5 take the 4-sample
+    CUDA-core kernels with a partial group; 8 and 16, the smallest batches
+    on the tensor cores (``cl.MMA_MIN_BATCH``), and 256 (a sphere times a
+    regular 256 axis) the tensor-core kernels, 8 samples a block; nside 256
+    at lmax 64 has 512 northern rings, all in one K6 block (more than one
+    chunk of the previous design's 256)."""
     from nifty_tpu_torch.ops import cuda_legendre as cl
 
     plan = _legendre_plan(kind)
@@ -616,6 +623,27 @@ def test_legendre_kernels_match_plain(cuda_device, kind, B):
     back = cl.legendre_contract_t(cot, plan_d)
     assert torch.equal(back, cl.legendre_contract_t(cot, plan_d))
     assert _rel(back.double().cpu(), cl.legendre_contract_t_plain(cot.double().cpu(), plan)) <= 1e-5
+
+
+def test_legendre_kernels_take_any_float_offset(cuda_device):
+    """The kernels stage their columns by 16-byte bulk copies and the words
+    around them: inputs 1-3 floats off a 16-byte boundary give the bits of
+    an aligned copy."""
+    from nifty_tpu_torch.ops import cuda_legendre as cl
+
+    plan = copy.deepcopy(_legendre_plan("healpix_16_mmax")).to(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    for B in (1, 3, 8):
+        n5, n6 = B * plan.size, B * plan.n_rings * (plan.mmax + 1) * 2
+        a_buf = torch.randn(n5 + 3, generator=g, device=cuda_device)
+        c_buf = torch.randn(n6 + 3, generator=g, device=cuda_device)
+        for k in (1, 2, 3):
+            alm = a_buf[k:k + n5].view(B, plan.size)
+            cot = c_buf[k:k + n6].view(B, plan.n_rings, plan.mmax + 1, 2)
+            assert alm.data_ptr() % 16 and cot.data_ptr() % 16
+            assert torch.equal(cl.legendre_contract(alm, plan), cl.legendre_contract(alm.clone(), plan))
+            assert torch.equal(cl.legendre_contract_t(cot, plan),
+                               cl.legendre_contract_t(cot.clone(), plan))
 
 
 def test_legendre_wrappers_raise_on_bad_cuda_input(cuda_device):

@@ -17,7 +17,11 @@ and why:
   package's chunked one);
 - the Gauss-Legendre grid at odd lmax (an even ring count, which the JAX
   package's fold does not take): against a dense transform from scipy's
-  spherical harmonics, 1e-10.
+  spherical harmonics, 1e-10;
+- the kernels' schedule and their column staging (models of
+  ``csrc/legendre.cu``'s index arithmetic, which the CPU cannot run):
+  exact; the λ-table products that ``chip_smoke.py`` times as K5/K6's
+  library yardstick: 1e-6 of the largest value (the table is float32).
 """
 
 import copy
@@ -182,6 +186,126 @@ def test_legendre_functions_batch_jvp_and_adjoint():
     meta = ts.LegendreContract.apply(torch.empty((2, plan.size), device="meta"),
                                      copy.deepcopy(plan).to("meta"))
     assert meta.shape == (2, plan.n_rings, mmax + 1, 2) and meta.is_meta
+
+
+# --- the kernels' schedule and staging (models of csrc/legendre.cu) -----------------
+
+
+def _schedule_plan(kind):
+    if kind == "even_mmax":  # a self-paired middle column
+        return cl.LegendrePlan(js.healpix_ring_geometry(4)[0], 8, 8)
+    if kind == "odd_mmax_below_lmax":
+        return cl.LegendrePlan(js.healpix_ring_geometry(4)[0], 9, 5)
+    if kind == "even_mmax_below_lmax":
+        return cl.LegendrePlan(js.healpix_ring_geometry(8)[0], 12, 6)
+    if kind == "even_ring_count":  # odd lmax: no equator ring
+        return cl.LegendrePlan(js.gauss_legendre_grid(11)[0], 11, 11)
+    if kind == "rings_512":  # one CUDA-core K6 block, 4 tensor-core chunks
+        return cl.LegendrePlan(js.healpix_ring_geometry(256)[0], 4, 3)
+    return cl.LegendrePlan(js.healpix_ring_geometry(1024)[0], 3, 3)  # 2,048 rings: K6 chunks
+
+
+@pytest.mark.parametrize("kind", ["even_mmax", "odd_mmax_below_lmax", "even_mmax_below_lmax",
+                                  "even_ring_count", "rings_512", "rings_2048"])
+@pytest.mark.parametrize("B", [1, 2, 5, 8, 19])
+def test_kernel_schedule_covers_each_column_ring_and_sample_once(kind, B):
+    """Every block of K5 and K6 as ``launch_config`` launches it (grid x: ring
+    chunk, y: column group, z: sample group): each (sample, m, northern
+    ring) exactly once.  A block walks the pair ``plan.pairs[y]`` with
+    thread ``tid`` of chunk x taking rings (x K + k) threads + tid, or (the
+    tensor-core K5) ``columns`` consecutive columns, a warp each, over rings
+    32 x + lane; a pair walks 2 lmax - mmax + 2 values of l (the
+    self-paired middle column half as many)."""
+    plan = _schedule_plan(kind)
+    pairs = plan.pairs.numpy()
+    np.testing.assert_array_equal(pairs, cl.column_pairs(plan.mmax))
+    for row in pairs:
+        steps = sum(plan.lmax - m + 1 for m in row if m >= 0)
+        assert steps == (plan.lmax - plan.mmax // 2 + 1 if row[1] < 0 else 2 * plan.lmax - plan.mmax + 2)
+    for transpose in (False, True):
+        cfg = cl.launch_config(plan, B, transpose)
+        assert cfg.mma == (B >= cl.MMA_MIN_BATCH)
+        hits = np.zeros((B, plan.mmax + 1, plan.n_half), dtype=np.int64)
+        if cfg.columns:
+            assert cfg.columns == cfg.threads // 32
+            groups = [list(range(y * cfg.columns, min((y + 1) * cfg.columns, plan.mmax + 1)))
+                      for y in range(-(-(plan.mmax + 1) // cfg.columns))]
+        else:
+            groups = [[m for m in row if m >= 0] for row in pairs]
+        for cols in groups:
+            for c in range(cfg.n_chunks):
+                if cfg.columns:
+                    rings = 32 * c + np.arange(32)
+                else:
+                    rings = ((c * cfg.rings_per_thread + np.arange(cfg.rings_per_thread))[:, None]
+                             * cfg.threads + np.arange(cfg.threads)[None, :]).ravel()
+                rings = rings[rings < plan.n_half]
+                for z in range(-(-B // cfg.samples)):
+                    samples = np.arange(z * cfg.samples, min((z + 1) * cfg.samples, B))
+                    for m in cols:
+                        hits[np.ix_(samples, [m], rings)] += 1
+        assert (hits == 1).all()
+        if transpose:  # one launch unless the rings outgrow a block
+            assert (cfg.n_chunks == 1) == (plan.n_half <= (512 if cfg.mma else 1024))
+
+
+def _slot_words(n):
+    return (n + 6) & ~3  # csrc/legendre.cu slot_words
+
+
+@pytest.mark.parametrize("lmax,mmax", [(8, 8), (9, 5), (12, 12)])
+@pytest.mark.parametrize("base", [0, 1, 2, 3])
+def test_column_staging_model_unpacks_to_the_jax_packing(lmax, mmax, base):
+    """K5's staging of a sample's alm column (``csrc/legendre.cu`` stage /
+    alm_span) for an input ``base`` floats past a 16-byte boundary: the bulk
+    copy's source, destination and size are multiples of 16 bytes, the <= 3
+    words before and after it go by plain loads, the slot holds them, and
+    the staged column read at the kernel's offsets (2 (l - m) + part, or l
+    at m = 0) gives the JAX package's unpacked coefficients."""
+    B = 3
+    alm = _alm(lmax, mmax, base, (B,))
+    re, im = (np.asarray(v) for v in js.unpack_real_alm(jnp.asarray(alm), lmax, mmax))
+    col_off = cl.LegendrePlan(js.healpix_ring_geometry(2)[0], lmax, mmax).col_offset.numpy()
+    flat = np.concatenate([np.full(base, np.nan), alm.ravel()])  # word 0: 16-byte aligned
+    for b in range(B):
+        for m in range(mmax + 1):
+            n = lmax + 1 if m == 0 else 2 * (lmax - m + 1)
+            src = base + b * alm.shape[1] + int(col_off[m])  # in words from the aligned base
+            lead = src & 3
+            head = min(n, (4 - lead) & 3)
+            body = ((n - head) >> 2) << 2
+            assert head <= 3 and n - head - body <= 3 and lead + n <= _slot_words(n)
+            slot = np.full(_slot_words(n), np.nan)  # a 16-byte-aligned slot
+            if body:
+                assert (src + head) % 4 == 0 and (lead + head) % 4 == 0 and body % 4 == 0
+                slot[lead + head:lead + head + body] = flat[src + head:src + head + body]
+            for w in list(range(head)) + list(range(head + body, n)):
+                slot[lead + w] = flat[src + w]
+            col = slot[lead:lead + n]
+            ls = np.arange(m, lmax + 1)
+            if m == 0:
+                np.testing.assert_array_equal(col, re[b, :, 0])
+            else:
+                np.testing.assert_array_equal(col[0::2], re[b, ls, m])
+                np.testing.assert_array_equal(col[1::2], im[b, ls, m])
+
+
+@pytest.mark.parametrize("kind", ["healpix", "gauss_legendre"])
+def test_lambda_table_products_match_plain(kind):
+    """``bench.workload.legendre_table``'s float32 λ table: one ``torch.bmm``
+    gives K5, one with its transpose K6 (chip_smoke.py's library yardstick)."""
+    from nifty_tpu_torch.bench.workload import legendre_bmm_operands, legendre_table
+
+    z, lmax, mmax = _grid(kind)
+    plan = cl.LegendrePlan(z, lmax, mmax)
+    alm = torch.from_numpy(_alm(lmax, mmax, 4, (3,)))
+    cot = torch.from_numpy(np.random.default_rng(5).standard_normal((3, z.size, mmax + 1, 2)))
+    table = legendre_table(plan)
+    assert table.dtype == torch.float32 and table.shape == (mmax + 1, 2 * plan.n_half, lmax + 1)
+    c, G, ring_side, packed = legendre_bmm_operands(plan, alm, cot)
+    _close(ring_side(torch.bmm(table.double(), c)), cl.legendre_contract_plain(alm, plan), 1e-6)
+    _close(packed(torch.bmm(table.double().transpose(1, 2), G)),
+           cl.legendre_contract_t_plain(cot, plan), 1e-6)
 
 
 def test_plan_keeps_float64_tables():
