@@ -146,8 +146,9 @@ JAX.  Phases, each printing one JSON line to stdout:
 14. sphere (``SPHERE``): (a) K5 (the Legendre contraction of the
    spherical-harmonic synthesis) and K6 (its adjoint) against their plain
    versions in float64 on the card at nside 64, 256 and 512 (lmax 2 nside),
-   B = 1, 2 and 4, at nside 64 and 256 also B = 8 and 16 (the smallest
-   batches on the tensor cores), and at the plans and batches (d) and (e)
+   B = 1, 2 and 4, at all three also B = 8 and 16 (the smallest batches on
+   the tensor cores; at nside 512 K6 sums its two ring chunks in a second
+   launch, counted as such), and at the plans and batches (d) and (e)
    give them (nside 64: lmax 96, B = 1; lmax 128, B = 256) and B = 6 (1e-5
    of the maximum, and by m band at B = 1; K6 the same bits twice), device
    ms, bound (f32 operations and 4 f64 operations a recurrence step), plain
@@ -170,7 +171,25 @@ JAX.  Phases, each printing one JSON line to stdout:
    each built in float64 on the CPU (seconds printed; a build over 60 s
    lowers the depth a step) and copied in float32 to the card: forward and
    metric ms, both against CPU f64 (1e-4), and one MGVI iteration of the
-   first under ``vmap``, checked as in phase 8.
+   first under ``vmap``, checked as in phase 8;
+16. aux (``AUX``): the diagnostics and the output on phase 4's exact model
+   at 1280² (f32 on the card, f64 on the CPU as the reference): (a)
+   ``probe_diagonal`` of the metric from 8 Rademacher probes drawn on the
+   CPU from the seed, against the same probes through the CPU metric
+   (1e-4 relative L2); (b) ``operator_spectrum`` of the metric, its 8
+   leading eigenvalues from one Lanczos batch (42 applies) against the
+   same Lanczos on the CPU from the same start vector (1e-4 relative,
+   seconds printed); (c) ``compute_empirical_power_spectrum`` of the field
+   at 128 shells against numpy ``fftn`` and ``bincount`` in float64 at the
+   card's field (1e-5 of the maximum), the same bits on two calls, and the
+   gradient of the power in the 8 lowest shells against CPU f64 (1e-4);
+   (d) ``check_model`` of the field: each mode's eager and device time and
+   peak memory, all finite and positive; (e) ``adjust_variances`` on the
+   field's ξ (φ = A ξ kept to 1e-5) and one MGVI iteration of
+   ``optimize_kl`` under ``vmap`` with ``odir`` in a temporary directory, an
+   exported operator and a ``kl_reduce`` of its own: ``last.pkl`` back
+   through ``load_samples`` with the same bits, the operator's mean and
+   standard deviation finite and of the field's shape.
 
 The launch counters are set to 0 just before each of phases 4-6, 9, 10b
 and 11, and before each VI run of phases 7 and 8 (``vi_mgvi_vmap``,
@@ -185,14 +204,16 @@ each sub-phase of 12 (``matern_table``, ``matern_pixel``, ``vmodel``,
 ``responses_dynamics_operators``), of 14 (``sphere_metric``,
 ``sphere_mgvi_vmap``, ``sphere_analysis``, ``sphere_product``) and of 15
 (``icr_fixed``, ``icr_mgvi_vmap``, ``icr_matern``, ``icr_healpix``,
-``icr_sphere_radius``), and read just after it:
+``icr_sphere_radius``) and of 16 (``aux_probing``, ``aux_spectrum``,
+``aux_power``, ``aux_check_model``, ``aux_adjust_optimize_kl``), and read
+just after it:
 K1-K4 must launch in phases 4, 5, 8-11, 12 (but for the Matérn pixel
 form and the 32² full-covariance VI) and 13a, K3/K4 (and not K1/K2) in 6,
 7, the pixel form and 13d, none in 10b, the 32² VI and 13b, c and e, and
 each VI run's kernels in
 its last iteration too; K1, K2, K5 and K6 (not K3/K4) in 14c, K5/K6 in 14d,
-K1, K2, K5 and K6 in 14e, none in 15; under ``vmap`` (and in the ``VModel``, density,
-NDVCG and mean-field runs) each must have launched on a batch of samples,
+K1, K2, K5 and K6 in 14e, none in 15, K1-K4 (not K5/K6) in each of 16a-e;
+under ``vmap`` (and in the ``VModel``, density, NDVCG and mean-field runs) each must have launched on a batch of samples,
 chains or channels (``native.batched_launches``), under ``lmap`` none.
 Then it prints the whole run's seconds, the card line, the kernel summary
 (launches per phase) and, last, ``{"ok": true, "device": ...}``.  Any
@@ -245,12 +266,15 @@ RESPONSES = dict(shape=1280, rays=16384, sampled_rays=1024, sampled_points=2560,
 # matrix product against a float32 λ table, 1.1 GB at nside 256) up to `table_max_nside`:
 # at nside 512 the table and its float64 rows would hold ~26 GB of the card
 SPHERE = dict(kernel_nsides=(64, 256, 512), checked=(64, 256), field=256, noise=0.2,
-              analysis=64, product=(64, 256), tensor_core_nsides=(64, 256), table_max_nside=256)
+              analysis=64, product=(64, 256), tensor_core_nsides=(64, 256, 512), table_max_nside=256)
 # phase 15: bench_extra.py:305's ICR field (16², depth 6: 772² fine pixels) and demo 4's
 # learned Matérn one on that grid, a HEALPix field (nside0 8, depth 4: nside 128) and a
 # sphere x log-radius field (nside0 2, 16 shells, depth 3); a depth that takes more than
 # `build_limit_s` of host time to build is lowered one step at a time
 ICR = dict(depth=6, healpix=(8, 4), sphere_radius=(2, 16, 3), noise=0.1, build_limit_s=60.0)
+# phase 16: the diagnostics and the output on phase 4's exact model at 1280²: 8 probes,
+# 8 eigenvalues (one Lanczos batch: 42 metric applies), a spectrum of 128 shells
+AUX = dict(shape=1280, probes=8, eigenvalues=8, bins=128, low_shells=8, seed=71)
 CG_ITERS = 20
 NAMES = {"K1": "expand_to_grid", "K2": "collapse_from_grid",
          "K3": "hartley_rows", "K4": "hartley_cols",
@@ -276,7 +300,10 @@ TOL = {"k2": 1e-6, "hartley": 1e-5, "metric": 1e-4, "kl_maps": 1e-5,  # K1 must 
        # phase 14: K5/K6 (float32 sums over up to lmax + 1 terms, the recurrence in
        # float64 in both) and the synthesis (and FFT rounding) against float64, of the
        # maximum; the analysis' CG, in float32, to the JAX package's own 1e-3 (relative L2)
-       "legendre": 1e-5, "synthesis": 1e-5, "analysis": 1e-3}
+       "legendre": 1e-5, "synthesis": 1e-5, "analysis": 1e-3,
+       # phase 16: the power spectrum (f32 FFT and sums) against numpy in float64, of
+       # the maximum; φ = A ξ recomputed as A_new (φ / A_new) in float32
+       "power": 1e-5}
 
 
 def emit(obj):
@@ -289,6 +316,136 @@ def fail(msg):
 
 def rel_max(a, b):
     return float((a - b).abs().max() / b.abs().max())
+
+
+def aux_phase(dev, read_launches, rel_l2):
+    """Phase 16 (``AUX``): probing, the operator spectrum, the empirical
+    power spectrum, ``check_model``, ``adjust_variances`` and one
+    ``optimize_kl`` iteration with its outputs, on phase 4's exact model
+    (float32 on ``dev``, float64 on the CPU as the reference).  Each
+    sub-phase's launches are read by ``read_launches`` (K1-K4 must launch,
+    K5/K6 must not)."""
+    import numpy as np
+    import torch
+
+    import nifty_tpu_torch as nt
+    from nifty_tpu_torch import native
+    from nifty_tpu_torch.bench.workload import bench_field, build_likelihood, vi_settings
+    from nifty_tpu_torch.utils.tree import tree_map
+
+    t16 = time.perf_counter()
+    n, seed, off = AUX["shape"], AUX["seed"], ("K5", "K6")
+    f32, f64 = torch.float32, torch.float64
+    lh, pos_np, _ = build_likelihood(n, dev, f32)
+    lh64, _, _ = build_likelihood(n, "cpu", f64)
+    cf, cf64 = bench_field(n, dev, f32), bench_field(n, "cpu", f64)
+    p, p64 = (nt.position_from_numpy(m, pos_np) for m in (cf, cf64))
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def metric(likelihood, q):
+        return lambda t: likelihood.metric(q, t)
+
+    # 16a. the metric's diagonal from 8 Rademacher probes drawn on the CPU from the seed
+    native.reset_launches()
+    diag, secs = timed(lambda: nt.probe_diagonal(metric(lh, p), p, seed, n_probes=AUX["probes"]))
+    read_launches("aux_probing", FIELD, refuse=off)
+    err = rel_l2(diag, nt.probe_diagonal(metric(lh64, p64), p64, seed, n_probes=AUX["probes"]))
+    emit({"phase": "aux_probing", "shape": [n, n], "probes": AUX["probes"], "seconds": secs,
+          "rel_l2_vs_cpu_f64": err})
+    if not err <= TOL["metric"]:
+        fail(f"aux_probing: the diagonal {err} off CPU f64 > {TOL['metric']}")
+
+    # 16b. the metric's leading eigenvalues, one Lanczos batch from the seed's start vector
+    native.reset_launches()
+    kw = dict(key=seed, n_batches=1)
+    vals, secs = timed(lambda: nt.operator_spectrum(metric(lh, p), p, AUX["eigenvalues"], **kw))
+    read_launches("aux_spectrum", FIELD, refuse=off)
+    ref = nt.operator_spectrum(metric(lh64, p64), p64, AUX["eigenvalues"], **kw)
+    err = float(np.max(np.abs(vals - ref) / np.abs(ref))) if vals.shape == ref.shape else float("inf")
+    emit({"phase": "aux_spectrum", "shape": [n, n], "eigenvalues": vals.tolist(),
+          "eigenvalues_cpu_f64": ref.tolist(), "rel_err_vs_cpu_f64": err, "seconds": secs})
+    if not err <= TOL["metric"]:
+        fail(f"aux_spectrum: eigenvalues {err} off CPU f64 > {TOL['metric']}")
+
+    # 16c. the field's empirical power spectrum (twice: the same bits), and the
+    # gradient of its power in the lowest shells (the field's pull-back)
+    def spectrum(x):
+        return nt.compute_empirical_power_spectrum(x, distances=1.0 / n, n_bins=AUX["bins"])[0]
+
+    def low_power(model):
+        return torch.func.grad(lambda q: spectrum(model(q))[: AUX["low_shells"]].sum())
+
+    native.reset_launches()
+    with torch.no_grad():
+        field = cf(p)
+    ps, secs = timed(lambda: spectrum(field))
+    same = torch.equal(ps, spectrum(field))
+    grad, grad_s = timed(lambda: low_power(cf)(p))
+    read_launches("aux_power", FIELD, refuse=off)
+    x = field.double().cpu().numpy()  # numpy fftn and bincount in float64 at the card's field
+    kk = np.fft.fftfreq(n, d=1.0 / n)
+    k_mag = np.sqrt(kk[:, None] ** 2 + kk[None, :] ** 2).ravel()
+    edges = np.geomspace(1.0, float(n), AUX["bins"] + 1)
+    idx = np.clip(np.digitize(k_mag, edges) - 1, 0, AUX["bins"] - 1)
+    counts = np.bincount(idx, minlength=AUX["bins"])
+    sums = np.bincount(idx, weights=(np.abs(np.fft.fftn(x)) ** 2).ravel(), minlength=AUX["bins"])
+    ref = torch.from_numpy((sums / np.maximum(counts, 1))[counts > 0])
+    err = rel_max(ps.double().cpu(), ref) if ps.shape == ref.shape else float("inf")
+    grad_err = rel_l2(grad, low_power(cf64)(p64))
+    emit({"phase": "aux_power", "shape": [n, n], "shells": int(ps.numel()), "seconds": secs,
+          "rel_max_vs_numpy_f64": err, "same_bits_twice": same, "low_power_grad_seconds": grad_s,
+          "low_power_grad_rel_l2_vs_cpu_f64": grad_err})
+    if not (err <= TOL["power"] and same and grad_err <= TOL["metric"]):
+        fail(f"aux_power: {err} off numpy (> {TOL['power']}?), the same bits twice {same}, "
+             f"the gradient {grad_err} off CPU f64 (> {TOL['metric']}?)")
+
+    # 16d. check_model of the field: eager, device time and peak memory of each mode
+    native.reset_launches()
+    report, secs = timed(lambda: nt.check_model(cf, p, log=lambda msg: None))
+    read_launches("aux_check_model", FIELD, refuse=off)
+    emit({"phase": "aux_check_model", "shape": [n, n], "seconds": secs, "report": report})
+    for mode, r in report.items():
+        nums = [r["time_raw"]] + ([r["device_ms"], r["peak_bytes"]] if dev.type == "cuda" else [])
+        if not all(np.isfinite(v) and v > 0 for v in nums):
+            fail(f"aux_check_model: {mode} {r}")
+
+    # 16e. adjust_variances on the field's ξ; one MGVI iteration of optimize_kl under
+    # vmap with odir, an exported operator and a kl_reduce of its own (the mean in f64)
+    native.reset_launches()
+    amp = cf.harmonic_amplitude
+    new, adjust_s = timed(lambda: nt.adjust_variances(
+        p, amp, cf.xi_key, minimize_kwargs=dict(maxiter=5, cg_kwargs=dict(maxiter=10))))
+    with torch.no_grad():
+        phi_err = rel_max(amp(new) * new[cf.xi_key], amp(p) * p[cf.xi_key])
+    moved = {k: float((new[k] - p[k]).abs().max()) for k in p if k != cf.xi_key}
+    reduce64 = lambda t: tree_map(lambda v: v.double().mean(dim=0).to(v.dtype), t)  # noqa: E731
+    with tempfile.TemporaryDirectory() as odir:
+        (samples, state), vi_s = timed(lambda: nt.optimize_kl(
+            lh, nt.position_from_numpy(lh.forward_model, pos_np),
+            key=torch.Generator(device=dev).manual_seed(seed), n_total_iterations=1,
+            kl_reduce=reduce64, odir=odir, export_operators={"sky": lh.forward_model},
+            sample_mode="linear_resample", **vi_settings()))
+        read_launches("aux_adjust_optimize_kl", FIELD, refuse=off, batch=FIELD)
+        back = nt.io.load_samples(os.path.join(odir, "last.pkl"), device=dev)
+        same = all(torch.equal(back.pos[k], samples.pos[k])
+                   and torch.equal(back._samples[k], samples._samples[k]) for k in samples.pos)
+        out = np.load(os.path.join(odir, "operator_outputs", "sky_last.npz"))
+        npz_ok = all(out[k].shape == (n, n) and np.isfinite(out[k]).all() for k in ("mean", "std"))
+        files = sorted(os.listdir(odir))
+    emit({"phase": "aux_adjust_optimize_kl", "shape": [n, n], "adjust_seconds": adjust_s,
+          "phi_rel_max": phi_err, "hyperparameters_moved": moved, "vi_seconds": vi_s,
+          "samples": len(samples), "kl": float(state.minimization_state.fun),
+          "checkpoint_same_bits": same, "operator_npz_ok": npz_ok, "odir": files})
+    if not (phi_err <= TOL["power"] and same and npz_ok):
+        fail(f"aux_adjust_optimize_kl: φ {phi_err} (> {TOL['power']}?), last.pkl back with the "
+             f"same bits {same}, the operator's mean and std finite of shape {(n, n)} {npz_ok}")
+    emit({"phase": "aux_total", "seconds": time.perf_counter() - t16})
 
 
 def main() -> int:
@@ -1626,6 +1783,9 @@ def main() -> int:
     del sr64
     torch.cuda.empty_cache()
     emit({"phase": "icr_total", "seconds": time.perf_counter() - t15})
+
+    # -- 16. the diagnostics and the output (AUX) ----------------------------------
+    aux_phase(dev, read_launches, rel_l2)
 
     sources = {"K1": ("nifty_tpu_torch/csrc/expand.cu", "nifty_tpu/ops/pallas_expand.py:108"),
                "K2": ("nifty_tpu_torch/csrc/expand.cu", "nifty_tpu/ops/pallas_expand.py:161"),

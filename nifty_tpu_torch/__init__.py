@@ -14,7 +14,9 @@ samples mapped as one batch by default), the Wiener filter and the
 evidence lower bound (Lanczos), the responses (exact and sampled
 line-of-sight integrals, the NUFFT, structured kernel interpolation), the
 dynamics priors, the structural operators (``operators``) and the
-consistency checks (``extra``), running on one NVIDIA H100 through
+consistency checks (``extra``), the diagnostics (probing, operator
+spectra, empirical power spectra, ``check_model``, ``adjust_variances``)
+and the output (``io``, ``plot``, config files), running on one NVIDIA H100 through
 hand-written CUDA kernels (``csrc/``) for the mode-table expansion (K1),
 its adjoint (K2) and the 2-D Hartley (K3 + K4), each batched over the
 samples under ``torch.func.vmap``.  On CPU tensors every kernel wrapper
@@ -23,7 +25,10 @@ runs its plain PyTorch version.
 The package imports torch and never jax.
 """
 
-from . import config, extra, hmc, multi_grid, operators
+from . import config, extra, hmc, io, multi_grid, operators, plot
+from .adjust_variances import adjust_variances
+from .check_model import check_model
+from .config_file import OptimizeKLConfig
 from .conjugate_gradient import CGResults, SteihaugResults, cg, cg_steihaug, static_cg
 from .evi import (
     Samples,
@@ -38,6 +43,7 @@ from .evi import (
     white_noise,
     wiener_filter_posterior,
 )
+from .empirical_power_spectrum import compute_empirical_power_spectrum
 from .evidence_lower_bound import estimate_evidence_lower_bound
 from .interop import params_from_numpy, position_from_numpy, samples_from_numpy
 from .hmc import generate_hmc_acc_rej, generate_nuts_tree
@@ -62,6 +68,7 @@ from .likelihood_impl import (
     VariableCovarianceGaussian,
     VariableCovarianceStudentT,
 )
+from .logger import logger
 from .mcmc import LogDensity, get_sample_size_estimate, nuts_sample
 from .minisanity import ChiSqStats, minisanity, reduced_residual_stats
 from .model import (
@@ -135,19 +142,29 @@ from .optimize import (
     static_newton_cg,
     trust_ncg,
 )
+from .operator_spectrum import operator_spectrum
 from .optimize_kl import OptimizeVI, OptimizeVIState, optimize_kl
+from .probing import StatCalculator, probe_diagonal, probe_with_posterior_samples
 from .ski import HarmonicSKI, ToeplitzSKI, interp_mat, matmul_toeplitz
+from .utils.misc import hvp, interpolate, wrap, wrap_left
+from .utils.pytree_string import PyTreeString, hide_strings
 from .utils.tree import (
     ShapeWithDtype,
     Vector,
+    assert_arithmetics,
+    dot,
     get_map,
     lmap,
+    map_forest,
+    map_forest_mean,
     mean,
     mean_and_std,
     norm,
+    ones_like,
     random_like,
     sample_norm,
     sample_vdot,
+    smap,
     stack,
     tree_axpy,
     unstack,

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["Const", "Float64Tables", "resolve"]
+__all__ = ["Const", "Float64Tables", "cpu_generator", "resolve"]
 
 
 def resolve(device=None) -> torch.device:
@@ -27,6 +27,20 @@ def resolve(device=None) -> torch.device:
             "given device='cpu'"
         )
     return torch.device("cuda")
+
+
+def cpu_generator(key, default=None) -> torch.Generator:
+    """A CPU ``torch.Generator``: ``key`` itself, or one seeded with the int
+    ``key`` (``default`` when ``key`` is None).  Draws made on the CPU and
+    copied to a device are the same on every device."""
+    key = default if key is None else key
+    if isinstance(key, torch.Generator):
+        if key.device.type != "cpu":
+            raise ValueError("these draws are made on the CPU: give an int seed or a CPU generator")
+        return key
+    if key is None:
+        raise ValueError("no seed given")
+    return torch.Generator().manual_seed(int(key))
 
 
 class Const:

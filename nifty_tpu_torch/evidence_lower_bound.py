@@ -29,7 +29,7 @@ from .evi import Samples
 from .likelihood import Likelihood, StandardHamiltonian
 from .logger import logger
 from .num.lanczos import lanczos_tridiag
-from .utils.tree import ShapeWithDtype, vmap
+from .utils.tree import ShapeWithDtype, ravel, vmap
 
 __all__ = ["estimate_evidence_lower_bound"]
 
@@ -38,22 +38,12 @@ def _ravel_metric(metric, position):
     """``(matvec, size, dtype, device)``: ``metric(position, ·)`` on flat
     vectors, the leaves of a dict in sorted key order (as the JAX package's
     ``ravel_pytree``)."""
-    keys = sorted(position) if isinstance(position, dict) else None
-    leaves = [position[k] for k in keys] if keys else [position]
-    shapes = [tuple(x.shape) for x in leaves]
-    sizes = [math.prod(s) for s in shapes]
-
-    def unravel(x):
-        parts = [p.reshape(s) for p, s in zip(torch.split(x, sizes), shapes)]
-        return dict(zip(keys, parts)) if keys else parts[0]
-
-    def ravel(tree):
-        return torch.cat([tree[k].reshape(-1) for k in keys]) if keys else tree.reshape(-1)
+    flat, unravel = ravel(position)
 
     def met(x):
-        return ravel(metric(position, unravel(x)))
+        return ravel(metric(position, unravel(x)))[0]
 
-    return met, sum(sizes), leaves[0].dtype, leaves[0].device
+    return met, flat.numel(), flat.dtype, flat.device
 
 
 def _eigsh_lanczos(

@@ -621,7 +621,10 @@ class CorrelatedField(Model):
         self.harmonic_volumes = tuple(dvol for dvol, _ in harmonic_transforms)
         self.harmonic_transforms = torch.nn.ModuleList(ht for _, ht in harmonic_transforms)
 
-    def forward(self, p):
+    def harmonic_amplitude(self, p):
+        """The amplitude that colours ξ on the harmonic grid: ``azm`` times
+        the outer product of the expanded amplitudes (for
+        :func:`~nifty_tpu_torch.adjust_variances.adjust_variances`)."""
         azm = self.azm(p)
         outer = None
         indexes = iter(self.indexes)
@@ -639,7 +642,10 @@ class CorrelatedField(Model):
                 ea = mode_expand_grid(a, next(indexes), fshape)
             # order matters: it must match the excitation axes
             outer = ea if outer is None else torch.tensordot(outer, ea, dims=0)
-        out = azm * outer * p[self.xi_key]
+        return azm * outer
+
+    def forward(self, p):
+        out = self.harmonic_amplitude(p) * p[self.xi_key]
         for dvol, ht in zip(self.harmonic_volumes, self.harmonic_transforms):
             out = dvol * ht(out)
         return self.offset_mean + out

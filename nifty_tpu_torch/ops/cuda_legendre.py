@@ -293,6 +293,7 @@ def legendre_contract_t(cot, plan: LegendrePlan):
         plan.size, plan.lmax, plan.mmax, plan.n_rings, plan.n_half, int(cfg.mma),
         cfg.rings_per_thread, cfg.threads, cfg.n_chunks, native.stream_of(cot))
     native.check(err, "legendre_contract_t")
-    native.launches["legendre_contract_t"] += 1
-    native.batched_launches["legendre_contract_t"] += B > 1
+    n_launches = 1 + (cfg.n_chunks > 1)  # more than one chunk: the chunk sum's launch too
+    native.launches["legendre_contract_t"] += n_launches
+    native.batched_launches["legendre_contract_t"] += n_launches * (B > 1)
     return out

@@ -42,6 +42,7 @@ from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
 
 from . import conjugate_gradient
 from .logger import logger
+from .utils.misc import hvp
 from .utils.tree import norm as tree_norm
 from .utils.tree import (
     sample_norm,
@@ -93,7 +94,7 @@ def _prepare_vag_hessp(fun, jac, hessp, fun_and_grad):
             raise NotImplementedError("Newton-CG requires `hessp` (or `fun` to derive it from)")
 
         def hessp(primals, tangents):
-            return torch.func.jvp(torch.func.grad(fun), (primals,), (tangents,))[1]
+            return hvp(fun, (primals,), (tangents,))
 
     return fun, fun_and_grad, hessp
 

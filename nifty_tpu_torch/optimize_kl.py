@@ -20,21 +20,33 @@ callables of the iteration number.
 Randomness comes from one :class:`torch.Generator` (the ``key`` of
 :func:`optimize_kl` and :meth:`OptimizeVI.init_state`): each resampling
 takes one integer seed a sample pair from it.  With ``odir``, every
-iteration appends its status to ``odir/minisanity.txt`` and pickles the
-samples and the state to ``odir/last.pkl``, from which ``resume`` goes on.
+iteration appends its status to ``odir/minisanity.txt``, pickles the
+samples and the state to ``odir/last.pkl`` (their tensors on the CPU, by
+:mod:`.io`, so a checkpoint of the card loads without one), from which
+``resume`` goes on, plots the energy and reduced-χ² histories (when
+matplotlib is there) and writes each ``export_operators`` entry's
+posterior mean and standard deviation to
+``odir/operator_outputs/<name>_last.npz``.
+
+:class:`OptimizeVI` takes the JAX package's hooks: ``kl_reduce`` (the
+reduction over the sample axis, the mean by default), and functions in
+place of the KL's value and gradient, its metric, the two samplers and
+the status message.  A sampler given so draws one residual and is
+called once a sample (it reads the host and draws random numbers, which
+``torch.func.vmap`` refuses).
 """
 
 from __future__ import annotations
 
 import inspect
 import os
-import pickle
 from functools import partial
 from typing import Any, Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from . import optimize
+from . import io, optimize
 from .evi import (
     Samples,
     concatenate_zip,
@@ -44,8 +56,9 @@ from .evi import (
 )
 from .likelihood import Likelihood, StandardHamiltonian, frozen_keys
 from .logger import logger
-from .minisanity import minisanity
-from .utils.tree import get_map, tree_map
+from .minisanity import minisanity, reduced_residual_stats
+from .profiling import device_of
+from .utils.tree import get_map, stack, tree_map
 
 __all__ = ["OptimizeVI", "OptimizeVIState", "get_status_message", "optimize_kl"]
 
@@ -63,21 +76,23 @@ def _mean(forest):
     return tree_map(lambda x: x.mean(dim=0), forest)
 
 
-def _kl_vg(likelihood, primals, primals_samples, *, map="vmap"):
-    """The sample-averaged Hamiltonian and its gradient at ``primals``."""
+def _kl_vg(likelihood, primals, primals_samples, *, map="vmap", reduce=_mean):
+    """The sample-averaged (``reduce``) Hamiltonian and its gradient at
+    ``primals``."""
     vg = optimize.value_and_grad(StandardHamiltonian(likelihood))
     if len(primals_samples) == 0:
         return vg(primals)
-    return _mean(get_map(map)(vg)(primals_samples.at(primals).samples))
+    return reduce(get_map(map)(vg)(primals_samples.at(primals).samples))
 
 
-def _kl_met(likelihood, primals, tangents, primals_samples, *, map="vmap"):
-    """The sample-averaged Hamiltonian metric applied to ``tangents``."""
+def _kl_met(likelihood, primals, tangents, primals_samples, *, map="vmap", reduce=_mean):
+    """The sample-averaged (``reduce``) Hamiltonian metric applied to
+    ``tangents``."""
     ham = StandardHamiltonian(likelihood)
     if len(primals_samples) == 0:
         return ham.metric(primals, tangents)
     met = get_map(map)(ham.metric, in_axes=(0, None))
-    return _mean(met(primals_samples.at(primals).samples, tangents))
+    return reduce(met(primals_samples.at(primals).samples, tangents))
 
 
 class OptimizeVIState(NamedTuple):
@@ -143,7 +158,13 @@ class OptimizeVI:
         *,
         kl_map="vmap",
         residual_map="vmap",
+        kl_reduce: Callable = _mean,
         mirror_samples: bool = True,
+        _kl_value_and_grad: Optional[Callable] = None,
+        _kl_metric: Optional[Callable] = None,
+        _draw_linear_residual: Optional[Callable] = None,
+        _nonlinearly_update_residual: Optional[Callable] = None,
+        _get_status_message: Optional[Callable] = None,
     ):
         if not mirror_samples:
             raise NotImplementedError("unmirrored samples are not supported")
@@ -151,9 +172,12 @@ class OptimizeVI:
         self.likelihood = likelihood
         self.residual_map = residual_map
         self.n_total_iterations = n_total_iterations
-        self.kl_value_and_grad = partial(_kl_vg, likelihood, map=kl_map)
-        self.kl_metric = partial(_kl_met, likelihood, map=kl_map)
-        self.get_status_message = partial(
+        self.kl_value_and_grad = _kl_value_and_grad or partial(
+            _kl_vg, likelihood, map=kl_map, reduce=kl_reduce)
+        self.kl_metric = _kl_metric or partial(_kl_met, likelihood, map=kl_map, reduce=kl_reduce)
+        self.draw_linear_residual = _draw_linear_residual
+        self.nonlinearly_update_residual = _nonlinearly_update_residual
+        self.get_status_message = _get_status_message or partial(
             get_status_message, residual=likelihood.normalized_residual, name=type(self).__name__
         )
 
@@ -161,10 +185,16 @@ class OptimizeVI:
 
     def draw_linear_samples(self, primals, keys, **kwargs):
         """Mirrored MGVI residuals at ``primals``, one pair per key, mapped
-        by ``residual_map``: ``(Samples, CG infos)``."""
-        residuals, infos = draw_linear_residuals(
-            self.likelihood, primals, keys, residual_map=self.residual_map, **kwargs
-        )
+        by ``residual_map`` (a sampler hook: called once a key):
+        ``(Samples, CG infos)``."""
+        if self.draw_linear_residual is None:
+            residuals, infos = draw_linear_residuals(
+                self.likelihood, primals, keys, residual_map=self.residual_map, **kwargs
+            )
+        else:
+            outs = [self.draw_linear_residual(self.likelihood, primals, k, **kwargs) for k in keys]
+            residuals = stack([r for r, _ in outs])
+            infos = torch.stack([torch.as_tensor(i) for _, i in outs])
         smpls = concatenate_zip(residuals, tree_map(torch.neg, residuals))
         return Samples(pos=primals, samples=smpls, keys=list(keys)), infos
 
@@ -175,10 +205,19 @@ class OptimizeVI:
             raise ValueError("nonlinear updates need one key per mirrored pair")
         keys = [k for k in samples.keys for _ in (0, 1)]
         signs = [1.0, -1.0] * len(samples.keys)
-        smpls, states = nonlinearly_update_residuals(
-            self.likelihood, samples.pos, samples._samples, keys, signs,
-            residual_map=self.residual_map, **kwargs,
-        )
+        if self.nonlinearly_update_residual is None:
+            smpls, states = nonlinearly_update_residuals(
+                self.likelihood, samples.pos, samples._samples, keys, signs,
+                residual_map=self.residual_map, **kwargs,
+            )
+        else:
+            outs = [
+                self.nonlinearly_update_residual(
+                    self.likelihood, samples.pos, tree_map(lambda s, i=i: s[i], samples._samples),
+                    k, sign, **kwargs)
+                for i, (k, sign) in enumerate(zip(keys, signs))
+            ]
+            smpls, states = stack([r for r, _ in outs]), [st for _, st in outs]
         return Samples(pos=samples.pos, samples=smpls, keys=samples.keys), states
 
     def draw_samples(
@@ -306,6 +345,89 @@ class OptimizeVI:
         return samples, state
 
 
+def _plot_history(path, nits, series, *, ylabel, logy=False):
+    """A line chart of ``series`` (label -> a value an iteration) over
+    ``nits``; nothing without matplotlib."""
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        return
+    fig, ax = plt.subplots(figsize=(7, 4.2), dpi=120)
+    for label, vals in series.items():
+        ax.plot(nits, vals, marker="o", markersize=3, linewidth=1.2, label=label)
+    if logy:
+        ax.set_yscale("log")
+    ax.set_xlabel("iteration")
+    ax.set_ylabel(ylabel)
+    ax.grid(True, alpha=0.25)
+    if len(series) > 1 or next(iter(series), "") != ylabel:
+        ax.legend(fontsize=8, frameon=False)
+    fig.tight_layout()
+    fig.savefig(path)
+    plt.close(fig)
+
+
+def _export_history(odir, history):
+    """``energy_history.png`` and the reduced-χ² histories of the
+    likelihood's and the prior's residuals (``minisanity_history.png``,
+    ``minisanity_prior_history.png``) in ``odir``."""
+    nits = history["nit"]
+    if not nits:
+        return
+    e = np.asarray(history["energy"], dtype=float)
+    logy = bool(np.all(e > 0) and e.max() / max(e.min(), 1e-30) > 1e3)
+    _plot_history(os.path.join(odir, "energy_history.png"), nits, {"KL energy": e},
+                  ylabel="KL energy", logy=logy)
+    for slot, fname, what in (("lh_chisq", "minisanity_history.png", "likelihood"),
+                              ("prior_chisq", "minisanity_prior_history.png", "prior")):
+        if history[slot]:
+            _plot_history(os.path.join(odir, fname), nits, history[slot],
+                          ylabel=f"reduced chi² ({what} residuals)", logy=True)
+
+
+def _chisq_series(stats, prefix):
+    """``(name, reduced χ²)`` of every :class:`~.minisanity.ChiSqStats` in
+    ``stats`` (its mean over the samples), named by its path."""
+    if hasattr(stats, "reduced_chisq"):
+        yield prefix, float(stats.reduced_chisq.reshape(-1)[0])
+    elif isinstance(stats, dict):
+        for k, v in stats.items():
+            yield from _chisq_series(v, f"{prefix}/{k}" if prefix else str(k))
+    elif isinstance(stats, (list, tuple)):
+        for j, v in enumerate(stats):
+            yield from _chisq_series(v, f"{prefix}[{j}]")
+
+
+def _record_history(history, samples, state, likelihood):
+    history["nit"].append(state.nit)
+    history["energy"].append(float(state.minimization_state.fun))
+    try:
+        lh_stats = reduced_residual_stats(samples, likelihood.normalized_residual)
+    except NotImplementedError:  # a likelihood without normalized residuals
+        lh_stats = None
+    for slot, stats, label in (("lh_chisq", lh_stats, "lh"),
+                               ("prior_chisq", reduced_residual_stats(samples), "prior")):
+        if stats is not None:
+            for name, val in _chisq_series(stats, ""):
+                history[slot].setdefault(name or label, []).append(val)
+
+
+def _export_operator_outputs(odir, export_operators, samples, nit):
+    """Each operator's posterior mean and standard deviation (``ddof`` 0)
+    over ``samples``, ``odir/operator_outputs/<name>_last.npz``."""
+    opdir = os.path.join(odir, "operator_outputs")
+    os.makedirs(opdir, exist_ok=True)
+    with torch.no_grad():
+        for name, op in export_operators.items():
+            vals = torch.stack([op(s) for s in samples])
+            np.savez(os.path.join(opdir, f"{name}_last.npz"),
+                     mean=vals.mean(dim=0).cpu().numpy(),
+                     std=vals.std(dim=0, correction=0).cpu().numpy(), nit=nit)
+
+
 def optimize_kl(
     likelihood: Likelihood,
     position_or_samples,
@@ -317,6 +439,7 @@ def optimize_kl(
     constants=(),
     kl_map="vmap",
     residual_map="vmap",
+    kl_reduce: Callable = _mean,
     mirror_samples: bool = True,
     draw_linear_kwargs=None,
     nonlinearly_update_kwargs=None,
@@ -325,17 +448,25 @@ def optimize_kl(
     resume=False,
     callback: Optional[Callable] = None,
     odir: Optional[str] = None,
+    export_operators: Optional[dict] = None,
+    _optimize_vi: Optional[OptimizeVI] = None,
+    _optimize_vi_state: Optional[OptimizeVIState] = None,
 ):
     """MGVI/geoVI from a position (or samples): ``n_total_iterations`` of
     :meth:`OptimizeVI.update`; returns the samples and the state.
-    ``resume`` (True, or the path of a pickle) goes on from ``odir/last.pkl``
-    when it exists; ``callback(samples, state)`` runs after each
-    iteration."""
-    opt_vi = OptimizeVI(
+    ``resume`` (True, or the path of a checkpoint) goes on from
+    ``odir/last.pkl`` when it exists; ``callback(samples, state)`` runs
+    after each iteration.  With ``odir``, ``export_operators`` (name -> a
+    function of one sample) are written as their posterior mean and
+    standard deviation each iteration.  ``_optimize_vi`` and
+    ``_optimize_vi_state`` replace the :class:`OptimizeVI` and the state
+    this function would make."""
+    opt_vi = _optimize_vi or OptimizeVI(
         likelihood,
         n_total_iterations,
         kl_map=kl_map,
         residual_map=residual_map,
+        kl_reduce=kl_reduce,
         mirror_samples=mirror_samples,
     )
     last_fn = os.path.join(odir, "last.pkl") if odir is not None else None
@@ -347,8 +478,7 @@ def optimize_kl(
         samples = Samples(pos=position_or_samples)
     state = None
     if resume and resume_fn is not None and os.path.isfile(resume_fn):
-        with open(resume_fn, "rb") as f:  # written by this function
-            samples, state = pickle.load(f)
+        samples, state = io.load(resume_fn, device_of(samples.pos))
     fresh = opt_vi.init_state(
         key,
         n_samples=n_samples,
@@ -359,7 +489,7 @@ def optimize_kl(
         point_estimates=point_estimates,
         constants=constants,
     )
-    state = fresh if state is None else state
+    state = _optimize_vi_state or state or fresh
     if not state.config:  # a pickled state leaves its schedule behind
         state = state._replace(config=fresh.config)
 
@@ -367,17 +497,20 @@ def optimize_kl(
         os.makedirs(odir, exist_ok=True)
         if not resume:
             open(sanity_fn, "w").close()
+    history = {"nit": [], "energy": [], "lh_chisq": {}, "prior_chisq": {}}
     for i in range(state.nit, opt_vi.n_total_iterations):
         logger.info(f"OPTIMIZE_KL: Starting {i + 1:04d}")
         samples, state = opt_vi.update(samples, state)
         msg = opt_vi.get_status_message(samples, state, name="OPTIMIZE_KL")
         logger.info(msg)
-        if sanity_fn is not None:
+        if odir:
             with open(sanity_fn, "a") as f:
                 f.write("\n" + msg)
-        if last_fn is not None:
-            with open(last_fn, "wb") as f:
-                pickle.dump((samples, state._replace(config={})), f)
+            _record_history(history, samples, state, opt_vi.likelihood)
+            _export_history(odir, history)
+            if export_operators:
+                _export_operator_outputs(odir, export_operators, samples, state.nit)
+            io.dump((samples, state._replace(config={})), last_fn)
         if callback is not None:
             callback(samples, state)
     return samples, state

@@ -16,9 +16,12 @@ forms are written with them.
 
 from __future__ import annotations
 
+import math
+import numbers
 import operator
 from functools import partial
 
+import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
@@ -27,15 +30,24 @@ from .. import device as _device
 __all__ = [
     "ShapeWithDtype",
     "Vector",
+    "assert_arithmetics",
+    "dot",
+    "full_like",
     "get_map",
+    "has_arithmetics",
     "lmap",
+    "map_forest",
+    "map_forest_mean",
     "mean",
     "mean_and_std",
     "norm",
+    "ones_like",
     "random_like",
+    "ravel",
     "sample_norm",
     "sample_vdot",
     "size",
+    "smap",
     "stack",
     "tree_add",
     "tree_axpy",
@@ -156,6 +168,13 @@ def vdot(a, b):
     return sum(terms[1:], terms[0])
 
 
+def dot(a, b):
+    """Tree-wide dot product Σ_leaves Σ a_i b_i, without conjugating ``a``,
+    as a 0-d tensor."""
+    terms = [(x.reshape(-1) * y.reshape(-1)).sum() for x, y in zip(_leaves(a), _leaves(b))]
+    return sum(terms[1:], terms[0])
+
+
 def norm(tree, ord=2):
     """Tree-wide p-norm of the concatenated leaves, as a 0-d tensor."""
     leaves = _leaves(tree)
@@ -202,8 +221,60 @@ def sample_norm(forest, ord=2):
     return torch.func.vmap(partial(norm, ord=ord))(forest)
 
 
+def full_like(tree, fill_value, *, device=None):
+    """A tree like ``tree`` filled with ``fill_value``: a tensor leaf's
+    shape, dtype and device; a :class:`ShapeWithDtype` leaf's shape and
+    dtype on ``device`` (the CUDA card by default)."""
+
+    def fill(x):
+        if isinstance(x, ShapeWithDtype):
+            return torch.full(x.shape, fill_value, dtype=x.dtype, device=_device.resolve(device))
+        return torch.full_like(x, fill_value)
+
+    return pytree.tree_map(fill, tree, is_leaf=lambda x: isinstance(x, ShapeWithDtype))
+
+
 def zeros_like(tree):
     return tree_map(torch.zeros_like, tree)
+
+
+def ones_like(tree):
+    return full_like(tree, 1)
+
+
+def _is_arithmetic(x) -> bool:
+    return isinstance(x, (torch.Tensor, np.ndarray, numbers.Number))
+
+
+def has_arithmetics(tree) -> bool:
+    """Whether every leaf of ``tree`` is a tensor, an array or a number."""
+    return all(_is_arithmetic(x) for x in _leaves(tree))
+
+
+def assert_arithmetics(tree):
+    """Raise ``TypeError`` naming the leaves of ``tree`` that are neither
+    tensors, arrays nor numbers."""
+    bad = [x for x in _leaves(tree) if not _is_arithmetic(x)]
+    if bad:
+        raise TypeError(f"tree contains non-arithmetic leaves: {bad!r}")
+
+
+def ravel(tree):
+    """``(flat, unravel)``: the leaves of a tensor or a dict of tensors laid
+    end to end, a dict's in sorted key order (the JAX package's
+    ``ravel_pytree`` order), and the function that reshapes such a vector
+    back into the tree."""
+    tree = tree.tree if isinstance(tree, Vector) else tree
+    keys = sorted(tree) if isinstance(tree, dict) else None
+    leaves = [tree[k] for k in keys] if keys else [tree]
+    shapes = [tuple(x.shape) for x in leaves]
+    sizes = [math.prod(s) for s in shapes]
+
+    def unravel(flat):
+        parts = [p.reshape(s) for p, s in zip(torch.split(flat, sizes), shapes)]
+        return dict(zip(keys, parts)) if keys else parts[0]
+
+    return torch.cat([x.reshape(-1) for x in leaves]), unravel
 
 
 def random_like(generator, primals, *, device=None, dtype=None):
@@ -287,6 +358,11 @@ def lmap(fun, in_axes=0):
     return mapped
 
 
+# The JAX package's ``smap`` maps by ``lax.scan``, one sample's memory at a
+# time; the host loop of :func:`lmap` does the same.
+smap = lmap
+
+
 def _check_axes(in_axes, name):
     axes = in_axes if isinstance(in_axes, tuple) else (in_axes,)
     if any(a not in (0, None) for a in axes):
@@ -322,3 +398,19 @@ def get_map(map_spec):
             "section A: multi-GPU); use 'vmap' or 'lmap'"
         )
     raise ValueError(f"unknown map {map_spec!r}")
+
+
+def map_forest(fun, map="vmap", in_axes=0, **kwargs):
+    """``fun`` mapped over the leading axis of its arguments by the map
+    :func:`get_map` resolves ``map`` to."""
+    return get_map(map)(fun, in_axes=in_axes, **kwargs)
+
+
+def map_forest_mean(fun, map="vmap", in_axes=0, **kwargs):
+    """:func:`map_forest` followed by the :func:`mean` over the mapped axis."""
+    mapped = map_forest(fun, map=map, in_axes=in_axes, **kwargs)
+
+    def meaned(*args, **kw):
+        return mean(mapped(*args, **kw))
+
+    return meaned

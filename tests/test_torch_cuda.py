@@ -23,7 +23,8 @@ import torch
 
 import nifty_tpu_torch as nt
 from nifty_tpu_torch import native
-from nifty_tpu_torch.bench.workload import build_likelihood, build_vi_likelihood, grid_index
+from nifty_tpu_torch.bench.workload import (bench_field, build_likelihood, build_vi_likelihood,
+                                             grid_index)
 from nifty_tpu_torch.ops import cuda_expand as ce
 from nifty_tpu_torch.ops import cuda_fft as cfft
 from nifty_tpu_torch.ops import mode_expand as me
@@ -331,9 +332,10 @@ def test_draw_linear_residual_on_card(cuda_device):
 
 def test_vi_state_and_samples_pickle_on_card(cuda_device, tmp_path):
     """``optimize_kl(odir=...)`` pickles the samples and the state, whose key
-    is a CUDA generator: one iteration at 256² knot-64 writes them, and the
-    pickle gives back tensors on the card and a generator in the same
-    state."""
+    is a CUDA generator: one iteration at 256² knot-64 writes them (CPU
+    tensors and the generator's state in the pickle, so it loads without a
+    card), and ``io.load`` gives back tensors on the card and a generator
+    in the same state."""
     import pickle
 
     lh, start = build_vi_likelihood(256, cuda_device, torch.float32, 64)
@@ -346,7 +348,9 @@ def test_vi_state_and_samples_pickle_on_card(cuda_device, tmp_path):
         odir=str(tmp_path),
     )
     with open(tmp_path / "last.pkl", "rb") as f:
-        s2, st2 = pickle.load(f)
+        raw, _ = pickle.load(f)
+    assert all(v.device.type == "cpu" for v in raw.pos.values())
+    s2, st2 = nt.io.load(str(tmp_path / "last.pkl"), device=cuda_device)
     assert st2.nit == 1 and st2.key.device.type == "cuda"
     assert torch.equal(st2.key.get_state(), key.get_state())
     assert all(v.device.type == "cuda" for v in s2.pos.values())
@@ -590,6 +594,10 @@ def _legendre_plan(kind):
         z, lmax, mmax = sht.healpix_ring_geometry(16)[0], 32, 20
     elif kind == "healpix_256_lmax64":  # 512 northern rings: one K6 block on the CUDA cores
         z, lmax, mmax = sht.healpix_ring_geometry(256)[0], 64, 64
+    elif kind == "healpix_512_lmax64":  # 1,024 northern rings: 2 chunks on the tensor cores
+        z, lmax, mmax = sht.healpix_ring_geometry(512)[0], 64, 64
+    elif kind == "healpix_1024_lmax16":  # 2,048 northern rings: 2 chunks on the CUDA cores
+        z, lmax, mmax = sht.healpix_ring_geometry(1024)[0], 16, 16
     else:  # an odd lmax: an even ring count, no equator ring
         z, lmax, mmax = sht.gauss_legendre_grid(63)[0], 63, 63
     return cl.LegendrePlan(z, lmax, mmax)
@@ -599,6 +607,7 @@ def _legendre_plan(kind):
                                                              "healpix_16_mmax", "gauss_legendre_63")
                                      for B in (1, 2, 3, 4, 5, 8, 16)]
                          + [("healpix_256_lmax64", B) for B in (1, 4, 8, 16)]
+                         + [("healpix_512_lmax64", 8), ("healpix_1024_lmax16", 1)]
                          + [("healpix_64", 256)])
 def test_legendre_kernels_match_plain(cuda_device, kind, B):
     """K5 and K6 in float32 against their plain versions in float64 on the
@@ -608,7 +617,10 @@ def test_legendre_kernels_match_plain(cuda_device, kind, B):
     on the tensor cores (``cl.MMA_MIN_BATCH``), and 256 (a sphere times a
     regular 256 axis) the tensor-core kernels, 8 samples a block; nside 256
     at lmax 64 has 512 northern rings, all in one K6 block (more than one
-    chunk of the previous design's 256)."""
+    chunk of the previous design's 256).  Nside 512 at B = 8 (1,024 northern
+    rings on the tensor cores) and nside 1024 at B = 1 (2,048 on the CUDA
+    cores) take two ring chunks, summed by K6's second launch
+    (``chunk_sum_kernel``), which the launch counter counts."""
     from nifty_tpu_torch.ops import cuda_legendre as cl
 
     plan = _legendre_plan(kind)
@@ -620,7 +632,11 @@ def test_legendre_kernels_match_plain(cuda_device, kind, B):
     assert native.launches["legendre_contract"] == n0 + 1
     assert _rel(out.double().cpu(), cl.legendre_contract_plain(alm.double().cpu(), plan)) <= 1e-5
     cot = torch.randn((B, plan.n_rings, plan.mmax + 1, 2), generator=g, device=cuda_device)
+    n0 = native.launches["legendre_contract_t"]
     back = cl.legendre_contract_t(cot, plan_d)
+    chunks = cl.launch_config(plan, B, transpose=True).n_chunks
+    assert native.launches["legendre_contract_t"] == n0 + (2 if chunks > 1 else 1)
+    assert chunks > 1 or kind not in ("healpix_512_lmax64", "healpix_1024_lmax16")
     assert torch.equal(back, cl.legendre_contract_t(cot, plan_d))
     assert _rel(back.double().cpu(), cl.legendre_contract_t_plain(cot.double().cpu(), plan)) <= 1e-5
 
@@ -733,3 +749,52 @@ def test_icr_field_on_card_matches_cpu_f64(cuda_device):
         torch.backends.cudnn.allow_tf32 = False
     ref = f64(nt.position_from_numpy(f64, pos))
     assert out.device.type == "cuda" and _rel(out.double().cpu(), ref) <= 1e-5
+
+
+# --- the diagnostics and the output on the card
+
+
+def test_empirical_power_spectrum_on_card(cuda_device):
+    """The spectrum of a 1280² float32 field on the card: the same bits on
+    two calls (the shells summed in a fixed order), within 1e-5 of the
+    maximum of the same spectrum in float64 on the CPU."""
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((1280, 1280)))
+    xd = x.to(cuda_device, torch.float32)
+    ps, k = nt.compute_empirical_power_spectrum(xd, distances=1.0 / 1280, n_bins=128)
+    assert ps.device.type == "cuda" and k.device.type == "cuda"
+    assert torch.equal(ps, nt.compute_empirical_power_spectrum(xd, distances=1.0 / 1280, n_bins=128)[0])
+    ref, _ = nt.compute_empirical_power_spectrum(xd.double().cpu(), distances=1.0 / 1280, n_bins=128)
+    assert _rel(ps.double().cpu(), ref) <= 1e-5
+
+
+def test_card_checkpoint_loads_on_the_cpu(cuda_device, tmp_path):
+    """An ``optimize_kl`` checkpoint written from the card (its generator on
+    the card) loads with ``device="cpu"``: the same values, CPU tensors."""
+    cf = bench_field(256, cuda_device, torch.float32)
+    rng = np.random.default_rng(6)
+    pos = nt.position_from_numpy(cf, {k: rng.standard_normal(v.shape) for k, v in cf.domain.items()})
+    data = torch.from_numpy(rng.standard_normal((256, 256))).to(cuda_device, torch.float32)
+    lh = nt.Gaussian(data, noise_cov_inv=1.0).amend(cf)
+    samples, _ = nt.optimize_kl(lh, pos, key=torch.Generator(device=cuda_device).manual_seed(1),
+                                n_total_iterations=1, n_samples=1, sample_mode="linear_resample",
+                                draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=5)),
+                                kl_kwargs=dict(minimize_kwargs=dict(maxiter=2)), odir=str(tmp_path))
+    back = nt.io.load_samples(str(tmp_path / "last.pkl"), device="cpu")
+    for k in samples.pos:
+        assert back.pos[k].device.type == "cpu"
+        assert torch.equal(back.pos[k], samples.pos[k].cpu())
+        assert torch.equal(back._samples[k], samples._samples[k].cpu())
+    _, state = nt.io.load(str(tmp_path / "last.pkl"), device="cpu")
+    assert state.key.device.type == "cpu"
+
+
+def test_check_model_device_times(cuda_device):
+    """``check_model`` of a 1280² field on the card: every mode's eager and
+    device time and peak memory positive."""
+    cf = bench_field(1280, cuda_device, torch.float32)
+    rng = np.random.default_rng(7)
+    pos = nt.position_from_numpy(cf, {k: rng.standard_normal(v.shape) for k, v in cf.domain.items()})
+    report = nt.check_model(cf, pos, log=lambda msg: None)
+    assert set(report) == {"forward", "jvp", "vjp"}
+    for r in report.values():
+        assert r["time_raw"] > 0 and r["device_ms"] > 0 and r["peak_bytes"] > 0

@@ -1,6 +1,6 @@
 """The port's demos (``demos_torch/``) on the CPU.
 
-The VI demos (0, 1, 2, 4, 5, 8, 9, 11, 12, 13) each run at their fast size in the
+The VI demos (0, 1, 2, 4, 5, 7, 8, 9, 10, 11, 12, 13) each run at their fast size in the
 default set (finite results, the demo's own check), and at full size
 against the JAX package's run of the same model on the same data from the
 port's starting latent (marked ``slow``): posterior mean and standard
@@ -98,8 +98,10 @@ FAST = {
     "2_sphere.py": dict(fast=True),
     "4_multigrid_icr.py": dict(fast=True),
     "5_wiener_filter.py": dict(n_samples=2),
+    "7_multifrequency.py": dict(fast=True),
     "8_density_estimator.py": dict(fast=True),
     "9_classification.py": dict(fast=True),
+    "10_config_file.py": dict(fast=True),
     "11_model_comparison.py": dict(fast=True),
     "12_parametric_vi.py": dict(fast=True),
     "13_varcov_regression.py": dict(fast=True),
@@ -353,3 +355,53 @@ def test_multigrid_icr_demo_matches_jax():
                       draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=48)),
                       sample_mode="linear_resample")
     _agree(out["fields"], _fields(field, samples))
+
+
+@pytest.mark.slow
+def test_multifrequency_demo_matches_jax():
+    """The 4-channel ``VModel`` sky on the port's data from its starting
+    latent, MGVI with 2 sample pairs, compared in log.  As demo 1's, this
+    fit is seed-dependent beyond five Monte-Carlo errors a pixel: the JAX
+    package's own runs from keys 11, 12 and 13 lie 4.1-6.9 apart in the
+    L2 norm of their means, the port's from three keys 2.3-2.7 apart and
+    1.0-6.9 from the JAX runs (the JAX run of key 11 is the farthest from
+    every other run of either package).  So the port's log-density mean
+    and standard deviation are held within 1.5 times the largest distance
+    between the JAX package's three runs (relative L2, as demo 1's)."""
+    mod = _load("7_multifrequency.py")
+    out = mod.run("cpu")
+    mod.check(out)
+    sky = nj.ChainModel(jnp.exp, nj.VModel(
+        _jax_cf("mf", mod.SHAPE, 0.0, fluctuations=(1.0, 5e-1), loglogavgslope=(-3.5, 2e-1)),
+        axis_size=mod.NFREQ))
+    lh = nj.Gaussian(jnp.asarray(out["data"]), noise_cov_inv=lambda x: x / mod.NOISE_STD**2).amend(sky)
+    runs = [np.log(_fields(sky, _jax_vi(
+        lh, out["start"], random.PRNGKey(key), n_total_iterations=4, n_samples=2,
+        draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=50)), sample_mode="linear_resample")))
+        for key in (11, 12, 13)]
+    port = np.log(out["fields"])
+    for stat in (lambda f: f.mean(0), lambda f: f.std(0, ddof=1)):
+        spread = max(np.linalg.norm(stat(a) - stat(b)) for i, a in enumerate(runs) for b in runs[i + 1:])
+        for run in runs:
+            assert np.linalg.norm(stat(port) - stat(run)) <= 1.5 * spread
+
+
+@pytest.mark.slow
+def test_config_file_demo_matches_jax(tmp_path):
+    """The JAX package's ``OptimizeKLConfig`` on the same config text, its
+    likelihood on the port's data, from the port's starting latent."""
+    from nifty_tpu.config_file import OptimizeKLConfig
+
+    mod = _load("10_config_file.py")
+    out = mod.run("cpu")
+    mod.check(out)
+    cf = _jax_cf("cf", mod.DIMS, 0.0, fluctuations=(1.0, 5e-1), loglogavgslope=(-3.0, 2e-1))
+    lh = nj.Gaussian(jnp.asarray(out["data"]), noise_cov_inv=lambda x: x / mod.NOISE_STD**2).amend(cf)
+    cfg_file = str(tmp_path / "inference.cfg")
+    with open(cfg_file, "w") as f:
+        f.write(mod.config_text(str(tmp_path / "out")))
+    cfg = OptimizeKLConfig.from_file(cfg_file, {"lh": lambda: lh})
+    samples, state = cfg.optimize_kl(nj.Vector({k: jnp.asarray(v) for k, v in out["start"].items()}),
+                                     key=random.PRNGKey(4))
+    assert state.nit == out["nit"] == 4
+    _agree(out["fields"], _fields(cf, samples))

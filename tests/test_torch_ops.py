@@ -583,8 +583,8 @@ def test_mode_expand_grid_adjoint_and_transforms(full, B):
 def test_port_never_imports_jax():
     """Importing every module of the port (HMC, NUTS, the likelihoods,
     parametric VI, the tree linear algebra, the priors, the responses, the
-    dynamics priors, the operators and the checks, the sphere and the
-    multi-grid fields among them), and
+    dynamics priors, the operators and the checks, the sphere, the
+    multi-grid fields, the diagnostics and the output modules among them), and
     chip_smoke.py, loads no jax, no optax (the card's machine has none) and
     nothing of nifty_tpu; no import statement in chip_smoke.py names them
     either (its imports run inside main)."""
@@ -610,7 +610,12 @@ def test_port_never_imports_jax():
             "nifty_tpu_torch.multi_grid.grid", "nifty_tpu_torch.multi_grid.kernel",
             "nifty_tpu_torch.multi_grid.matern", "nifty_tpu_torch.multi_grid.correlated_field",
             "nifty_tpu_torch.multi_grid.healpix_grid",
-            "nifty_tpu_torch.multi_grid.sphere_radius"} <= set(modules)
+            "nifty_tpu_torch.multi_grid.sphere_radius", "nifty_tpu_torch.adjust_variances",
+            "nifty_tpu_torch.check_model", "nifty_tpu_torch.config_file",
+            "nifty_tpu_torch.empirical_power_spectrum", "nifty_tpu_torch.io",
+            "nifty_tpu_torch.operator_spectrum", "nifty_tpu_torch.plot",
+            "nifty_tpu_torch.probing", "nifty_tpu_torch.profiling",
+            "nifty_tpu_torch.utils.misc", "nifty_tpu_torch.utils.pytree_string"} <= set(modules)
     code = (
         f"import sys, importlib, chip_smoke; [importlib.import_module(m) for m in {modules!r}]; "
         "bad = [m for m in sys.modules if m in ('jax', 'optax', 'nifty_tpu')"
