@@ -189,7 +189,23 @@ JAX.  Phases, each printing one JSON line to stdout:
    ``optimize_kl`` under ``vmap`` with ``odir`` in a temporary directory, an
    exported operator and a ``kl_reduce`` of its own: ``last.pkl`` back
    through ``load_samples`` with the same bits, the operator's mean and
-   standard deviation finite and of the field's shape.
+   standard deviation finite and of the field's shape;
+17. parallel (``PARALLEL``, the multi-GPU slice): (a) at 4096² over 8, 4
+   and 2 virtual ranks (each rank's block launched in turn in this
+   process): the pencil Hartley's per-rank stages (K3 on a rank's rows, the
+   exchanges as transposes, K4r on its column block) against ``hartley2d``
+   (1e-6 of max|H|), K4r on every rank's block against its plain version,
+   K1r against K1's rows (bit-exact) and the K2r parts summed against K2 in
+   float64 (1e-6); times of rank 0's block as in phase 3, the library
+   yardsticks ``rfft`` of the rows, ``fft(dim=0)`` of the column block,
+   ``index_select`` / ``index_add_`` over the rows' full-grid index; (b) a
+   one-rank NCCL group: ``sharded_hartley2`` at 4096² through a real
+   ``all_to_all_single``, the row-sharded exact and 64-knot metric at 4096²
+   against the unsharded (relative 1e-6), and one MGVI iteration at 1280²
+   exact through ``optimize_kl`` with ``position_sharding=`` and with
+   ``devices=`` against the unsharded iteration from the same seed at
+   phase 8's settings (KL not rising, the distance printed) and with CG and
+   Newton-CG cut to 3 steps (relative 1e-4).
 
 The launch counters are set to 0 just before each of phases 4-6, 9, 10b
 and 11, and before each VI run of phases 7 and 8 (``vi_mgvi_vmap``,
@@ -205,14 +221,19 @@ each sub-phase of 12 (``matern_table``, ``matern_pixel``, ``vmodel``,
 ``sphere_mgvi_vmap``, ``sphere_analysis``, ``sphere_product``) and of 15
 (``icr_fixed``, ``icr_mgvi_vmap``, ``icr_matern``, ``icr_healpix``,
 ``icr_sphere_radius``) and of 16 (``aux_probing``, ``aux_spectrum``,
-``aux_power``, ``aux_check_model``, ``aux_adjust_optimize_kl``), and read
-just after it:
+``aux_power``, ``aux_check_model``, ``aux_adjust_optimize_kl``) and of
+17b (``parallel_hartley``, ``parallel_metric_exact``,
+``parallel_metric_knot64``, ``parallel_vi_position_sharding``,
+``parallel_vi_devices``), and read just after it:
 K1-K4 must launch in phases 4, 5, 8-11, 12 (but for the Matérn pixel
 form and the 32² full-covariance VI) and 13a, K3/K4 (and not K1/K2) in 6,
 7, the pixel form and 13d, none in 10b, the 32² VI and 13b, c and e, and
 each VI run's kernels in
 its last iteration too; K1, K2, K5 and K6 (not K3/K4) in 14c, K5/K6 in 14d,
 K1, K2, K5 and K6 in 14e, none in 15, K1-K4 (not K5/K6) in each of 16a-e;
+K3 and K4r (not K4) in 17b's Hartley and knot metric, K1r, K2r, K3 and K4r
+(not K1, K2, K4) in its exact metric and its position-sharded MGVI, K1-K4
+(not the range forms) in its MGVI by ``devices=``;
 under ``vmap`` (and in the ``VModel``, density, NDVCG and mean-field runs) each must have launched on a batch of samples,
 chains or channels (``native.batched_launches``), under ``lmap`` none.
 Then it prints the whole run's seconds, the card line, the kernel summary
@@ -275,10 +296,18 @@ ICR = dict(depth=6, healpix=(8, 4), sphere_radius=(2, 16, 3), noise=0.1, build_l
 # phase 16: the diagnostics and the output on phase 4's exact model at 1280²: 8 probes,
 # 8 eigenvalues (one Lanczos batch: 42 metric applies), a spectrum of 128 shells
 AUX = dict(shape=1280, probes=8, eigenvalues=8, bins=128, low_shells=8, seed=71)
+# phase 17: the multi-GPU slice at 1280² (a rank's rows no multiple of 256) and 4096²
+# over 8, 4 and 2 virtual ranks (the kernel summary keeps the last: 4096², the largest
+# block a rank), then a one-rank NCCL group:
+# the pencil Hartley and the metric at 4096², an MGVI iteration at phase 8's 1280²
+PARALLEL = dict(shapes=(1280, 4096), ranks=(8, 4, 2), metric_knots=(None, 64), vi=1280, seed=81)
 CG_ITERS = 20
 NAMES = {"K1": "expand_to_grid", "K2": "collapse_from_grid",
          "K3": "hartley_rows", "K4": "hartley_cols",
-         "K5": "legendre_contract", "K6": "legendre_contract_t"}
+         "K5": "legendre_contract", "K6": "legendre_contract_t",
+         "K1r": "expand_to_grid_rows", "K2r": "collapse_from_grid_rows",
+         "K4r": "hartley_cols_range"}
+SHARDED = ("K1r", "K2r", "K3", "K4r")  # the row-sharded exact field's kernels
 FIELD = ("K1", "K2", "K3", "K4")  # the regular-grid field's kernels
 SPHERE_KERNELS = ("K1", "K2", "K5", "K6")  # the spherical field's
 TOL = {"k2": 1e-6, "hartley": 1e-5, "metric": 1e-4, "kl_maps": 1e-5,  # K1 must be exact
@@ -303,7 +332,14 @@ TOL = {"k2": 1e-6, "hartley": 1e-5, "metric": 1e-4, "kl_maps": 1e-5,  # K1 must 
        "legendre": 1e-5, "synthesis": 1e-5, "analysis": 1e-3,
        # phase 16: the power spectrum (f32 FFT and sums) against numpy in float64, of
        # the maximum; φ = A ξ recomputed as A_new (φ / A_new) in float32
-       "power": 1e-5}
+       "power": 1e-5,
+       # phase 17: the pencil Hartley (K3 + K4r over the ranks) against K3 + K4, of
+       # max|H|; the one-rank sharded metric against the unsharded (the same kernels'
+       # arithmetic, sums in another order); one MGVI iteration sharded against
+       # unsharded from the same seed with its CG and Newton-CG cut to 3 steps: at
+       # phase 8's 20 CG steps past convergence, rounding grows without bound (on
+       # the CPU in float64 the two runs part by 4e-17 at 3 steps, 4e-6 at 20)
+       "pencil": 1e-6, "sharded_metric": 1e-6, "sharded_vi": 1e-4}
 
 
 def emit(obj):
@@ -446,6 +482,243 @@ def aux_phase(dev, read_launches, rel_l2):
         fail(f"aux_adjust_optimize_kl: φ {phi_err} (> {TOL['power']}?), last.pkl back with the "
              f"same bits {same}, the operator's mean and std finite of shape {(n, n)} {npz_ok}")
     emit({"phase": "aux_total", "seconds": time.perf_counter() - t16})
+
+
+def parallel_phase(dev, read_launches, timing, built=None):
+    """Phase 17 (``PARALLEL``): (a) the range kernels at ``shape``² over
+    virtual ranks, each rank's block launched in turn in this process: the
+    pencil Hartley's stages (K3 on a rank's rows, K4r on its column block)
+    composed against ``hartley2d``, K4r against its plain version on every
+    rank's block, K1r against K1's rows (bit-exact) and the K2r parts summed
+    against K2 in float64; the times of rank 0's block (``timing``); (b) a
+    one-rank group (NCCL on the card, gloo on the CPU): ``sharded_hartley2``
+    through a real ``all_to_all_single``, the exact and knot metric of the
+    row-sharded field against the unsharded one, and one MGVI iteration by
+    ``optimize_kl`` with ``position_sharding=`` and with ``devices=``
+    against the unsharded iteration from the same seed.  Launches are read
+    by ``read_launches`` after each run of (b); ``built`` maps a shape to
+    phase 4's unsharded exact ``build_likelihood`` of it, reused.  Returns
+    the kernel summary rows of K1r, K2r and K4r."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import nifty_tpu_torch as nt
+    from nifty_tpu_torch import native, parallel
+    from nifty_tpu_torch.bench.timing import device_ms, fft_flops
+    from nifty_tpu_torch.bench.workload import (build_likelihood, build_vi_likelihood, grid_index,
+                                                short_vi_settings, vi_settings)
+    from nifty_tpu_torch.ops import cuda_expand as ce
+    from nifty_tpu_torch.ops import cuda_fft as cfft
+    from nifty_tpu_torch.parallel.fft import pencil_stages, uses_kernels
+
+    def ranges_17a(n, g, summary, timing):
+        """17a at ``n``²: the pencil Hartley and K4r, K1r and K2r over the
+        virtual ranks; returns the input, its Hartley and max|H|."""
+        full = (n, n)
+        # 17a. the pencil Hartley and K4r
+        x = torch.randn(full, generator=g, device=dev)
+        H = cfft.hartley2d(x)
+        scale = float(H.abs().max())
+        G = cfft.hartley_rows(x)
+        if G.stride(0) != cfft.half_spectrum_pitch(n):  # the plain version's (the CPU)
+            G = cfft.padded_half_spectrum(G)
+        Gpad = torch.as_strided(G, (n, cfft.half_spectrum_pitch(n)), G.stride(), G.storage_offset())
+        for p in PARALLEL["ranks"]:
+            if not uses_kernels(full, p, f32):
+                fail(f"parallel: {n}² over {p} ranks is outside K3 + K4r's domain")
+            rows_, cols_, place_ = pencil_stages(full, p, f32)
+            b, w = n // p, n // (2 * p)
+            sent = [rows_(x[None, r * b:(r + 1) * b]) for r in range(p)]
+            packed = [cols_([sent[r][s] for r in range(p)], s) for s in range(p)]
+            got = torch.cat([place_([packed[s][r] for s in range(p)], r) for r in range(p)], dim=1)[0]
+            e_pencil = float((got - H).abs().max()) / scale
+            del sent, packed, got
+            e4 = 0.0
+            for r in range(p):
+                P = cfft.hartley_cols_range(G, w, r * w, n1=n)
+                e4 = max(e4, float((P - cfft.hartley_cols_range_plain(G[:, r * w:], w)).abs().max()))
+            if not e_pencil <= TOL["pencil"]:
+                fail(f"parallel: the pencil Hartley over {p} ranks is {e_pencil} > {TOL['pencil']} off")
+            if not e4 / scale <= TOL["hartley"]:
+                fail(f"parallel: K4r {e4 / scale} > {TOL['hartley']} off its plain version at p={p}")
+            xr = x[:b]
+            blk = Gpad[:, :w + 8].contiguous()  # rank 0's block as the exchange hands it over
+            rfft_ms = device_ms(lambda: cfft.hartley_rows_plain(xr))
+            k3 = timing(device_ms(lambda: cfft.hartley_rows(xr)), rfft_ms,
+                        4 * b * n + 8 * b * (n // 2 + 1), fft_flops(n, b // 2), library_ms=rfft_ms)
+            k4r = timing(device_ms(lambda: cfft.hartley_cols_range(blk, w, n1=n)),
+                         device_ms(lambda: cfft.hartley_cols_range_plain(blk, w)),
+                         8 * n * (w + 1) + 4 * n * 2 * w, fft_flops(n, w + 1),
+                         library_ms=device_ms(lambda: torch.fft.fft(blk[:, :w + 1], dim=0)))
+            emit({"phase": "kernels", "kernel": "K3+K4r", "shape": [n, n], "ranks": p,
+                  "rows": b, "columns": w, "pencil_rel_err": e_pencil, "k4r_abs_err": e4,
+                  **{f"k3_{k}": v for k, v in k3.items()}, **{f"k4r_{k}": v for k, v in k4r.items()}})
+            summary["K4r"] = dict(max_abs_err=max(e4, summary.get("K4r", {}).get("max_abs_err", 0.0)),
+                                  ranks=p, **k4r)
+            del blk
+        del G, Gpad
+
+        # 17a. K1r and K2r on the exact field's index
+        index = grid_index(full)
+        index_d = copy.deepcopy(index).to(dev)
+        U, Pk = index.n_unique, index.n_packed
+        tab = torch.randn(U, generator=g, device=dev)
+        cot = torch.randn(full, generator=g, device=dev)
+        k1 = ce.expand_to_grid(tab, index_d, full)
+        k2_ref = ce.collapse_from_grid_plain(cot.double().cpu(), index, full)
+        full_idx = ce.expand_to_grid_plain(
+            torch.arange(U, dtype=torch.float64), index, full).reshape(-1).to(dev, torch.int32)
+        for p in PARALLEL["ranks"]:
+            b = n // p
+            parts, k2_abs = 0, 0.0
+            for r in range(p):
+                rows = (r * b, b)
+                if not torch.equal(ce.expand_to_grid_rows(tab, index_d, full, rows), k1[r * b:(r + 1) * b]):
+                    fail(f"parallel: K1r differs from K1's rows {rows} at p={p}")
+                cot_r = cot[r * b:(r + 1) * b]
+                part = ce.collapse_from_grid_rows(cot_r, index_d, full, rows).double().cpu()
+                ref_r = ce.collapse_from_grid_rows_plain(cot_r.double().cpu(), index, full, rows)
+                k2_abs = max(k2_abs, float((part - ref_r).abs().max()))
+                parts = parts + part
+            k2_err = rel_max(parts, k2_ref)
+            if not k2_err <= TOL["k2"]:
+                fail(f"parallel: the K2r parts sum {k2_err} > {TOL['k2']} off K2 at p={p}")
+            rows, cot0, idx0 = (0, b), cot[:b], full_idx[: b * n]
+            n_bytes = 4 * U + 4 * Pk + 4 * b * n
+            k1r = timing(device_ms(lambda: ce.expand_to_grid_rows(tab, index_d, full, rows)),
+                         device_ms(lambda: ce.expand_to_grid_rows_plain(tab, index_d, full, rows)),
+                         n_bytes, library_ms=device_ms(lambda: tab.index_select(0, idx0)))
+            k2r = timing(device_ms(lambda: ce.collapse_from_grid_rows(cot0, index_d, full, rows)),
+                         device_ms(lambda: ce.collapse_from_grid_rows_plain(cot0, index_d, full, rows)),
+                         n_bytes, library_ms=device_ms(
+                             lambda: tab.new_zeros(U).index_add_(0, idx0, cot0.reshape(-1))))
+            emit({"phase": "kernels", "kernel": "K1r+K2r", "shape": [n, n], "ranks": p, "rows": b,
+                  "k1r_exact": True, "k2r_parts_rel_err": k2_err,
+                  **{f"k1r_{k}": v for k, v in k1r.items()}, **{f"k2r_{k}": v for k, v in k2r.items()}})
+            summary["K1r"] = dict(max_abs_err=0.0, ranks=p, **k1r)
+            summary["K2r"] = dict(max_abs_err=max(k2_abs, summary.get("K2r", {}).get("max_abs_err", 0.0)),
+                                  ranks=p, **k2r)
+        del index_d, tab, cot, k1, full_idx
+
+        return x, H, scale
+
+    t17 = time.perf_counter()
+    f32 = torch.float32
+    g = torch.Generator(device=dev).manual_seed(PARALLEL["seed"])
+    summary = {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    for n in PARALLEL["shapes"]:
+        x, H, scale = ranges_17a(n, g, summary, timing)
+    n = PARALLEL["shapes"][-1]
+
+    # 17b. a one-rank group: NCCL on the card (gloo on the CPU)
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel.initialize(os.path.join(tmp, "store"), 1, 0, device=dev.type)
+        try:
+            mesh = parallel.global_mesh(("fx",))
+            native.reset_launches()
+            t0 = time.perf_counter()
+            hs = parallel.sharded_hartley2(x, mesh)
+            sync()
+            secs = time.perf_counter() - t0
+            read_launches("parallel_hartley", ("K3", "K4r"), refuse=("K4",))
+            err = float((hs - H).abs().max()) / scale
+            emit({"phase": "parallel_hartley", "shape": [n, n], "ranks": 1,
+                  "backend": dist.get_backend(), "seconds": secs, "rel_err_vs_hartley2d": err})
+            if not err <= TOL["pencil"]:
+                fail(f"parallel: sharded_hartley2 {err} > {TOL['pencil']} off hartley2d")
+            del x, H, hs
+
+            for knots in PARALLEL["metric_knots"]:
+                variant = "exact" if knots is None else f"knot{knots}"
+                lh, pos_np, tan_np = (built[n] if knots is None and n in (built or {}) else
+                                      build_likelihood(n, dev, f32, n_mode_knots=knots))
+                lhs, _, _ = build_likelihood(n, dev, f32, n_mode_knots=knots, field_mesh=mesh)
+                sh = lhs.forward_model.inner.position_sharding()
+                ps, ts = (nt.position_from_numpy(lhs.forward_model, v, sharding=sh)
+                          for v in (pos_np, tan_np))
+                native.reset_launches()
+                t0 = time.perf_counter()
+                ms = lhs.metric(ps, ts)
+                sync()
+                secs = time.perf_counter() - t0
+                need = SHARDED if knots is None else ("K3", "K4r")
+                read_launches(f"parallel_metric_{variant}", need,
+                              refuse=("K1", "K2", "K4") + (() if knots is None else ("K1r", "K2r")))
+                times = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    lhs.metric(ps, ts)
+                    sync()
+                    times.append(1e3 * (time.perf_counter() - t0))
+                ref = lh.metric(*(nt.position_from_numpy(lh.forward_model, v) for v in (pos_np, tan_np)))
+                num = sum(float(((ms[k].double() - ref[k].double()) ** 2).sum()) for k in ref)
+                err = (num / sum(float((ref[k].double() ** 2).sum()) for k in ref)) ** 0.5
+                emit({"phase": "parallel_metric", "shape": [n, n], "variant": variant, "ranks": 1,
+                      "first_s": secs, "metric_apply_ms_median": float(np.median(times)),
+                      "metric_apply_ms_all": times, "rel_l2_vs_unsharded": err})
+                if not err <= TOL["sharded_metric"]:
+                    fail(f"parallel: the sharded {variant} metric {err} > {TOL['sharded_metric']}")
+                del lh, lhs, ps, ts, ms, ref
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+
+            nv = PARALLEL["vi"]
+            lh_x, start_np = build_vi_likelihood(nv, dev, f32, None)
+            lh_s, _ = build_vi_likelihood(nv, dev, f32, None, field_mesh=mesh)
+            sh = lh_s.forward_model.inner.position_sharding()
+
+            short = short_vi_settings()
+
+            def vi(lh, pos, settings, **kw):
+                t0 = time.perf_counter()
+                smp, st = nt.optimize_kl(lh, pos, key=torch.Generator(device=dev).manual_seed(
+                    PARALLEL["seed"]), n_total_iterations=1, sample_mode="linear_resample",
+                    **settings, **kw)
+                sync()
+                return smp, st, time.perf_counter() - t0
+
+            def rel_pos(a, b):
+                num = sum(float(((a[k].double() - b[k].double()) ** 2).sum()) for k in b)
+                return (num / sum(float((b[k].double() ** 2).sum()) for k in b)) ** 0.5
+
+            start = nt.position_from_numpy(lh_x.forward_model, start_np)
+            ref, ref_st, ref_s = vi(lh_x, start, vi_settings())
+            ref_short = vi(lh_x, start, short)[0]
+            for name, lh, pos, kw, need, refuse in (
+                ("position_sharding", lh_s,
+                 nt.position_from_numpy(lh_s.forward_model, start_np, sharding=sh),
+                 dict(position_sharding=sh), SHARDED, ("K1", "K2", "K4")),
+                ("devices", lh_x, start, dict(devices=parallel.sample_mesh()), FIELD,
+                 ("K1r", "K2r", "K4r")),
+            ):
+                native.reset_launches()
+                smp, st, secs = vi(lh, pos, vi_settings(), **kw)
+                read_launches(f"parallel_vi_{name}", need, refuse)
+                kl_before = float(nt.OptimizeVI(lh, 1, **kw).kl_value_and_grad(
+                    pos, primals_samples=smp)[0])
+                err = rel_pos(smp.pos, ref.pos)
+                err_short = rel_pos(vi(lh, pos, short, **kw)[0].pos, ref_short.pos)
+                finite = all(bool(torch.isfinite(v).all()) for v in smp.pos.values())
+                emit({"phase": "parallel_vi", "shape": [nv, nv], "variant": "exact", "ranks": 1,
+                      "by": name, "seconds": secs, "unsharded_seconds": ref_s,
+                      "kl_before": kl_before, "kl_after": float(st.minimization_state.fun),
+                      "unsharded_kl_after": float(ref_st.minimization_state.fun),
+                      "rel_l2_vs_unsharded": err, "rel_l2_vs_unsharded_cg3": err_short})
+                if not (finite and float(st.minimization_state.fun) <= kl_before):
+                    fail(f"parallel: the MGVI iteration by {name}: non-finite or the KL rose")
+                if not err_short <= TOL["sharded_vi"]:
+                    fail(f"parallel: the MGVI iteration by {name} (CG 3) is {err_short} > "
+                         f"{TOL['sharded_vi']} off the unsharded one")
+        finally:
+            dist.destroy_process_group()
+    emit({"phase": "parallel_total", "seconds": time.perf_counter() - t17})
+    return summary
 
 
 def main() -> int:
@@ -1787,6 +2060,9 @@ def main() -> int:
     # -- 16. the diagnostics and the output (AUX) ----------------------------------
     aux_phase(dev, read_launches, rel_l2)
 
+    # -- 17. the multi-GPU slice (PARALLEL) ------------------------------------------
+    summary.update(parallel_phase(dev, read_launches, timing, built=card))
+
     sources = {"K1": ("nifty_tpu_torch/csrc/expand.cu", "nifty_tpu/ops/pallas_expand.py:108"),
                "K2": ("nifty_tpu_torch/csrc/expand.cu", "nifty_tpu/ops/pallas_expand.py:161"),
                "K3": ("nifty_tpu_torch/csrc/hartley.cu", "nifty_tpu/ops/pallas_fft.py:169"),
@@ -1794,7 +2070,10 @@ def main() -> int:
                "K5": ("nifty_tpu_torch/csrc/legendre.cu",
                       "nifty_tpu/ops/sht.py:338 nifty_legendre_contract (XLA primitive, not Pallas)"),
                "K6": ("nifty_tpu_torch/csrc/legendre.cu",
-                      "nifty_tpu/ops/sht.py:338 nifty_legendre_contract (XLA primitive, not Pallas)")}
+                      "nifty_tpu/ops/sht.py:338 nifty_legendre_contract (XLA primitive, not Pallas)"),
+               "K1r": ("nifty_tpu_torch/csrc/expand.cu", "nifty_tpu/ops/pallas_expand.py:108"),
+               "K2r": ("nifty_tpu_torch/csrc/expand.cu", "nifty_tpu/ops/pallas_expand.py:161"),
+               "K4r": ("nifty_tpu_torch/csrc/hartley.cu", "nifty_tpu/ops/pallas_fft.py:246")}
     kernels = [
         {"name": f"{k} {NAMES[k]}", "route": "cuda", "source": sources[k][0],
          "replaces": sources[k][1],

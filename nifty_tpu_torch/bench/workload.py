@@ -56,10 +56,10 @@ def sphere_index(nside):
     return me.ExpandIndex(*me.build_expand_layout(pd, int(hg.mode_lengths.size)))
 
 
-def bench_field(n, device, dtype, n_mode_knots=None):
+def bench_field(n, device, dtype, n_mode_knots=None, field_mesh=None):
     """``bench.py``'s correlated field (``bench.py:78-88``) on an n² grid,
     exact or with ``n_mode_knots`` knots, finalized on ``device`` in
-    ``dtype``."""
+    ``dtype`` (row-sharded over ``field_mesh``'s axis "fx" when given)."""
     import nifty_tpu_torch as nt
 
     cfm = nt.CorrelatedFieldMaker("cf")
@@ -72,10 +72,10 @@ def bench_field(n, device, dtype, n_mode_knots=None):
         flexibility=(1e0, 2e-1),
         n_mode_knots=n_mode_knots,
     )
-    return cfm.finalize(device=device, dtype=dtype)
+    return cfm.finalize(device=device, dtype=dtype, field_mesh=field_mesh)
 
 
-def build_likelihood(n, device, dtype, seed=42, n_mode_knots=None):
+def build_likelihood(n, device, dtype, seed=42, n_mode_knots=None, field_mesh=None):
     """``Poissonian(data).amend(ChainModel(exp, cf))`` with :func:`bench_field`;
     Poisson data, the latent position (both from ``seed``) and a tangent
     (from ``seed + 2``), the last two as numpy."""
@@ -84,29 +84,39 @@ def build_likelihood(n, device, dtype, seed=42, n_mode_knots=None):
 
     import nifty_tpu_torch as nt
 
-    cf = bench_field(n, device, dtype, n_mode_knots)
+    cf = bench_field(n, device, dtype, n_mode_knots, field_mesh)
     rng = np.random.default_rng(seed)
     pos = {k: rng.standard_normal(v.shape) for k, v in sorted(cf.domain.items())}
     data = rng.poisson(1.0, size=(n, n)).astype(np.int32)
+    if field_mesh is not None:  # the rank's rows of the data
+        lo, rows = cf.rows
+        data = data[lo : lo + rows]
     rng_t = np.random.default_rng(seed + 2)
     tan = {k: rng_t.standard_normal(v.shape) for k, v in sorted(cf.domain.items())}
     lh = nt.Poissonian(data, device=device).amend(nt.ChainModel(torch.exp, cf))
     return lh, pos, tan
 
 
-def build_vi_likelihood(n, device, dtype, knots=64):
+def build_vi_likelihood(n, device, dtype, knots=64, field_mesh=None):
     """``bench_extra.py``'s VI model (``bench_extra.py:128-143``): Poisson
     counts drawn (numpy seed 1) at the rate of the model's own draw (its
     latent from numpy seed 0), and the starting position (numpy seed 2).
-    Returns the likelihood and the start as numpy."""
-    import numpy as np
+    Returns the likelihood and the start as numpy.  With ``field_mesh``
+    the field is row-sharded and the data are the rank's rows of the
+    unsharded model's counts."""
     import torch
 
     import nifty_tpu_torch as nt
 
     cf = bench_field(n, device, dtype, knots)
     fwd = nt.ChainModel(torch.exp, cf)
-    return nt.Poissonian(poisson_at_own_draw(fwd), device=device).amend(fwd), latent_draw(cf.domain, 2)
+    counts = poisson_at_own_draw(fwd)
+    if field_mesh is not None:
+        cf = bench_field(n, device, dtype, knots, field_mesh)
+        fwd = nt.ChainModel(torch.exp, cf)
+        lo, rows = cf.rows
+        counts = counts[lo : lo + rows]
+    return nt.Poissonian(counts, device=device).amend(fwd), latent_draw(cf.domain, 2)
 
 
 def poisson_at_own_draw(rate_model):
@@ -235,6 +245,19 @@ def vi_settings():
             minimize=nt.static_newton_cg, minimize_kwargs=dict(maxiter=1, cg_kwargs=fixed(10))
         ),
     )
+
+
+def short_vi_settings(steps=3):
+    """:func:`vi_settings` with the draw's CG and the KL's one Newton step of
+    CG cut to ``steps`` iterations: the comparisons of two runs that round
+    differently (sharded and unsharded) stop there, since CG past
+    convergence amplifies rounding without bound."""
+    import nifty_tpu_torch as nt
+
+    fixed = dict(maxiter=steps, miniter=steps, resnorm=-1.0)
+    return dict(vi_settings(), draw_linear_kwargs=dict(cg=nt.static_cg, cg_kwargs=fixed),
+                kl_kwargs=dict(minimize=nt.static_newton_cg,
+                               minimize_kwargs=dict(maxiter=1, cg_kwargs=fixed)))
 
 
 def tomography_rays(n_rays, seed=41):

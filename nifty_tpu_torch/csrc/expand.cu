@@ -74,6 +74,16 @@
 //    slower by more: 0.074 against 0.070 ms at 4096^2, B = 1, and 0.36
 //    against 0.19 at B = 4.)
 
+// 6. Row ranges (K1r, K2r: the amplitude of a row-sharded field).  The
+//    geometry names a range [r_lo, r_lo + r_n) of the full grid's leading
+//    field axis (axis 1 of a 2-D grid, axis 0 of a 3-D one).  K1r reads the
+//    whole table and packed index (small beside the grid: 4.8 and 8.4 MB at
+//    4096^2) and writes only the images whose row lies in the range, at
+//    row - r_lo; K2r folds only those rows, an absent image counting zero,
+//    so its segment sum is this range's part of the table cotangent (the
+//    caller sums the parts over the ranks).  The full grid is the range
+//    [0, n): the same kernels, the same stores.
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -84,10 +94,19 @@ constexpr int kTileRows = 8;   // rfp2 tiles: a block is 32 x 8 threads
 constexpr int kMinBlocks = 6;  // K2's rfp2 fold: 6 blocks an SM, <= 40 registers a thread
 constexpr int kMinBlocksExpand = 5;  // K1's rfp2 tiles: 5 blocks an SM, <= 48 registers
 
-// full grid (n0, n1, n2), core (c0, c1, c2), m = H // 2 for rfp2 (axes 1, 2)
+// full grid (n0, n1, n2), core (c0, c1, c2), m = H // 2 for rfp2 (axes 1, 2);
+// the rows [r_lo, r_lo + r_n) of axis r_ax (0 or 1) that the grid side holds
 struct Geom {
-  int n0, n1, n2, c0, c1, c2, m;
+  int n0, n1, n2, c0, c1, c2, m, r_ax, r_lo, r_n;
 };
+
+// Row x of axis `ax` as a row of the range (its index less r_lo), or -1
+// when the range does not hold it.
+__device__ __forceinline__ int local_row(const Geom& g, int ax, int x) {
+  if (ax != g.r_ax) return x;
+  x -= g.r_lo;
+  return (unsigned)x < (unsigned)g.r_n ? x : -1;
+}
 
 // The <= 2 full-grid images of core point x on an axis: x, and n - x when
 // 1 <= x <= n - c (a mirrored axis' upper half).
@@ -97,13 +116,27 @@ __device__ __forceinline__ int images(int x, int c, int n, int* at) {
   return (x >= 1 && x <= n - c) ? 2 : 1;
 }
 
+// The images of core point x on axis `ax` that the range holds, as rows of
+// it (all of them on an axis that is not the range's).
+// Constant indices only, so `at` stays in registers.
+__device__ __forceinline__ int local_images(const Geom& g, int ax, int x, int c, int n, int* at) {
+  const int k = images(x, c, n, at);
+  const int y0 = local_row(g, ax, at[0]);
+  const int y1 = k > 1 ? local_row(g, ax, at[1]) : -1;
+  at[0] = y0 >= 0 ? y0 : y1;
+  at[1] = y1;
+  return (y0 >= 0) + (y1 >= 0);
+}
+
 // Stores BC sample columns of value v at grid point (i1, i2) of slab i0,
 // marked streaming (evict first): the grid is written once and read by the
 // next kernel, the table and the index are read again.
 template <int BC>
 __device__ __forceinline__ void store_point(float* __restrict__ out, const Geom& g, int i0, int i1,
                                             int i2, int B, int b0, const float* v) {
-  float* dst = out + (((long long)i0 * g.n1 + i1) * g.n2 + i2) * B + b0;
+  // (i0, i1) are rows of the range; axis 1 holds r_n rows when it is the range's
+  const int e1 = g.r_ax == 1 ? g.r_n : g.n1;
+  float* dst = out + (((long long)i0 * e1 + i1) * g.n2 + i2) * B + b0;
   if constexpr (BC == 4) __stcs(reinterpret_cast<float4*>(dst), make_float4(v[0], v[1], v[2], v[3]));
   else __stcs(dst, v[0]);
 }
@@ -153,7 +186,8 @@ __device__ __forceinline__ void expand_row(float* __restrict__ out, const Geom& 
                                            const float* S, int sc, int a, int cb, int q) {
   if (a >= g.c1) return;
   int rows[2];
-  const int nr = images(a, g.c1, g.n1, rows);
+  const int nr = local_images(g, 1, a, g.c1, g.n1, rows);  // the images in the range
+  if (nr == 0) return;
   const int c0 = V * q;
   float v[V][BC];
   const int hi = min(V, g.c2 - cb - c0);  // direct: k < hi
@@ -240,8 +274,9 @@ expand_flat_kernel(const float* __restrict__ tab, const int* __restrict__ idx,
   const int x2 = blockIdx.x * kThreads + threadIdx.x;
   if (x2 >= g.c2) return;
   int s[2], r[2], c[2];
-  const int ns = images(x0, g.c0, g.n0, s), nr = images(x1, g.c1, g.n1, r),
+  const int ns = local_images(g, 0, x0, g.c0, g.n0, s), nr = local_images(g, 1, x1, g.c1, g.n1, r),
             nc = images(x2, g.c2, g.n2, c);
+  if (ns == 0 || nr == 0) return;
   const int p = __ldg(idx + (x0 * g.c1 + x1) * g.c2 + x2);
   for (int b0 = 0; b0 < B; b0 += BC) {
     float v[BC];
@@ -258,7 +293,7 @@ template <int BC>
 __device__ __forceinline__ void mirror_sum(const float* __restrict__ cot, const Geom& g,
                                            int x1, int x2, int B, int b0, float* acc) {
   int r[2], c[2];
-  const int nr = images(x1, g.c1, g.n1, r), nc = images(x2, g.c2, g.n2, c);
+  const int nr = local_images(g, 1, x1, g.c1, g.n1, r), nc = images(x2, g.c2, g.n2, c);
 #pragma unroll
   for (int k = 0; k < BC; ++k) acc[k] = 0.f;
   for (int u = 0; u < nr; ++u)
@@ -340,8 +375,9 @@ collapse_fold_flat_kernel(const float* __restrict__ cot, float* __restrict__ fol
   const int x2 = blockIdx.x * kThreads + threadIdx.x;
   if (x2 >= g.c2) return;
   int s[2], r[2], c[2];
-  const int ns = images(x0, g.c0, g.n0, s), nr = images(x1, g.c1, g.n1, r),
+  const int ns = local_images(g, 0, x0, g.c0, g.n0, s), nr = local_images(g, 1, x1, g.c1, g.n1, r),
             nc = images(x2, g.c2, g.n2, c);
+  const int e1 = g.r_ax == 1 ? g.r_n : g.n1;  // the cotangent's axis-1 extent
   float* dst = folded + (((long long)x0 * g.c1 + x1) * g.c2 + x2) * B;
   for (int b0 = 0; b0 < B; b0 += BC) {
     float acc[BC];
@@ -350,7 +386,7 @@ collapse_fold_flat_kernel(const float* __restrict__ cot, float* __restrict__ fol
     for (int w = 0; w < ns; ++w)
       for (int u = 0; u < nr; ++u)
         for (int v = 0; v < nc; ++v) {
-          const float* p = cot + (((long long)s[w] * g.n1 + r[u]) * g.n2 + c[v]) * B + b0;
+          const float* p = cot + (((long long)s[w] * e1 + r[u]) * g.n2 + c[v]) * B + b0;
           if constexpr (BC == 4) {
             const float4 q = __ldg(reinterpret_cast<const float4*>(p));
             acc[0] += q.x; acc[1] += q.y; acc[2] += q.z; acc[3] += q.w;
@@ -401,7 +437,9 @@ __global__ void segsum_large_kernel(const float* __restrict__ folded,
   }
 }
 
-Geom geom_of(const int* g) { return Geom{g[0], g[1], g[2], g[3], g[4], g[5], g[6]}; }
+Geom geom_of(const int* g) {
+  return Geom{g[0], g[1], g[2], g[3], g[4], g[5], g[6], g[7], g[8], g[9]};
+}
 
 int blocks_for(long long n, int per_block) { return (int)((n + per_block - 1) / per_block); }
 
@@ -433,8 +471,9 @@ void launch_fold(const float* cot, float* folded, const Geom& g, int B, cudaStre
 
 }  // namespace
 
-// geom: n0, n1, n2, c0, c1, c2, m (m < 0: flat layout); the host checks
-// that c1 and c0 fit a launch grid's y and z extents
+// geom: n0, n1, n2, c0, c1, c2, m (m < 0: flat layout), r_ax, r_lo, r_n (the
+// grid side's rows, note 6); the host checks that c1 and c0 fit a launch
+// grid's y and z extents
 extern "C" int nt_expand_to_grid(const void* tab, const void* idx, void* out, const int* geom,
                                  int B, void* stream) {
   const Geom g = geom_of(geom);

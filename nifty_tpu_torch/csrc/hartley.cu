@@ -61,6 +61,17 @@
 //    rows of one launch; K4's launch grid gets the batch as its y extent,
 //    each slice's half spectra `batch_pitch` apart, and its clusters stay
 //    within one slice.
+// 6. Column ranges (K4r, the pencil transform of a row-sharded field): the
+//    same kernels on the w + 1 half-spectrum columns src_col .. src_col + w
+//    (w a multiple of 8 for the clusters) of all n0 rows, written packed as
+//    (n0, 2w): P[:, t] = H[:, src_col + t] and P[:, 2w - t] the mirror of
+//    column src_col + t, 1 <= t <= w.  The last column is the block's
+//    halo: it is transformed only for its mirror (the extra column of the
+//    last cluster tile), so every mirror store stays an aligned 32-byte run
+//    and no column is written twice.  Rank r of p, taking src_col = r w
+//    with w = n1 / 2p, writes H's columns [r w, r w + w) and
+//    [n1 - r w - w, n1 - r w): every column of H once over the ranks (the
+//    last rank's halo is the Nyquist column, its mirror itself).
 // A launch raises the kernel's dynamic shared-memory limit once per size
 // and reports any refusal through the returned error code.
 
@@ -344,7 +355,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     hartley_cols_kernel(const float2* __restrict__ G, float* __restrict__ H, int n1,
                         int pitch, long long batch_pitch, int T,
                         const float2* __restrict__ tables, const short* __restrict__ rev,
-                        const __grid_constant__ Plan plan) {
+                        int src_col, int ranged, const __grid_constant__ Plan plan) {
   extern __shared__ __align__(16) float2 smem[];
   const int n0 = plan.n;
   const int tid = threadIdx.x, nthreads = blockDim.x;
@@ -356,7 +367,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   // the batch slice folds into the source pointer and H's row index, so the
   // parameters stay in the constant bank instead of taking registers
   const long long hb = (long long)blockIdx.y * n0;
-  const float2* src = G + blockIdx.y * batch_pitch + c0;
+  const float2* src = G + blockIdx.y * batch_pitch + src_col + c0;
   for (int i = tid; i < n0; i += nthreads) {
     if constexpr (TC == 1)
       cp_async8(tile + pad(i), src + (long long)i * pitch);
@@ -376,16 +387,18 @@ __global__ void __launch_bounds__(kMaxThreads)
     float2 v[TC];
 #pragma unroll
     for (int c = 0; c < TC; ++c) v[c] = tile[p * TC + c];
-    if (TC == 2 && c0 + 1 <= half) {
+    // ranged: the last column (the halo) only for its mirror, which is
+    // then stored too (the Nyquist column of the last rank is its own)
+    if (TC == 2 && c0 + 1 <= half - ranged) {
       *reinterpret_cast<float2*>(hl) = make_float2(v[0].x - v[0].y, v[TC - 1].x - v[TC - 1].y);
     } else {
 #pragma unroll
       for (int c = 0; c < TC; ++c)
-        if (c0 + c <= half) hl[c] = v[c].x - v[c].y;
+        if (c0 + c <= half - ranged) hl[c] = v[c].x - v[c].y;
     }
 #pragma unroll
     for (int c = 0; c < TC; ++c)
-      if (c0 + c >= 1 && c0 + c < half) hm[-c] = v[c].x + v[c].y;
+      if (c0 + c >= 1 && c0 + c < half + ranged) hm[-c] = v[c].x + v[c].y;
   }
 }
 
@@ -409,7 +422,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     hartley_cols_cluster_kernel(const float2* __restrict__ G, float* __restrict__ H, int n1,
                                 int pitch, long long batch_pitch, int T,
                                 const float2* __restrict__ tables, const short* __restrict__ rev,
-                                const __grid_constant__ Plan plan) {
+                                int src_col, int ranged, const __grid_constant__ Plan plan) {
   extern __shared__ __align__(16) float2 smem[];
   constexpr int TC = 8;
   cg::cluster_group cluster = cg::this_cluster();
@@ -424,8 +437,9 @@ __global__ void __launch_bounds__(kMaxThreads)
   float2* extra = tile + TC * (hn + hn / 16 + hn / 256);
   const int c0 = (blockIdx.x / C) * TC;
   const int half = n1 / 2;
-  const bool mirror_all = c0 + TC < half;  // columns 1 .. 8 of the run all mirror
-  const float2* src = G + blockIdx.y * batch_pitch + (long long)r * hn * pitch + c0;
+  // columns 1 .. 8 of the run all mirror (ranged: always, the halo included)
+  const bool mirror_all = ranged || c0 + TC < half;
+  const float2* src = G + blockIdx.y * batch_pitch + (long long)r * hn * pitch + src_col + c0;
   for (int e = tid; e < hn * (TC / 2); e += nthreads) {
     const int i = e >> 2, q = e & 3;
     cp_async16(tile + pad(i) * TC + 2 * q, src + (long long)i * pitch + 2 * q);
@@ -562,24 +576,33 @@ extern "C" int nt_hartley_rows(const void* x, void* G, int n0, int n1, int pitch
 // parts 0: blocks over tiles of tc = 1 or 2 columns; 2 or 4: clusters of
 // that many blocks over tc = 8 columns and the extra one (passes and rev of
 // length n0 / parts).  `batch` half spectra, `batch_pitch` complex apart,
-// into `batch` dense (n0, n1) arrays: the launch grid's y extent.
+// into `batch` dense (n0, n1) arrays: the launch grid's y extent.  With
+// n_cols = w > 0 (K4r) the columns src_col .. src_col + w of the half
+// spectra of width n1 go to `batch` packed (n0, 2w) arrays (note 6).
 extern "C" int nt_hartley_cols(const void* G, void* H, int n0, int n1, int pitch,
                                long long batch_pitch, int batch, const void* tables,
                                const void* rev, const int* passes, int n_passes, int T, int tc,
-                               int parts, void* stream) {
+                               int parts, int src_col, int n_cols, void* stream) {
   if (parts != 0 && parts != 2 && parts != 4) return (int)cudaErrorInvalidValue;
   Plan plan;
   int err = make_plan(&plan, parts ? n0 / parts : n0, n0, passes, n_passes);
   if (err) return err;
   const bool ok_tc = parts ? tc == 8 : tc == 1 || tc == 2;
   const int cols = tc + (parts != 0);  // the tile and the extra column
+  const int ranged = n_cols > 0;
+  const int half = ranged ? n_cols : n1 / 2;  // the output's width is 2 half
   if (!ok_tc || T < 1 || T * cols > kMaxThreads || n1 <= 0 || n1 % 256 || pitch % 8 ||
-      pitch < n1 / 2 + tc || (parts && (n0 / parts) % parts) || batch < 1 || batch > 65535 ||
-      batch_pitch % 8 || (batch > 1 && batch_pitch < (long long)n0 * pitch))
+      pitch < src_col + half + tc || (parts && (n0 / parts) % parts) || batch < 1 ||
+      batch > 65535 || batch_pitch % 8 || (batch > 1 && batch_pitch < (long long)n0 * pitch) ||
+      src_col < 0 || src_col % 8 || (ranged && (n_cols % 8 || src_col + n_cols > n1 / 2)) ||
+      (!ranged && src_col))
     return (int)cudaErrorInvalidValue;
   const size_t smem = tables_bytes(n0) + (size_t)cols * buffer_bytes(parts ? n0 / parts : n0);
   if (smem > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
-  const int grid = (n1 / 2 + 1 + tc - 1) / tc;
+  // tiles over columns 0 .. half (ranged clusters: 0 .. half - 1, the halo
+  // their last tile's extra column)
+  const int grid = (half + 1 - (ranged && parts) + tc - 1) / tc;
+  const int nw = 2 * half;
   cudaStream_t s = (cudaStream_t)stream;
   const float2* g = (const float2*)G;
   const float2* tab = (const float2*)tables;
@@ -600,21 +623,21 @@ extern "C" int nt_hartley_cols(const void* G, void* H, int n0, int n1, int pitch
     attr.val.clusterDim.z = 1;
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
-    err = (int)cudaLaunchKernelEx(&cfg, kernel, g, (float*)H, n1, pitch, batch_pitch, T,
-                                  tab, rv, plan);
+    err = (int)cudaLaunchKernelEx(&cfg, kernel, g, (float*)H, nw, pitch, batch_pitch, T,
+                                  tab, rv, src_col, ranged, plan);
     if (err) return err;
     return (int)cudaGetLastError();
   }
   if (tc == 2) {
     err = allow_smem(hartley_cols_kernel<2>, smem, &cols_smem_done[1]);
     if (err) return err;
-    hartley_cols_kernel<2><<<dim3(grid, batch), T * cols, smem, s>>>(g, (float*)H, n1, pitch,
-                                                                      batch_pitch, T, tab, rv, plan);
+    hartley_cols_kernel<2><<<dim3(grid, batch), T * cols, smem, s>>>(
+        g, (float*)H, nw, pitch, batch_pitch, T, tab, rv, src_col, ranged, plan);
   } else {
     err = allow_smem(hartley_cols_kernel<1>, smem, &cols_smem_done[0]);
     if (err) return err;
-    hartley_cols_kernel<1><<<dim3(grid, batch), T * cols, smem, s>>>(g, (float*)H, n1, pitch,
-                                                                      batch_pitch, T, tab, rv, plan);
+    hartley_cols_kernel<1><<<dim3(grid, batch), T * cols, smem, s>>>(
+        g, (float*)H, nw, pitch, batch_pitch, T, tab, rv, src_col, ranged, plan);
   }
   return (int)cudaGetLastError();
 }

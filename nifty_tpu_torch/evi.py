@@ -85,13 +85,27 @@ def white_noise(likelihood: Likelihood, pos, key, point_estimates=()) -> WhiteNo
     likelihood's ``lsm_tangents_shape`` (complex normals for complex data;
     the position's real dtype where it names none), the prior draws in the
     position's."""
+    from .parallel.collectives import field
+
     lh, p_liquid = likelihood.freeze(primals=pos, point_estimates=point_estimates)
     leaf = tree_leaves(p_liquid)[0]
     gen = torch.Generator(device=leaf.device).manual_seed(int(key))
     draw = partial(random_like, gen, device=leaf.device)
-    data = draw(tree_map(lambda s: ShapeWithDtype(s.shape, s.dtype or leaf.real.dtype),
+    ctx = field()
+    # a field-sharded run draws the whole arrays, in the one-process order,
+    # and keeps the rank's rows: the data (the field's rows) and ξ
+    p = 1 if ctx is None else torch.distributed.get_world_size(ctx.group)
+    r = 0 if ctx is None else torch.distributed.get_rank(ctx.group)
+    whole = lambda s: ShapeWithDtype((s.shape[0] * p,) + tuple(s.shape[1:]), s.dtype)  # noqa: E731
+    rows = lambda x: x.narrow(0, r * (x.shape[0] // p), x.shape[0] // p)  # noqa: E731
+    data = draw(tree_map(lambda s: whole(ShapeWithDtype(s.shape, s.dtype or leaf.real.dtype)),
                          lh.lsm_tangents_shape, is_leaf=lambda x: isinstance(x, ShapeWithDtype)))
-    prior = draw(tree_map(ShapeWithDtype.from_leave, p_liquid))
+    if ctx is None:
+        return WhiteNoise(data, draw(tree_map(ShapeWithDtype.from_leave, p_liquid)))
+    prior = draw({k: whole(ShapeWithDtype.from_leave(v)) if k in ctx.keys
+                  else ShapeWithDtype.from_leave(v) for k, v in p_liquid.items()})
+    data = tree_map(rows, data)
+    prior = {k: rows(v) if k in ctx.keys else v for k, v in prior.items()}
     return WhiteNoise(data, prior)
 
 

@@ -146,12 +146,17 @@ def map_chains(chain_map, run, draws: ChainDraws, *forests):
     """``run(draws, *forests)`` over the chains: ``"vmap"`` calls it once
     on all of them; ``"lmap"`` (or ``"smap"``) once a chain, on batches of
     one, concatenating the outputs along their leading (chain) axis.
-    ``"pmap"`` (chains across cards) is not ported."""
+    ``"pmap"`` (chains across ranks) is not ported: a chain's tree is built
+    on the host, one leaf at a time, so the ranks would wait on each other
+    every leaf (ROADMAP.md)."""
     spec = str(chain_map).lower()
     if spec == "vmap":
         return run(draws, *forests)
+    if spec == "pmap":
+        raise NotImplementedError("chain_map 'pmap': chains across ranks are not ported "
+                                  "(ROADMAP.md); use 'vmap' or 'lmap'")
     if spec not in ("lmap", "smap"):
-        get_map(spec)  # raises for "pmap" and unknown maps
+        get_map(spec)  # raises for unknown maps
         raise ValueError(f"chain_map must be 'vmap' or 'lmap', not {chain_map!r}")
     return _cat([
         run(draws.chain(c), *(tree_map(lambda x, c=c: x[c:c + 1], f) for f in forests))

@@ -52,12 +52,14 @@ def _check_keys(domain, arrays):
         raise KeyError(f"position keys differ from the domain: missing {missing}, unexpected {extra}")
 
 
-def position_from_numpy(model, arrays, device=None, dtype=None, batch=()):
+def position_from_numpy(model, arrays, device=None, dtype=None, batch=(), sharding=None):
     """The position for ``model`` (a model, whose ``domain`` is a dict of
     :class:`ShapeWithDtype`, or a domain itself: any tree of them) from the
     same tree of numpy arrays, each of shape ``batch + `` its domain leaf's
     shape; a dict comes back with its keys sorted.  A domain leaf's dtype,
-    where it names one, wins over ``dtype``."""
+    where it names one, wins over ``dtype``.  With ``sharding`` (a dict of
+    :class:`~.parallel.NamedSharding`, ``model.position_sharding()`` of a
+    field-sharded model) each leaf is this rank's shard of the array."""
     device, dtype = _placement(model, device, dtype)
     domain = model.domain if isinstance(model, torch.nn.Module) else model
     batch = tuple(batch)
@@ -77,6 +79,12 @@ def position_from_numpy(model, arrays, device=None, dtype=None, batch=()):
         return tree_map(lambda s, x: convert(s, x, where), shapes, a,
                         is_leaf=lambda x: isinstance(x, ShapeWithDtype))
 
+    if sharding is not None:
+        _check_keys(domain, sharding)
+        arrays = {k: sharding[k].shard(torch.from_numpy(np.asarray(arrays[k]))).numpy()
+                  for k in arrays}
+        domain = {k: ShapeWithDtype(tuple(arrays[k].shape[len(batch):]), v.dtype)
+                  for k, v in domain.items()}
     if isinstance(domain, dict):
         _check_keys(domain, arrays)
         return {k: convert_tree(domain[k], arrays[k], repr(k)) for k in sorted(domain)}

@@ -9,7 +9,9 @@ Energies accumulate their sums in float64 (:func:`_sum`): a float32 sum
 over a 1280² grid is some 1e6 nats, whose float32 spacing alone is a
 tenth of a nat, while HMC and NUTS turn energy differences straight into
 acceptance probabilities.  Only the rounding changes; float64 inputs sum
-as before.
+as before.  In a field-sharded run (inside
+:func:`~.parallel.collectives.field_sharded`) the data are the rank's rows
+of the field, and every such sum is summed over the field group.
 """
 
 from __future__ import annotations
@@ -44,8 +46,13 @@ def _as_data(data, device):
 
 
 def _sum(x):
-    """``Σ x`` accumulated in float64."""
-    return torch.sum(x, dtype=torch.float64)
+    """``Σ x`` accumulated in float64 (over the field group's rows in a
+    field-sharded run)."""
+    from .parallel.collectives import field, reduce_sum
+
+    total = torch.sum(x, dtype=torch.float64)
+    ctx = field()
+    return total if ctx is None else reduce_sum(total, ctx.group)
 
 
 def _real_vdot(a, b):

@@ -33,7 +33,16 @@ maps it to the RING-ordered map, with the harmonic volume 1/(4π).  A
 sphere and a regular grid combine as an outer product: the Hartley over
 the regular axes, the synthesis over the sphere's axis.
 
-Field-sharded execution is not part of this port yet.
+With ``finalize(field_mesh=...)`` the field is row-sharded over the mesh
+axis ``field_axis``: each rank holds the rows ``[r n0/p, (r + 1) n0/p)``
+of ξ and of the output, builds only those rows of the harmonic amplitude
+(the exact form through K1r, whose adjoint K2r folds only its rows; the
+knot and pixel forms unfold only those rows of the core) and maps them
+through the pencil Hartley (:mod:`..parallel.fft`: K3 on the rows, K4r on
+a column block).  The other leaves are replicated: they enter through
+:func:`~..parallel.collectives.replicate`, so their cotangents are summed
+over the field axis.  :meth:`CorrelatedField.position_sharding` gives the
+placements.
 """
 
 from __future__ import annotations
@@ -52,7 +61,12 @@ from ..num.stats_distributions import lognormal_prior, normal_prior
 from ..ops.cuda_expand import mirror_unfold
 from ..ops.cuda_legendre import alm_size, real_alm_index_maps
 from ..ops.fft import hartley
-from ..ops.mode_expand import ExpandIndex, build_expand_layout, mode_expand_grid
+from ..ops.mode_expand import (
+    ExpandIndex,
+    build_expand_layout,
+    mode_expand_grid,
+    mode_expand_grid_rows,
+)
 from ..ops.pwl import PwlFeatures
 from ..ops.sht import HealpixSynthesis
 from ..utils.tree import ShapeWithDtype
@@ -600,16 +614,31 @@ class _Hartley(torch.nn.Module):
         return hartley(x, axes=self.axes)
 
 
+class _PencilHartley(torch.nn.Module):
+    """The Hartley transform of a row-sharded field over its ``nd`` axes."""
+
+    def __init__(self, axis, nd):
+        super().__init__()
+        self.axis, self.nd = axis, nd
+
+    def forward(self, x):
+        from ..parallel.fft import PencilHartley
+
+        return PencilHartley.apply(x, self.axis, self.nd)
+
+
 class CorrelatedField(Model):
     """ξ coloured by the outer product of the expanded amplitudes, mapped
     through the harmonic transform(s), plus the offset.  ``indexes`` holds
     the mode index of each table-form amplitude, in order; a per-pixel
     amplitude (:attr:`per_pixel`: the knot form, a Matérn pixel form) needs
-    none."""
+    none.  With ``field_mesh`` the field is row-sharded over its axis
+    ``field_axis`` (``axis``, the :class:`~..parallel.fft.MeshAxis`): ξ and
+    the output are the rank's rows."""
 
     def __init__(
         self, *, amplitudes, indexes, full_shapes, azm, offset_mean, xi_key,
-        harmonic_transforms, domain,
+        harmonic_transforms, domain, field_mesh=None, field_axis="fx", axis=None,
     ):
         super().__init__(domain=domain)
         self.amplitudes = torch.nn.ModuleList(amplitudes)
@@ -620,26 +649,64 @@ class CorrelatedField(Model):
         self.xi_key = xi_key
         self.harmonic_volumes = tuple(dvol for dvol, _ in harmonic_transforms)
         self.harmonic_transforms = torch.nn.ModuleList(ht for _, ht in harmonic_transforms)
+        self.field_mesh, self.field_axis, self.axis = field_mesh, field_axis, axis
+
+    @property
+    def rows(self):
+        """``(lo, n)``: the rows of the leading axis this rank holds (all of
+        them without a field mesh)."""
+        n0 = self.full_shapes[0][0]
+        if self.axis is None:
+            return 0, n0
+        n = n0 // self.axis.size
+        return self.axis.rank * n, n
+
+    def position_sharding(self, batch_ndim: int = 0):
+        """The placements of a position (:class:`~..parallel.NamedSharding`
+        by key): ξ split along its leading field axis, after ``batch_ndim``
+        batch axes, over the field axis; every other leaf replicated."""
+        from ..parallel.mesh import NamedSharding
+
+        if self.field_mesh is None:
+            raise ValueError("model was finalized without a field mesh")
+        out = {k: NamedSharding(self.field_mesh, ()) for k in self.domain}
+        out[self.xi_key] = NamedSharding(self.field_mesh, (None,) * batch_ndim + (self.field_axis,))
+        return out
+
+    def _replicated(self, p):
+        """``p`` with its replicated leaves entering rank-local work: their
+        cotangents are summed over the field axis."""
+        if self.axis is None:
+            return p
+        from ..parallel.collectives import replicate
+
+        return {k: v if k == self.xi_key or k not in self.domain else replicate(v, self.axis.group)
+                for k, v in p.items()}
 
     def harmonic_amplitude(self, p):
         """The amplitude that colours ξ on the harmonic grid: ``azm`` times
         the outer product of the expanded amplitudes (for
-        :func:`~nifty_tpu_torch.adjust_variances.adjust_variances`)."""
+        :func:`~nifty_tpu_torch.adjust_variances.adjust_variances`); the
+        rank's rows of it on a field mesh."""
+        p = self._replicated(p)
         azm = self.azm(p)
         outer = None
         indexes = iter(self.indexes)
+        rows = None if self.axis is None else self.rows
         for amp, fshape in zip(self.amplitudes, self.full_shapes):
             if amp.per_pixel:
                 # evaluated per pixel of the |k| core: no table, no gather
-                ea = mirror_unfold(amp.expanded_normalized_core(p, azm), fshape)
+                ea = mirror_unfold(amp.expanded_normalized_core(p, azm), fshape, rows)
             else:
                 a = amp(p)
                 # divide the degenerate zero mode out of each amplitude
                 a = torch.cat((a[:1], a[1:] * (1.0 / azm)))
                 # the index covers the (n//2+1)^d core, |k| being mirror
                 # symmetric per axis; K1 expands the table onto the full
-                # grid (K2 is its adjoint)
-                ea = mode_expand_grid(a, next(indexes), fshape)
+                # grid (K2 is its adjoint), K1r onto the rank's rows
+                index = next(indexes)
+                ea = (mode_expand_grid(a, index, fshape) if rows is None
+                      else mode_expand_grid_rows(a, index, fshape, rows))
             # order matters: it must match the excitation axes
             outer = ea if outer is None else torch.tensordot(outer, ea, dims=0)
         return azm * outer
@@ -758,12 +825,44 @@ class CorrelatedFieldMaker:
         self._azm = WrappedCall(zm, name=self._prefix + "zeromode")
         self._parameter_tree[self._prefix + "zeromode"] = ShapeWithDtype(())
 
-    def finalize(self, device=None, dtype=torch.float32) -> CorrelatedField:
+    def finalize(self, device=None, dtype=torch.float32, field_mesh=None,
+                 field_axis: str = "fx") -> CorrelatedField:
         """Assemble the model with its floating buffers in ``dtype`` on
-        ``device`` (the CUDA card by default; raises without one)."""
+        ``device`` (the CUDA card by default; raises without one).
+
+        With ``field_mesh`` (a ``DeviceMesh`` with the axis ``field_axis``)
+        the model runs row-sharded over that axis: ξ and the output are the
+        rank's rows of the leading axis, the Hartley the pencil transform
+        (see the module's docstring).  It takes one regular Cartesian
+        subgrid of ndim >= 2 whose two leading axes the axis size divides
+        (and, for a float32 2-D grid that K3 + K4r take, whose axis size
+        keeps their layout: :func:`~..parallel.fft.uses_kernels`);
+        ``model.position_sharding()`` places positions."""
         if self._azm is None:
             raise RuntimeError("set_amplitude_total_offset must be called first")
         device = _device.resolve(device)
+        axis = None
+        if field_mesh is not None:
+            if len(self._target_grids) != 1 or not isinstance(
+                self._target_grids[0], RegularCartesianGrid
+            ):
+                raise ValueError("field_mesh requires a single regular-Cartesian subgrid")
+            if len(self._target_grids[0].shape) < 2:
+                raise ValueError("field_mesh requires an ndim >= 2 grid")
+            from ..parallel.fft import mesh_axis, uses_kernels
+
+            axis = mesh_axis(field_mesh, field_axis)
+            s0, s1 = self._target_grids[0].shape[:2]
+            if s0 % axis.size or s1 % axis.size:
+                raise ValueError(
+                    "the two leading grid axes must be divisible by the"
+                    f" field-mesh axis size {axis.size}"
+                )
+            # raises for a float32 grid in K3 + K4r's domain whose axis size breaks them
+            uses_kernels(self._target_grids[0].harmonic_grid.shape, axis.size, dtype)
+            if field_mesh.device_type != device.type:
+                raise ValueError(
+                    f"a field mesh on {field_mesh.device_type} for a model on {device.type}")
         harmonic_transforms = []
         excitation_shape = ()
         indexes = []
@@ -777,6 +876,8 @@ class CorrelatedFieldMaker:
             if isinstance(g, HEALPixGrid):
                 hg = g.harmonic_grid
                 trafo = HealpixSynthesis(g.nside, hg.lmax, hg.mmax, axis=n - 1)
+            elif axis is not None:
+                trafo = _PencilHartley(axis, len(sub_shp))
             else:
                 trafo = _Hartley(tuple(range(n - len(sub_shp), n)))
             harmonic_transforms.append((1.0 / g.total_volume, trafo))
@@ -799,6 +900,9 @@ class CorrelatedFieldMaker:
             xi_key=xi_key,
             harmonic_transforms=harmonic_transforms,
             domain=dict(self._parameter_tree),
+            field_mesh=field_mesh,
+            field_axis=field_axis,
+            axis=axis,
         ).to(device=device, dtype=dtype)
 
 

@@ -20,6 +20,12 @@ the value at ``n - i``).  K2 reduces over a CSR permutation of the packed
 index that :class:`ExpandIndex` builds once on the host, in a fixed order
 without atomics, so its sums are deterministic.
 
+K1r :func:`expand_to_grid_rows` and K2r :func:`collapse_from_grid_rows`
+are the same kernels on a range of the grid's leading axis, for a
+row-sharded field: K1r writes only the rows ``lo .. lo + n - 1`` of the
+full grid, K2r folds only those rows (a cotangent of the range), its table
+this range's part of the table cotangent.
+
 Each wrapper runs its plain PyTorch version (the composition of
 ``index_select``, the rfp2 unpack and the mirror unfold, and its adjoint
 ending in ``index_add_``) when its tensor lies on the CPU; for a CUDA
@@ -39,11 +45,16 @@ __all__ = [
     "ExpandIndex",
     "collapse_from_grid",
     "collapse_from_grid_plain",
+    "collapse_from_grid_rows",
+    "collapse_from_grid_rows_plain",
     "expand_to_grid",
     "expand_to_grid_plain",
+    "expand_to_grid_rows",
+    "expand_to_grid_rows_plain",
     "grid_geometry",
     "mirror_fold",
     "mirror_unfold",
+    "row_range",
     "segment_csr",
 ]
 
@@ -108,10 +119,35 @@ def grid_geometry(layout, full_shape):
     return pad + full + pad + core + (m,)
 
 
-def mirror_unfold(core, full_shape):
+def row_range(full_shape, rows=None):
+    """The kernels' row range ``(r_ax, r_lo, r_n)``: the range ``rows = (lo,
+    n)`` of the grid's leading axis (all of it by default), which is
+    kernel axis ``r_ax`` of :func:`grid_geometry`'s three."""
+    full = tuple(int(n) for n in full_shape)
+    lo, n = (0, full[0]) if rows is None else (int(rows[0]), int(rows[1]))
+    if lo < 0 or n < 1 or lo + n > full[0]:
+        raise ValueError(f"rows {rows} outside the leading axis of {full}")
+    return (3 - len(full), lo, n)
+
+
+def _local_shape(full_shape, rows):
+    """``full_shape`` with its leading axis cut to the range ``rows``."""
+    return (int(rows[1]),) + tuple(int(n) for n in full_shape[1:])
+
+
+def mirror_unfold(core, full_shape, rows=None):
     """Expand a core array (``n//2+1`` per axis, or ``n`` where an axis is
     not mirrored) to the full Fourier grid: position ``i >= n//2+1`` takes
-    the value at ``n-i``.  Trailing axes beyond ``full_shape`` ride along."""
+    the value at ``n-i``.  Trailing axes beyond ``full_shape`` ride along.
+    With ``rows = (lo, n)`` only the rows ``lo .. lo + n - 1`` of the
+    leading axis (those of a row-sharded field)."""
+    if rows is not None:  # the rows' core rows first: O(rows n1) work and memory
+        n0, c0 = int(full_shape[0]), core.shape[0]
+        if c0 not in (n0, n0 // 2 + 1):
+            raise ValueError(f"core shape {tuple(core.shape)} does not fit {full_shape}")
+        i = torch.arange(int(rows[0]), int(rows[0]) + int(rows[1]), device=core.device)
+        src = i if c0 == n0 else torch.where(i < c0, i, n0 - i)
+        return mirror_unfold(core.index_select(0, src), _local_shape(full_shape, rows))
     out = core
     for axis, n in enumerate(full_shape):
         if out.shape[axis] == n:
@@ -204,6 +240,22 @@ def collapse_from_grid_plain(cot, index: ExpandIndex, full_shape):
     return out.index_add_(0, index.idx, flat)
 
 
+def expand_to_grid_rows_plain(tab, index: ExpandIndex, full_shape, rows):
+    """Plain version of K1r: the rows ``lo .. lo + n - 1`` (``rows = (lo,
+    n)``) of :func:`expand_to_grid_plain`."""
+    return expand_to_grid_plain(tab, index, full_shape).narrow(0, int(rows[0]), int(rows[1]))
+
+
+def collapse_from_grid_rows_plain(cot, index: ExpandIndex, full_shape, rows):
+    """Plain version of K2r: :func:`collapse_from_grid_plain` of the
+    cotangent of the rows ``rows = (lo, n)`` padded with zeros to the full
+    grid."""
+    lo, n = int(rows[0]), int(rows[1])
+    full = cot.new_zeros(tuple(full_shape) + tuple(cot.shape[len(full_shape):]))
+    full.narrow(0, lo, n).copy_(cot)
+    return collapse_from_grid_plain(full, index, full_shape)
+
+
 def _check_cuda(t, index, shape, what):
     native.require_cuda(t, what, torch.float32, t.ndim in (len(shape), len(shape) + 1)
                         and tuple(t.shape[: len(shape)]) == tuple(shape))
@@ -216,36 +268,65 @@ def _check_cuda(t, index, shape, what):
         )
 
 
-def _launch_geometry(index, full_shape, what):
-    geom = grid_geometry(index.layout, full_shape)
+def _launch_geometry(index, full_shape, what, rows=None):
+    geom = grid_geometry(index.layout, full_shape) + row_range(full_shape, rows)
     if max(geom[3:5]) > MAX_GRID_YZ:  # the core's rows and slabs are grid extents
         raise ValueError(f"{what}: core {index.layout.core_shape} is too large for a launch grid")
     return native.int_array(geom)
+
+
+def _expand(tab, index, full_shape, rows, what):
+    """Launch K1 (K1r with ``rows``) on the card; count it as ``what``."""
+    _check_cuda(tab, index, (index.n_unique,), what)
+    geom = _launch_geometry(index, full_shape, what, rows)
+    B = 1 if tab.ndim == 1 else tab.shape[1]
+    shape = full_shape if rows is None else _local_shape(full_shape, rows)
+    out = torch.empty(tuple(shape) + tuple(tab.shape[1:]), dtype=tab.dtype, device=tab.device)
+    err = native.lib().nt_expand_to_grid(
+        tab.data_ptr(), index.idx.data_ptr(), out.data_ptr(), geom, B, native.stream_of(tab)
+    )
+    native.check(err, what)
+    native.launches[what] += 1
+    native.batched_launches[what] += B > 1
+    return out
 
 
 def expand_to_grid(tab, index: ExpandIndex, full_shape):
     """K1: ``(U,)`` or ``(U, B)`` table -> ``full_shape`` (+ ``(B,)``)."""
     if tab.device.type == "cpu":
         return expand_to_grid_plain(tab, index, full_shape)
-    _check_cuda(tab, index, (index.n_unique,), "expand_to_grid")
-    geom = _launch_geometry(index, full_shape, "expand_to_grid")
-    B = 1 if tab.ndim == 1 else tab.shape[1]
-    out = torch.empty(tuple(full_shape) + tuple(tab.shape[1:]), dtype=tab.dtype, device=tab.device)
-    err = native.lib().nt_expand_to_grid(
-        tab.data_ptr(), index.idx.data_ptr(), out.data_ptr(), geom, B, native.stream_of(tab)
-    )
-    native.check(err, "expand_to_grid")
-    native.launches["expand_to_grid"] += 1
-    native.batched_launches["expand_to_grid"] += B > 1
-    return out
+    return _expand(tab, index, full_shape, None, "expand_to_grid")
+
+
+def expand_to_grid_rows(tab, index: ExpandIndex, full_shape, rows):
+    """K1r: ``(U,)`` or ``(U, B)`` table -> the rows ``rows = (lo, n)`` of
+    the ``full_shape`` grid, ``(n,) + full_shape[1:]`` (+ ``(B,)``)."""
+    if tab.device.type == "cpu":
+        return expand_to_grid_rows_plain(tab, index, full_shape, rows)
+    return _expand(tab, index, full_shape, tuple(rows), "expand_to_grid_rows")
 
 
 def collapse_from_grid(cot, index: ExpandIndex, full_shape):
     """K2: ``full_shape`` (+ ``(B,)``) cotangent -> ``(U,)`` or ``(U, B)``."""
     if cot.device.type == "cpu":
         return collapse_from_grid_plain(cot, index, full_shape)
-    _check_cuda(cot, index, full_shape, "collapse_from_grid")
-    geom = _launch_geometry(index, full_shape, "collapse_from_grid")
+    return _collapse(cot, index, full_shape, None, "collapse_from_grid")
+
+
+def collapse_from_grid_rows(cot, index: ExpandIndex, full_shape, rows):
+    """K2r: the cotangent of the rows ``rows = (lo, n)`` of the
+    ``full_shape`` grid (``(n,) + full_shape[1:]``, + ``(B,)``) -> this
+    range's part of the table cotangent, ``(U,)`` or ``(U, B)``."""
+    if cot.device.type == "cpu":
+        return collapse_from_grid_rows_plain(cot, index, full_shape, rows)
+    return _collapse(cot, index, full_shape, tuple(rows), "collapse_from_grid_rows")
+
+
+def _collapse(cot, index, full_shape, rows, what):
+    """Launch K2 (K2r with ``rows``) on the card; count it as ``what``."""
+    shape = full_shape if rows is None else _local_shape(full_shape, rows)
+    _check_cuda(cot, index, shape, what)
+    geom = _launch_geometry(index, full_shape, what, rows)
     batch = tuple(cot.shape[len(full_shape) :])
     B = batch[0] if batch else 1
     folded = torch.empty((index.n_packed,) + batch, dtype=cot.dtype, device=cot.device)
@@ -255,7 +336,7 @@ def collapse_from_grid(cot, index: ExpandIndex, full_shape):
         index.n_unique, LARGE_BIN, index.large_bins.data_ptr(), index.large_bins.numel(),
         out.data_ptr(), geom, B, native.stream_of(cot),
     )
-    native.check(err, "collapse_from_grid")
-    native.launches["collapse_from_grid"] += 1
-    native.batched_launches["collapse_from_grid"] += B > 1
+    native.check(err, what)
+    native.launches[what] += 1
+    native.batched_launches[what] += B > 1
     return out

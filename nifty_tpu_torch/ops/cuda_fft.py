@@ -28,6 +28,12 @@ shared-memory position :func:`smem_pos`, the two twiddle tables
 :func:`twiddle_tables` and the launch shapes :func:`row_launch` /
 :func:`col_launch`.
 
+K4r :func:`hartley_cols_range` is K4 on a block of half-spectrum columns
+``c .. c + w`` (``w`` a multiple of 8) over all rows, for the pencil
+transform of a row-sharded field (:mod:`..parallel.fft`): it writes the
+block's Hartley columns ``c .. c + w - 1`` and their mirrors packed as
+``(n0, 2w)``, the last column of the block (the halo) only for its mirror.
+
 The kernels take f32 arrays whose axes are multiples of 256 (the domain of
 ``pallas_hartley_supported``), 7-smooth and at most ``MAX_AXIS`` long
 (one padded column must fit in a block's shared memory).  Each wrapper
@@ -54,6 +60,8 @@ __all__ = [
     "hartley2d",
     "hartley_cols",
     "hartley_cols_plain",
+    "hartley_cols_range",
+    "hartley_cols_range_plain",
     "hartley_rows",
     "hartley_rows_plain",
     "output_order",
@@ -246,6 +254,22 @@ def hartley_cols_plain(G, n1: int):
     return torch.cat([left, right.flip(-1)], dim=-1)
 
 
+def hartley_cols_range_plain(G, w: int):
+    """Plain version of K4r: the column FFT of the half-spectrum block ``G``
+    (``(n0, >= w + 1)``, or a leading batch of them; columns ``c .. c + w``
+    of a half spectrum) folded to ``(n0, 2w)``: column ``t < w`` is the
+    Hartley column ``c + t``, column ``2w - t`` (``1 <= t <= w``) the mirror
+    column ``n1 - c - t``.  A slice of :func:`hartley_cols_plain`'s output;
+    also the pencil Hartley's column stage for the shapes and dtypes
+    outside K3 + K4r's domain (``parallel.fft``)."""
+    C = torch.fft.fft(G[..., : w + 1], dim=-2)
+    n0 = C.shape[-2]
+    left = C.real - C.imag
+    neg = (-torch.arange(n0, device=G.device)) % n0
+    right = (C.real + C.imag).index_select(-2, neg)[..., 1:]
+    return torch.cat([left[..., :w], right.flip(-1)], dim=-1)
+
+
 def padded_half_spectrum(G):
     """A copy of the half spectrum ``G`` (``(n0, n1/2 + 1)``, or a leading
     batch of them) in the padded row pitch that K4 reads: the view of a
@@ -271,32 +295,39 @@ def _launch_rows(x, G, threads):
     native.check(err, "hartley_rows")
 
 
-def _launch_cols(G, H, T, tc, parts):
+def _launch_cols(G, H, T, tc, parts, n1=None, src_col=0, n_cols=0):
     """Launch K4 at the launch shape ``(T, tc, parts)`` (:func:`col_launch`)
     on the checked half spectra ``G`` (``(n0, h)`` or ``(B, n0, h)``) into
     ``H``, one batch index a row of the launch grid; counts nothing, as
-    :func:`_launch_rows`."""
-    n0, n1 = H.shape[-2:]
-    batch = H.numel() // (n0 * n1)
+    :func:`_launch_rows`.  With ``n_cols`` = w > 0 it is K4r: the columns
+    ``src_col .. src_col + w`` of half spectra of width ``n1`` into the
+    packed ``(n0, 2w)`` arrays ``H``."""
+    n0, nw = H.shape[-2:]
+    n1 = nw if n1 is None else n1
+    batch = H.numel() // (n0 * nw)
     pitch = G.stride(-2)
     batch_pitch = G.stride(0) if G.ndim == 3 else n0 * pitch
     tab, rev, plan = _fft_tables(n0, str(G.device), max(parts, 1))
     err = native.lib().nt_hartley_cols(
         G.data_ptr(), H.data_ptr(), n0, n1, pitch, batch_pitch, batch, tab.data_ptr(),
-        rev.data_ptr(), native.int_array(plan), len(plan) // 4, T, tc, parts,
+        rev.data_ptr(), native.int_array(plan), len(plan) // 4, T, tc, parts, src_col, n_cols,
         native.stream_of(G),
     )
-    native.check(err, "hartley_cols")
+    native.check(err, "hartley_cols_range" if n_cols else "hartley_cols")
 
 
 def hartley_rows(x):
     """K3: real ``(n0, n1)`` -> row half spectra ``(n0, n1/2 + 1)``, a view
     with the row pitch :func:`half_spectrum_pitch`.  A batch ``(B, n0, n1)``
-    is ``B n0`` independent rows, one launch."""
+    is ``B n0`` independent rows, one launch; ``n1`` in the kernels' domain,
+    the rows any even number."""
     if x.device.type == "cpu":
         return hartley_rows_plain(x)
+    # rows pair up into complex FFTs: any even number of them (a rank's
+    # rows of a sharded field need not be a multiple of 256)
     native.require_cuda(x, "hartley_rows", torch.float32,
-                        x.ndim in (2, 3) and cuda_hartley_supported(x.shape[-2:], x.dtype))
+                        x.ndim in (2, 3) and cuda_hartley_supported((256, x.shape[-1]), x.dtype)
+                        and (x.numel() // max(x.shape[-1], 1)) % 2 == 0)
     if x.data_ptr() % 16:
         raise ValueError("hartley_rows: tensor must start on a 16-byte boundary")
     n1 = x.shape[-1]
@@ -353,6 +384,59 @@ def hartley_cols(G, n1: int):
     _launch_cols(G, H, T, tc, parts)
     native.launches["hartley_cols"] += 1
     native.batched_launches["hartley_cols"] += batch > 1
+    return H
+
+
+def hartley_cols_range(G, w: int, src_col: int = 0, n1=None):
+    """K4r: the half-spectrum columns ``src_col .. src_col + w`` of ``G``
+    (``(n0, h)`` or ``(B, n0, h)``, half spectra of width ``n1``, by
+    default ``2 (h - 1)``) -> the packed ``(n0, 2w)`` (``(B, n0, 2w)``)
+    of :func:`hartley_cols_range_plain`, one launch.  On the card ``w`` and
+    ``src_col`` are multiples of 8 and ``G`` has K4's layout (unit column
+    stride, a row pitch a multiple of 8 complex with room for the tiles
+    past ``src_col + w``, 16-byte aligned), as :func:`hartley_rows` gives
+    it; any other layout raises."""
+    if G.device.type == "cpu":
+        return hartley_cols_range_plain(G[..., src_col:], w)
+    n0 = G.shape[-2]
+    n1 = 2 * (G.shape[-1] - 1) if n1 is None else n1
+    if G.device.type != "cuda":
+        raise ValueError(f"hartley_cols_range: tensor on {G.device}; CPU or CUDA expected")
+    if G.dtype != torch.complex64:
+        raise TypeError(f"hartley_cols_range: dtype {G.dtype}; torch.complex64 expected")
+    ok = (
+        G.ndim in (2, 3)
+        and cuda_hartley_supported((n0, 256), torch.float32)
+        and n1 % 256 == 0
+        and w > 0 and w % 8 == 0 and src_col % 8 == 0 and src_col >= 0
+        and src_col + w <= n1 // 2
+        and G.shape[-1] >= src_col + w + 1
+    )
+    if not ok:
+        raise ValueError(
+            f"hartley_cols_range: shape {tuple(G.shape)}, columns {src_col} + {w} of {n1} "
+            "outside the kernel's domain")
+    T, tc, parts = col_launch(n0)
+    pitch = G.stride(-2)
+    batch = G.shape[0] if G.ndim == 3 else 1
+    batch_pitch = G.stride(0) if G.ndim == 3 else n0 * pitch
+    room = G.untyped_storage().nbytes() // 8 - G.storage_offset()
+    if (
+        G.stride(-1) != 1
+        or pitch % 8
+        or pitch < src_col + w + tc
+        or batch_pitch % 8
+        or (batch > 1 and batch_pitch < n0 * pitch)
+        or room < (batch - 1) * batch_pitch + n0 * pitch
+        or G.data_ptr() % 16
+    ):
+        raise ValueError(
+            f"hartley_cols_range: strides {G.stride()}: K4r reads rows of pitch a multiple of 8 "
+            f"complex, at least {src_col + w + tc}, from a 16-byte boundary")
+    H = torch.empty(tuple(G.shape[:-1]) + (2 * w,), dtype=torch.float32, device=G.device)
+    _launch_cols(G, H, T, tc, parts, n1=n1, src_col=src_col, n_cols=w)
+    native.launches["hartley_cols_range"] += 1
+    native.batched_launches["hartley_cols_range"] += batch > 1
     return H
 
 

@@ -27,17 +27,26 @@ from collections import namedtuple
 import numpy as np
 import torch
 
-from .cuda_expand import ExpandIndex, collapse_from_grid, expand_to_grid
+from .cuda_expand import (
+    ExpandIndex,
+    collapse_from_grid,
+    collapse_from_grid_rows,
+    expand_to_grid,
+    expand_to_grid_rows,
+)
 
 __all__ = [
     "ExpandIndex",
     "ExpandLayout",
     "ModeCollapseGrid",
+    "ModeCollapseGridRows",
     "ModeExpandGrid",
+    "ModeExpandGridRows",
     "build_expand_layout",
     "mode_collapse",
     "mode_expand",
     "mode_expand_grid",
+    "mode_expand_grid_rows",
 ]
 
 ExpandLayout = namedtuple(
@@ -173,6 +182,68 @@ class ModeCollapseGrid(torch.autograd.Function):
         return _batched_apply(
             ModeCollapseGrid.apply, cot, in_dims[0], len(full_shape), index, full_shape
         )
+
+
+class ModeExpandGridRows(torch.autograd.Function):
+    """``tab`` -> the rows ``rows = (lo, n)`` of the ``full_shape`` grid,
+    through K1r; its adjoint is :class:`ModeCollapseGridRows` (K2r), whose
+    table is this range's part of the cotangent."""
+
+    @staticmethod
+    def forward(tab, index, full_shape, rows):
+        if tab.is_meta:
+            return tab.new_empty((rows[1],) + tuple(full_shape[1:]) + tuple(tab.shape[1:]))
+        return expand_to_grid_rows(_kernel_input(tab), index, full_shape, rows)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.index, ctx.full_shape, ctx.rows = inputs[1:]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ModeCollapseGridRows.apply(grad, ctx.index, ctx.full_shape, ctx.rows), None, None, None
+
+    @staticmethod
+    def jvp(ctx, tab_t, *_):
+        return ModeExpandGridRows.apply(tab_t, ctx.index, ctx.full_shape, ctx.rows)
+
+    @staticmethod
+    def vmap(info, in_dims, tab, index, full_shape, rows):
+        fn = lambda t, i, f: ModeExpandGridRows.apply(t, i, f, rows)  # noqa: E731
+        return _batched_apply(fn, tab, in_dims[0], 1, index, full_shape)
+
+
+class ModeCollapseGridRows(torch.autograd.Function):
+    """The cotangent of the rows ``rows = (lo, n)`` of the ``full_shape``
+    grid -> this range's part of the table cotangent, through K2r."""
+
+    @staticmethod
+    def forward(cot, index, full_shape, rows):
+        if cot.is_meta:
+            return cot.new_empty((index.n_unique,) + tuple(cot.shape[len(full_shape):]))
+        return collapse_from_grid_rows(_kernel_input(cot), index, full_shape, rows)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.index, ctx.full_shape, ctx.rows = inputs[1:]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ModeExpandGridRows.apply(grad, ctx.index, ctx.full_shape, ctx.rows), None, None, None
+
+    @staticmethod
+    def jvp(ctx, cot_t, *_):
+        return ModeCollapseGridRows.apply(cot_t, ctx.index, ctx.full_shape, ctx.rows)
+
+    @staticmethod
+    def vmap(info, in_dims, cot, index, full_shape, rows):
+        fn = lambda c, i, f: ModeCollapseGridRows.apply(c, i, f, rows)  # noqa: E731
+        return _batched_apply(fn, cot, in_dims[0], len(full_shape), index, full_shape)
+
+
+def mode_expand_grid_rows(tab, index: ExpandIndex, full_shape, rows):
+    """The rows ``rows = (lo, n)`` of :func:`mode_expand_grid`."""
+    return ModeExpandGridRows.apply(tab, index, tuple(full_shape), (int(rows[0]), int(rows[1])))
 
 
 def mode_expand_grid(tab, index: ExpandIndex, full_shape):

@@ -12,8 +12,8 @@ The samples are mapped as one batch (``kl_map`` and ``residual_map``
 ``"vmap"``, the defaults, as in the JAX package): the KL's value, gradient
 and metric through ``torch.func.vmap``, the samplers on an explicit sample
 axis (``evi.draw_linear_residuals``), so each kernel (K1-K4) runs once per
-batch of samples, not once per sample.  ``"lmap"`` maps them by a loop;
-sharding over cards (``"pmap"``) is not ported (ROADMAP.md, section A).
+batch of samples, not once per sample.  ``"lmap"`` maps them by a loop,
+``"pmap"`` over the ranks of the process group.
 Schedules (``n_samples``, ``sample_mode``, the keyword dicts, ...) may be
 callables of the iteration number.
 
@@ -28,6 +28,22 @@ matplotlib is there) and writes each ``export_operators`` entry's
 posterior mean and standard deviation to
 ``odir/operator_outputs/<name>_last.npz``.
 
+Parallel runs (``torch.distributed``, one rank a card; see
+:mod:`.parallel`): ``devices=`` (a sample mesh, or a list of ranks) gives
+each rank its share of the sample pairs (``host_local_slice`` of the
+keys, which every rank draws alike, so each pair has the seed of the
+one-process run); the KL's mean over the samples is a sum over the ranks.
+``position_sharding=`` (``model.position_sharding()`` of a field
+finalized with ``field_mesh=``) runs the whole loop on the rank's rows of
+the field: the tree algebra and the energies sum over the field axis
+inside :func:`~.parallel.collectives.field_sharded`; a mesh with a
+``"samples"`` axis beside the field's shares the samples over it too.
+That takes a likelihood whose data are the field's rows (each data
+leaf's leading axis the rank's rows of ξ); one whose response mixes rows
+(LOS, NUFFT, a sum or a cut of the field) is refused at the first
+position the run sees (ROADMAP.md §A.2).  The samples and positions are the rank's shards (:meth:`OptimizeVI.gather`
+puts them together); the status message reads them gathered.
+
 :class:`OptimizeVI` takes the JAX package's hooks: ``kl_reduce`` (the
 reduction over the sample axis, the mean by default), and functions in
 place of the KL's value and gradient, its metric, the two samplers and
@@ -38,6 +54,7 @@ called once a sample (it reads the host and draws random numbers, which
 
 from __future__ import annotations
 
+import functools
 import inspect
 import os
 from functools import partial
@@ -58,7 +75,9 @@ from .likelihood import Likelihood, StandardHamiltonian, frozen_keys
 from .logger import logger
 from .minisanity import minisanity, reduced_residual_stats
 from .profiling import device_of
-from .utils.tree import get_map, stack, tree_map
+from .parallel import collectives
+from .parallel.fft import mesh_axis
+from .utils.tree import ShapeWithDtype, get_map, stack, tree_map
 
 __all__ = ["OptimizeVI", "OptimizeVIState", "get_status_message", "optimize_kl"]
 
@@ -95,6 +114,16 @@ def _kl_met(likelihood, primals, tangents, primals_samples, *, map="vmap", reduc
     return reduce(met(primals_samples.at(primals).samples, tangents))
 
 
+def _in_field(method):
+    """``method`` run inside its :class:`OptimizeVI`'s field context."""
+
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        return self._sharded(partial(method, self))(*args, **kwargs)
+
+    return run
+
+
 class OptimizeVIState(NamedTuple):
     nit: int
     key: Any  # the torch.Generator the samples' seeds come from
@@ -125,17 +154,49 @@ def _sample_mode(mode: str, n_samples: int, n_keys: int) -> str:
     return mode
 
 
+def _sample_mean(forest, axis):
+    """The mean over every rank's samples of ``forest`` (this rank's
+    samples on its leading axis)."""
+    from .parallel.collectives import _all_reduce
+
+    leaf = torch.utils._pytree.tree_leaves(forest)[0]
+    n = _all_reduce(torch.tensor(float(leaf.shape[0]), dtype=torch.float64, device=leaf.device),
+                    axis.group)
+    return tree_map(lambda x: (_all_reduce(x.sum(dim=0), axis.group) / n).to(x.dtype), forest)
+
+
+def _gather(forest, field=None, samples=None, keys=None):
+    """The whole of a forest of this rank's shards: the row shards (the
+    leaves under ``keys``; every leaf when ``keys`` is None) gathered over
+    the field group ``field`` along the axis after the samples', the
+    samples over ``samples`` (a ``parallel.fft.MeshAxis``) along the leading
+    axis."""
+    from .parallel.mesh import gather_axis
+
+    if field is not None:
+        if keys is None:
+            forest = tree_map(lambda x: gather_axis(x, 1, field), forest)
+        else:
+            forest = {k: gather_axis(v, 1, field) if k in keys else v for k, v in forest.items()}
+    if samples is not None:
+        forest = tree_map(lambda x: gather_axis(x, 0, samples.group), forest)
+    return forest
+
+
 def get_status_message(samples, state, residual=None, *, name="", map="vmap") -> str:
     """The iteration's energy, sampling and minimisation steps, and the
     reduced χ² of the likelihood's residuals and the latent position."""
+    mini_res = "" if residual is None else minisanity(samples, residual, map=map)[1]
+    return _status_text(state, mini_res, minisanity(samples, map=map)[1], name)
+
+
+def _status_text(state, mini_res, mini_pr, name):
     msg_smpl = ""
     st = state.sample_state
     if isinstance(st, (list, tuple)) and st and isinstance(st[0], optimize.OptimizeResults):
         msg_smpl = f"\n{name}: #(nonlinear sampling steps) {tuple(int(s.nit) for s in st)}"
     elif isinstance(st, torch.Tensor):
         msg_smpl = f"\n{name}: linear sampling status {tuple(st.reshape(-1).tolist())}"
-    mini_res = "" if residual is None else minisanity(samples, residual, map=map)[1]
-    mini_pr = minisanity(samples, map=map)[1]
     return (
         f"{name}: Iteration {state.nit:04d} E:{float(state.minimization_state.fun):+2.4e}"
         f"{msg_smpl}"
@@ -160,6 +221,8 @@ class OptimizeVI:
         residual_map="vmap",
         kl_reduce: Callable = _mean,
         mirror_samples: bool = True,
+        devices=None,
+        position_sharding=None,
         _kl_value_and_grad: Optional[Callable] = None,
         _kl_metric: Optional[Callable] = None,
         _draw_linear_residual: Optional[Callable] = None,
@@ -168,21 +231,127 @@ class OptimizeVI:
     ):
         if not mirror_samples:
             raise NotImplementedError("unmirrored samples are not supported")
-        get_map(kl_map), get_map(residual_map)  # raise here for a map that is not ported
+        get_map(kl_map), get_map(residual_map)  # raise here for an unknown map
+        self.field, self.field_keys, self.samples_axis = None, frozenset(), None
+        self._row_axes, self._rows_checked = (), False
+        if position_sharding is not None:
+            if devices is not None:
+                raise NotImplementedError(
+                    "pass a single mesh with both axes via position_sharding"
+                    " (a 'samples' mesh axis is picked up automatically)"
+                    " instead of combining devices= with position_sharding="
+                )
+            split = {k: sh for k, sh in position_sharding.items() if sh.split_axes()}
+            mesh = next(iter(position_sharding.values())).mesh
+            (field_name,) = {a for sh in split.values() for _, a in sh.split_axes()}
+            self.field = mesh.get_group(field_name)
+            self.field_keys = frozenset(split)
+            self._row_axes = tuple((k, i) for k, sh in split.items() for i, _ in sh.split_axes())
+            if "samples" in mesh.mesh_dim_names:
+                self.samples_axis = mesh_axis(mesh, "samples")
+        if devices is not None:
+            from torch.distributed.device_mesh import DeviceMesh
+
+            from .parallel.mesh import sample_mesh
+
+            mesh = devices if isinstance(devices, DeviceMesh) else sample_mesh(devices)
+            self.samples_axis = mesh_axis(mesh, mesh.mesh_dim_names[0])
+        if self.samples_axis is not None:
+            if kl_reduce is not _mean:
+                raise NotImplementedError("a kl_reduce of its own with samples across ranks")
+            kl_reduce = partial(_sample_mean, axis=self.samples_axis)
         self.likelihood = likelihood
         self.residual_map = residual_map
         self.n_total_iterations = n_total_iterations
-        self.kl_value_and_grad = _kl_value_and_grad or partial(
-            _kl_vg, likelihood, map=kl_map, reduce=kl_reduce)
-        self.kl_metric = _kl_metric or partial(_kl_met, likelihood, map=kl_map, reduce=kl_reduce)
+        self.kl_value_and_grad = self._sharded(_kl_value_and_grad or partial(
+            _kl_vg, likelihood, map=kl_map, reduce=kl_reduce))
+        self.kl_metric = self._sharded(
+            _kl_metric or partial(_kl_met, likelihood, map=kl_map, reduce=kl_reduce))
         self.draw_linear_residual = _draw_linear_residual
         self.nonlinearly_update_residual = _nonlinearly_update_residual
         self.get_status_message = _get_status_message or partial(
-            get_status_message, residual=likelihood.normalized_residual, name=type(self).__name__
-        )
+            self._status_message, residual=likelihood.normalized_residual,
+            name=type(self).__name__)
+
+    def _sharded(self, fn):
+        """``fn`` run inside this run's field context (``fn`` itself
+        without one)."""
+        if self.field is None:
+            return fn
+
+        def run(*args, **kwargs):
+            if args:
+                self._check_rows(args[0])
+            with collectives.field_sharded(self.field, self.field_keys):
+                return fn(*args, **kwargs)
+
+        return run
+
+    def _check_rows(self, pos):
+        """Refuse, at the first position (or :class:`Samples`) it sees, a
+        likelihood whose data are not the field's rows: a field-sharded run
+        sums the energies over the field group and keeps the rank's rows
+        of the data-space noise, which is right only where every data
+        leaf's leading axis is the rank's rows of ξ."""
+        if self._rows_checked or not self._row_axes:
+            return
+        pos = pos.pos if isinstance(pos, Samples) else pos
+        pos = getattr(pos, "tree", pos)  # a Vector
+        rows = {pos[k].shape[i] for k, i in self._row_axes if k in pos}
+        if not rows:
+            return
+        data = torch.utils._pytree.tree_leaves(
+            self.likelihood.lsm_tangents_shape, is_leaf=lambda x: isinstance(x, ShapeWithDtype))
+        lead = {d.shape[0] if len(d.shape) else None for d in data}
+        if len(rows) != 1 or lead != rows:
+            raise NotImplementedError(
+                f"position_sharding= takes a likelihood whose data are the field's rows: each"
+                f" data leaf's leading axis the rank's {sorted(rows)} rows of the field, not"
+                f" {sorted(lead, key=str)}; a response that mixes rows (LOS, NUFFT, a sum or a"
+                " cut of the field) is not ported (ROADMAP.md §A.2)")
+        self._rows_checked = True
+
+    def gather(self, samples):
+        """The :class:`Samples` of every rank, whole: the position's row
+        shards joined and the residuals of every rank's samples (a
+        collective: every rank calls it)."""
+        if self.field is None and self.samples_axis is None:
+            return samples
+        pos = samples.pos
+        if self.field is not None:
+            pos = {k: v.unsqueeze(0) for k, v in pos.items()}
+            pos = {k: v[0] for k, v in _gather(pos, self.field, None, self.field_keys).items()}
+        res = samples._samples
+        if res is not None:
+            res = _gather(res, self.field, self.samples_axis, self.field_keys)
+        keys = samples.keys
+        if self.samples_axis is not None and keys is not None:
+            import torch.distributed as dist
+
+            parts = [None] * self.samples_axis.size
+            dist.all_gather_object(parts, list(keys), group=self.samples_axis.group)
+            keys = [k for part in parts for k in part]
+        return Samples(pos=pos, samples=res, keys=keys)
+
+    def _status_message(self, samples, state, residual=None, *, name="", map="vmap"):
+        """:func:`get_status_message`; in a parallel run the residuals are
+        computed on the shards and the reduced χ² read from them gathered."""
+        if self.field is None and self.samples_axis is None:
+            return get_status_message(samples, state, residual, name=name, map=map)
+        forest = samples.samples if len(samples) else tree_map(
+            lambda x: x.unsqueeze(0), samples.pos)
+        mini_res = ""
+        if residual is not None:
+            with collectives.field_sharded(self.field, self.field_keys):
+                res = get_map(map)(residual)(forest)
+            res = _gather(res, self.field, self.samples_axis)
+            mini_res = minisanity(Samples(samples=res))[1]
+        prior = _gather(forest, self.field, self.samples_axis, self.field_keys)
+        return _status_text(state, mini_res, minisanity(Samples(samples=prior))[1], name)
 
     # -- sampling -------------------------------------------------------------
 
+    @_in_field
     def draw_linear_samples(self, primals, keys, **kwargs):
         """Mirrored MGVI residuals at ``primals``, one pair per key, mapped
         by ``residual_map`` (a sampler hook: called once a key):
@@ -198,6 +367,7 @@ class OptimizeVI:
         smpls = concatenate_zip(residuals, tree_map(torch.neg, residuals))
         return Samples(pos=primals, samples=smpls, keys=list(keys)), infos
 
+    @_in_field
     def nonlinearly_update_samples(self, samples: Samples, **kwargs):
         """geoVI-curve every residual of mirrored ``samples``, mapped by
         ``residual_map``: ``(Samples, the minimisers' results)``."""
@@ -220,6 +390,7 @@ class OptimizeVI:
             smpls, states = stack([r for r, _ in outs]), [st for _, st in outs]
         return Samples(pos=samples.pos, samples=smpls, keys=samples.keys), states
 
+    @_in_field
     def draw_samples(
         self,
         samples: Samples,
@@ -246,6 +417,14 @@ class OptimizeVI:
         if mode == "nonlinear_update":
             return curve(samples)
         keys = seeds(key, n_samples) if mode.endswith("_resample") else samples.keys
+        if mode.endswith("_resample") and self.samples_axis is not None:
+            from .parallel.multihost import host_local_slice
+
+            ax = self.samples_axis
+            if n_samples < ax.size:
+                raise ValueError(f"{n_samples} sample pairs over {ax.size} ranks leave a rank none")
+            lo, hi = host_local_slice(n_samples, count=ax.size, index=ax.rank)
+            keys = keys[lo:hi]
         samples, st = self.draw_linear_samples(
             samples.pos, keys, point_estimates=point_estimates, **(draw_linear_kwargs or {})
         )
@@ -255,6 +434,7 @@ class OptimizeVI:
 
     # -- the KL -----------------------------------------------------------------
 
+    @_in_field
     def kl_minimize(
         self,
         samples: Samples,
@@ -313,6 +493,7 @@ class OptimizeVI:
         )
         return OptimizeVIState(nit, key, config=config)
 
+    @_in_field
     def update(self, samples: Samples, state: OptimizeVIState):
         """One VI iteration: the samples, then the KL step."""
         if not isinstance(samples, Samples):
@@ -449,6 +630,8 @@ def optimize_kl(
     callback: Optional[Callable] = None,
     odir: Optional[str] = None,
     export_operators: Optional[dict] = None,
+    devices=None,
+    position_sharding=None,
     _optimize_vi: Optional[OptimizeVI] = None,
     _optimize_vi_state: Optional[OptimizeVIState] = None,
 ):
@@ -460,7 +643,10 @@ def optimize_kl(
     function of one sample) are written as their posterior mean and
     standard deviation each iteration.  ``_optimize_vi`` and
     ``_optimize_vi_state`` replace the :class:`OptimizeVI` and the state
-    this function would make."""
+    this function would make.  ``devices`` and ``position_sharding`` run
+    it across ranks (see the module's docstring; the position is the
+    rank's shards, as ``position_from_numpy(..., sharding=)`` gives it);
+    ``odir`` is not taken with them."""
     opt_vi = _optimize_vi or OptimizeVI(
         likelihood,
         n_total_iterations,
@@ -468,7 +654,12 @@ def optimize_kl(
         residual_map=residual_map,
         kl_reduce=kl_reduce,
         mirror_samples=mirror_samples,
+        devices=devices,
+        position_sharding=position_sharding,
     )
+    if odir is not None and (opt_vi.field is not None or opt_vi.samples_axis is not None):
+        raise NotImplementedError("odir with devices= or position_sharding= is not ported "
+                                  "(ROADMAP.md): gather the samples (OptimizeVI.gather) and save them")
     last_fn = os.path.join(odir, "last.pkl") if odir is not None else None
     resume_fn = resume if isinstance(resume, str) and os.path.isfile(resume) else last_fn
     sanity_fn = os.path.join(odir, "minisanity.txt") if odir is not None else None

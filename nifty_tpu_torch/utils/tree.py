@@ -5,6 +5,13 @@ the functions here map over them with :mod:`torch.utils._pytree`, so the
 same trees pass through ``torch.func`` transforms.  :class:`Vector` wraps
 a tree with elementwise arithmetic.
 
+Inside :func:`~..parallel.collectives.field_sharded` (a field-sharded
+run) the leaves under the position keys it names are this rank's rows:
+:func:`vdot`, :func:`dot`, :func:`norm`, :func:`size`, :func:`sample_vdot`
+and :func:`sample_norm` sum those leaves' terms over the field group (the
+other leaves are replicated and count once), so every rank reads the
+whole field's value.
+
 A forest is a tree whose leaves carry a leading sample axis.  The maps
 over samples (:func:`get_map`) take forests: ``"vmap"`` batches a function
 with ``torch.func.vmap`` (so every kernel Function runs once per batch),
@@ -42,6 +49,7 @@ __all__ = [
     "mean_and_std",
     "norm",
     "ones_like",
+    "pmap",
     "random_like",
     "ravel",
     "sample_norm",
@@ -158,29 +166,86 @@ pytree.register_pytree_node(
 )
 
 
+def _shard_mask(tree):
+    """``(group, mask)``: per leaf of ``tree`` (in its flattening order)
+    whether it is a row shard of the active field context, or None outside
+    one."""
+    from ..parallel.collectives import field
+
+    ctx = field()
+    if ctx is None:
+        return None
+    mask = []
+
+    def walk(t, inside):
+        if isinstance(t, Vector):
+            walk(t.tree, inside)
+        elif isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, inside or k in ctx.keys)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v, inside)
+        else:
+            mask.extend([inside] * len(pytree.tree_leaves(t)))
+
+    walk(tree, False)
+    return (ctx.group, mask) if any(mask) else None
+
+
+def _total(terms, tree):
+    """Σ ``terms`` (one a leaf of ``tree``) in leaf order, each row shard's
+    term summed over the field group first (so one rank adds in the order
+    of the unsharded run)."""
+    sharded = _shard_mask(tree)
+    if sharded is not None:
+        from ..parallel.collectives import reduce_sum
+
+        group, mask = sharded
+        terms = [reduce_sum(t, group) if m else t for t, m in zip(terms, mask)]
+    return sum(terms[1:], terms[0])
+
+
 def size(tree) -> int:
-    return sum(x.numel() for x in _leaves(tree))
+    """The number of entries of ``tree`` (of the whole field, in a
+    field-sharded run)."""
+    sharded = _shard_mask(tree)
+    sizes = [x.numel() for x in _leaves(tree)]
+    if sharded is None:
+        return sum(sizes)
+    import torch.distributed as dist
+
+    p = dist.get_world_size(sharded[0])
+    return sum(n * (p if m else 1) for n, m in zip(sizes, sharded[1]))
 
 
 def vdot(a, b):
     """Tree-wide inner product ⟨a, b⟩, conjugating ``a``, as a 0-d tensor."""
     terms = [torch.vdot(x.reshape(-1), y.reshape(-1)) for x, y in zip(_leaves(a), _leaves(b))]
-    return sum(terms[1:], terms[0])
+    return _total(terms, a)
 
 
 def dot(a, b):
     """Tree-wide dot product Σ_leaves Σ a_i b_i, without conjugating ``a``,
     as a 0-d tensor."""
     terms = [(x.reshape(-1) * y.reshape(-1)).sum() for x, y in zip(_leaves(a), _leaves(b))]
-    return sum(terms[1:], terms[0])
+    return _total(terms, a)
 
 
 def norm(tree, ord=2):
     """Tree-wide p-norm of the concatenated leaves, as a 0-d tensor."""
     leaves = _leaves(tree)
     if ord == float("inf"):
-        return torch.stack([x.abs().max() for x in leaves]).max()
-    total = sum(x.abs().pow(ord).sum() for x in leaves)
+        top = torch.stack([x.abs().max() for x in leaves]).max()
+        sharded = _shard_mask(tree)
+        if sharded is not None:
+            import torch.distributed as dist
+
+            from ..parallel.collectives import _all_reduce
+
+            top = _all_reduce(top, sharded[0], op=dist.ReduceOp.MAX)
+        return top
+    total = _total([x.abs().pow(ord).sum() for x in leaves], tree)
     return total ** (1.0 / ord)
 
 
@@ -213,7 +278,7 @@ def sample_vdot(a, b):
     terms = [
         (x.conj() * y).reshape(x.shape[0], -1).sum(-1) for x, y in zip(_leaves(a), _leaves(b))
     ]
-    return sum(terms[1:], terms[0])
+    return _total(terms, a)
 
 
 def sample_norm(forest, ord=2):
@@ -380,11 +445,49 @@ def vmap(fun, in_axes=0):
     return torch.func.vmap(fun, in_dims=in_axes, randomness="error")
 
 
+def pmap(fun, in_axes=0):
+    """``fun`` mapped over the leading axis of its arguments across the
+    ranks of the default process group (one rank without one): each rank
+    takes its share of the axis (``parallel.host_local_slice``), maps it by
+    :func:`lmap`, and every rank gets all the outputs, stacked in order.
+    Every rank must call it; every share must be non-empty."""
+    _check_axes(in_axes, "pmap")
+    from ..parallel.mesh import gather_axis
+    from ..parallel.multihost import host_local_slice, process_count
+
+    local_map = lmap(fun, in_axes=in_axes)
+
+    def mapped(*args):
+        axes = in_axes if isinstance(in_axes, tuple) else (in_axes,)
+        axes = axes + (axes[-1],) * (len(args) - len(axes))
+        n = next(_leaves(a)[0].shape[0] for a, ax in zip(args, axes) if ax == 0)
+        p = process_count()
+        if n < p:
+            raise ValueError(f"pmap: {n} samples over {p} ranks leaves a rank none")
+        lo, hi = host_local_slice(n)
+        share = [tree_map(lambda x: x[lo:hi], a) if ax == 0 else a for a, ax in zip(args, axes)]
+        out = local_map(*share)
+        if p == 1:
+            return out
+        import torch.distributed as dist
+
+        m = -(-n // p)  # shares of m or m - 1: pad to m, gather, keep each share
+        sizes = [host_local_slice(n, count=p, index=r) for r in range(p)]
+
+        def gather(x):
+            pad = x.new_zeros((m - x.shape[0],) + tuple(x.shape[1:]))
+            full = gather_axis(torch.cat([x, pad]), 0, dist.group.WORLD)
+            return torch.cat([full[r * m : r * m + (b - a)] for r, (a, b) in enumerate(sizes)])
+
+        return tree_map(gather, out)
+
+    return mapped
+
+
 def get_map(map_spec):
     """A map over samples: ``"vmap"`` (:func:`vmap`, a batch), ``"lmap"`` or
-    ``"smap"`` (a loop, :func:`lmap`), or a callable ``map(fun,
-    in_axes=...)``.  ``"pmap"`` (samples across cards) is not ported
-    (ROADMAP.md, section A: multi-GPU)."""
+    ``"smap"`` (a loop, :func:`lmap`), ``"pmap"`` (across the ranks of the
+    process group, :func:`pmap`), or a callable ``map(fun, in_axes=...)``."""
     if callable(map_spec):
         return map_spec
     spec = str(map_spec).lower()
@@ -393,10 +496,7 @@ def get_map(map_spec):
     if spec in ("lmap", "smap"):
         return lmap
     if spec == "pmap":
-        raise NotImplementedError(
-            "map 'pmap': samples across several cards is not ported (ROADMAP.md, "
-            "section A: multi-GPU); use 'vmap' or 'lmap'"
-        )
+        return pmap
     raise ValueError(f"unknown map {map_spec!r}")
 
 

@@ -73,7 +73,9 @@ def test_public_names_match_the_reference():
 
 
 def test_import_loads_neither_matplotlib_nor_h5py():
-    code = ("import sys, nifty_tpu_torch; bad = [m for m in ('matplotlib', 'h5py', 'jax') "
+    """Nor jax, nor the JAX package, with the multi-GPU slice imported too."""
+    code = ("import sys, nifty_tpu_torch, nifty_tpu_torch.parallel; "
+            "bad = [m for m in ('matplotlib', 'h5py', 'jax', 'nifty_tpu') "
             "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,

@@ -146,6 +146,8 @@ def test_wrappers_raise_on_bad_cuda_input(cuda_device):
         cfft.hartley_rows(torch.zeros((256, 512), device=cuda_device).T)
     with pytest.raises(ValueError):
         cfft.hartley_rows(torch.zeros((256, 300), device=cuda_device))
+    with pytest.raises(ValueError):  # rows pair up: an odd count
+        cfft.hartley_rows(torch.zeros((321, 256), device=cuda_device))
     G = torch.zeros((256, 129), device=cuda_device, dtype=torch.complex64)
     with pytest.raises(ValueError):  # row pitch 129: K4 takes no unpadded half spectrum
         cfft.hartley_cols(G, 256)
@@ -798,3 +800,59 @@ def test_check_model_device_times(cuda_device):
     assert set(report) == {"forward", "jvp", "vjp"}
     for r in report.values():
         assert r["time_raw"] > 0 and r["device_ms"] > 0 and r["peak_bytes"] > 0
+
+
+# --- the range forms of the multi-GPU slice: K1r, K2r, K4r ------------------------------
+
+
+@pytest.mark.parametrize("n", [1280, 4096])
+@pytest.mark.parametrize("p", [2, 4, 8])
+def test_row_range_kernels_match_plain(cuda_device, n, p):
+    """K1r on each of p ranks' rows is K1's rows (bit-exact), K2r's partial
+    tables sum to K2's (relative 1e-6 of float64), at B = 1 and 4."""
+    full = (n, n)
+    index = grid_index(full)
+    index_d = copy.deepcopy(index).to(cuda_device)
+    b = n // p
+    for B in (1, 4):
+        batch = () if B == 1 else (B,)
+        tab = torch.randn((index.n_unique,) + batch, device=cuda_device)
+        cot = torch.randn(full + batch, device=cuda_device)
+        grid = ce.expand_to_grid(tab, index_d, full)
+        parts = 0
+        for r in range(p):
+            rows = (r * b, b)
+            assert torch.equal(ce.expand_to_grid_rows(tab, index_d, full, rows), grid[r * b:(r + 1) * b])
+            part = ce.collapse_from_grid_rows(cot[r * b:(r + 1) * b].contiguous(), index_d, full, rows)
+            ref = ce.collapse_from_grid_rows_plain(cot[r * b:(r + 1) * b].double().cpu(), index, full, rows)
+            assert _rel(part.double().cpu(), ref) <= 1e-6
+            parts = parts + part.double().cpu()
+        assert _rel(parts, ce.collapse_from_grid_plain(cot.double().cpu(), index, full)) <= 1e-6
+
+
+@pytest.mark.parametrize("rows", [320, 2, 1030])
+def test_row_kernel_takes_a_rank_s_rows(cuda_device, rows):
+    """K3 on any even number of rows (a rank's rows of 1280² over 4 ranks:
+    320), alone and in a batch of 2."""
+    for shape in ((rows, 1280), (2, rows, 1280)):
+        x = torch.randn(shape, device=cuda_device)
+        assert _rel(cfft.hartley_rows(x), cfft.hartley_rows_plain(x)) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(1280, 1280), (4096, 4096), (12288, 256)])
+@pytest.mark.parametrize("p", [2, 4, 8])
+def test_column_range_kernel_matches_plain(cuda_device, shape, p):
+    """K4r on each rank's column block of the half spectrum, its halo the
+    next block's first column (the last rank's the Nyquist column), against
+    its plain version, at B = 1 and 2; clusters and (12288 rows) the
+    two-column tiles."""
+    n0, n1 = shape
+    w = n1 // (2 * p)
+    for B in (1, 2):
+        x = torch.randn((B, n0, n1) if B > 1 else (n0, n1), device=cuda_device)
+        G = cfft.hartley_rows(x)
+        for r in range(p):
+            P = cfft.hartley_cols_range(G, w, r * w)
+            Pp = cfft.hartley_cols_range_plain(G[..., r * w:], w)
+            assert P.shape == Pp.shape and _rel(P, Pp) <= 1e-5
+    assert native.launches["hartley_cols_range"] >= 2 * p

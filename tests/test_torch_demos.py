@@ -1,5 +1,9 @@
 """The port's demos (``demos_torch/``) on the CPU.
 
+Demo 6 (the field row-sharded over ranks) runs at its fast size on 2 gloo
+ranks, which the script starts itself, and (``slow``) at its full size
+against the JAX package's run on the same data from the same start.
+
 The VI demos (0, 1, 2, 4, 5, 7, 8, 9, 10, 11, 12, 13) each run at their fast size in the
 default set (finite results, the demo's own check), and at full size
 against the JAX package's run of the same model on the same data from the
@@ -24,6 +28,8 @@ stays in the default set.
 
 import importlib.util
 import os
+import subprocess
+import sys
 
 import jax
 import numpy as np
@@ -404,4 +410,49 @@ def test_config_file_demo_matches_jax(tmp_path):
     samples, state = cfg.optimize_kl(nj.Vector({k: jnp.asarray(v) for k, v in out["start"].items()}),
                                      key=random.PRNGKey(4))
     assert state.nit == out["nit"] == 4
+    _agree(out["fields"], _fields(cf, samples))
+
+
+# --- demo 6: the field row-sharded over 2 gloo ranks ---------------------------------------
+
+
+def _field_sharded(tmp_path, fast):
+    """Demo 6 on 2 gloo ranks (the script starts them); rank 0's results."""
+    out = str(tmp_path / "demo6.npz")
+    res = subprocess.run(
+        [sys.executable, os.path.join(DEMOS, "6_field_sharded.py"), "--device", "cpu", "--ranks",
+         "2", "--out", out] + (["--fast"] if fast else []),
+        capture_output=True, text=True, timeout=900, env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert res.returncode == 0, (res.stdout + res.stderr)[-4000:]
+    assert "nrmse vs truth" in res.stdout
+    return dict(np.load(out))
+
+
+def test_field_sharded_demo_fast_run(tmp_path):
+    """Demo 6 at its fast size: it runs through on 2 ranks, its fields are
+    finite and its own check (nrmse < 0.6) holds."""
+    mod = _load("6_field_sharded.py")
+    out = _field_sharded(tmp_path, fast=True)
+    assert out["fields"].shape == (4,) + mod.shape_of(2, fast=True)
+    assert np.isfinite(out["fields"]).all()
+    mod.check(dict(out, shape=mod.shape_of(2, fast=True), ranks=2, nrmse=float(out["nrmse"])))
+
+
+@pytest.mark.slow
+def test_field_sharded_demo_matches_jax(tmp_path):
+    """Demo 6 at full size on 2 ranks against the JAX package's run of the
+    same model on the same data from the same start (unsharded: sharding
+    does not change the JAX package's posterior), within five Monte-Carlo
+    errors a pixel."""
+    mod = _load("6_field_sharded.py")
+    out = _field_sharded(tmp_path, fast=False)
+    shape = mod.shape_of(2)
+    cf = _jax_cf("cf", shape, 0.0, fluctuations=(1.0, 5e-1), loglogavgslope=(-3.0, 2e-1),
+                 flexibility=(1e0, 2e-1))
+    lh = nj.Gaussian(jnp.asarray(out["data"]), noise_std_inv=lambda x: 5.0 * x).amend(cf)
+    start = {k[len("start/"):]: v for k, v in out.items() if k.startswith("start/")}
+    samples = _jax_vi(lh, start, random.PRNGKey(42), n_total_iterations=4, n_samples=2,
+                      draw_linear_kwargs=dict(cg_kwargs=dict(absdelta=1e-6, maxiter=60)),
+                      kl_kwargs=dict(minimize_kwargs=dict(xtol=1e-6, maxiter=20)),
+                      sample_mode="linear_resample")
     _agree(out["fields"], _fields(cf, samples))

@@ -232,13 +232,20 @@ def test_optimize_kl_given_optimizer_and_state_match_jax():
 
 
 def test_optimize_kl_takes_no_multi_device_arguments():
-    """``jit``, ``devices`` and ``position_sharding`` are not taken (one card;
-    multi-GPU is not ported)."""
+    """``jit`` is not taken (an eager program compiles nothing); ``devices``
+    and ``position_sharding`` are (multi-GPU, tests/test_torch_parallel.py),
+    and without them, or None, the run is the one-process one."""
+    import inspect
+
     _, lht, _, _, cft, start = _pair()
-    for kw in (dict(jit=False), dict(devices=[0]), dict(position_sharding=None)):
-        with pytest.raises(TypeError):
-            nt.optimize_kl(lht, nt.position_from_numpy(cft, start), key=torch.Generator(),
-                           n_total_iterations=1, n_samples=0, **kw)
+    with pytest.raises(TypeError):
+        nt.optimize_kl(lht, nt.position_from_numpy(cft, start), key=torch.Generator(),
+                       n_total_iterations=1, n_samples=0, jit=False)
+    assert {"devices", "position_sharding"} <= set(inspect.signature(nt.optimize_kl).parameters)
+    st, state = nt.optimize_kl(lht, nt.position_from_numpy(cft, start), key=torch.Generator(),
+                               n_total_iterations=1, n_samples=0, devices=None,
+                               position_sharding=None)
+    assert state.nit == 1 and len(st) == 0
 
 
 def test_optimize_kl_checkpoint_loads_and_resumes(tmp_path):

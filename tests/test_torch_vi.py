@@ -529,12 +529,14 @@ def test_update_follows_schedules_and_constants():
 
 
 def test_maps_that_are_not_ported_raise():
-    """Only ``pmap`` (samples across cards) is not ported; ``vmap`` is the
-    default of both maps and ``trust-ncg`` a method of ``minimize``."""
+    """Every map of the JAX package is ported: ``pmap`` (samples across the
+    ranks of the process group) too, and an unknown map raises; ``vmap`` is
+    the default of both maps and ``trust-ncg`` a method of ``minimize``."""
     lh, _, _, _ = _intro_demo()
     for kw in (dict(kl_map="pmap"), dict(residual_map="pmap")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            nt.OptimizeVI(lh, 1, **kw)
+        assert nt.OptimizeVI(lh, 1, **kw).n_total_iterations == 1
+    with pytest.raises(ValueError, match="unknown map"):
+        nt.OptimizeVI(lh, 1, kl_map="xmap")
     for kw in (dict(kl_map="vmap"), dict(residual_map="vmap"), {}):
         assert nt.OptimizeVI(lh, 1, **kw).residual_map == kw.get("residual_map", "vmap")
     res = nt.minimize(lambda x: ((x - 1.0) ** 2).sum(), torch.zeros(2, dtype=torch.float64),

@@ -173,12 +173,17 @@ def test_batched_hartley_pair_plain_versions():
 
 
 def test_get_map_vmap_and_pmap():
+    """``pmap`` without a process group maps on the one rank there is, as
+    ``lmap`` (tests/test_torch_parallel.py runs it across ranks)."""
+    from nifty_tpu_torch.utils.tree import pmap
+
     assert nt.get_map("vmap") is nt.vmap and nt.get_map("lmap") is nt.lmap
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        nt.get_map("pmap")
+    assert nt.get_map("pmap") is pmap
     f = lambda a, b: a * b.sum()  # noqa: E731
     a, b = torch.arange(6.0).reshape(3, 2), torch.ones(4)
     np.testing.assert_array_equal(nt.vmap(f, in_axes=(0, None))(a, b).numpy(),
+                                  nt.lmap(f, in_axes=(0, None))(a, b).numpy())
+    np.testing.assert_array_equal(pmap(f, in_axes=(0, None))(a, b).numpy(),
                                   nt.lmap(f, in_axes=(0, None))(a, b).numpy())
     with pytest.raises(NotImplementedError):
         nt.vmap(f, in_axes=1)
