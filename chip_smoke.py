@@ -205,7 +205,19 @@ JAX.  Phases, each printing one JSON line to stdout:
    exact through ``optimize_kl`` with ``position_sharding=`` and with
    ``devices=`` against the unsharded iteration from the same seed at
    phase 8's settings (KL not rising, the distance printed) and with CG and
-   Newton-CG cut to 3 steps (relative 1e-4).
+   Newton-CG cut to 3 steps (relative 1e-4); (c) phase 13a's tomography,
+   its model and tables reused: the LOS cut to the rows of 8, 4 and 2
+   virtual ranks, the ranks' partial ray sums added and their pull-backs
+   of one cotangent joined against the whole LOS (1e-6 of max), then on
+   the one-rank group the row-sharded tomography metric (inside the field
+   context, the rank's share of the rays' data) against 13a's unsharded
+   one (relative L2 1e-5) and one MGVI iteration by
+   ``position_sharding=`` against the unsharded at CG 3 (1e-4); (d)
+   ``optimize_kl`` of (c) with ``odir`` and an exported field: two
+   iterations against one and a resume to the second (1e-4), ``last.pkl``
+   the gathered samples bit for bit; (e) phase 10's ``nuts_sample`` with
+   ``chain_map="pmap"`` against phase 10's ``"vmap"`` chains (the same
+   tree depths, relative L2 1e-2: a whole run amplifies f32 rounding).
 
 The launch counters are set to 0 just before each of phases 4-6, 9, 10b
 and 11, and before each VI run of phases 7 and 8 (``vi_mgvi_vmap``,
@@ -224,7 +236,9 @@ each sub-phase of 12 (``matern_table``, ``matern_pixel``, ``vmodel``,
 ``aux_power``, ``aux_check_model``, ``aux_adjust_optimize_kl``) and of
 17b (``parallel_hartley``, ``parallel_metric_exact``,
 ``parallel_metric_knot64``, ``parallel_vi_position_sharding``,
-``parallel_vi_devices``), and read just after it:
+``parallel_vi_devices``), 17c (``parallel_tomography_metric``,
+``parallel_tomography_vi``), 17d (``parallel_odir``) and 17e
+(``parallel_nuts_pmap``), and read just after it:
 K1-K4 must launch in phases 4, 5, 8-11, 12 (but for the Matérn pixel
 form and the 32² full-covariance VI) and 13a, K3/K4 (and not K1/K2) in 6,
 7, the pixel form and 13d, none in 10b, the 32² VI and 13b, c and e, and
@@ -233,7 +247,8 @@ its last iteration too; K1, K2, K5 and K6 (not K3/K4) in 14c, K5/K6 in 14d,
 K1, K2, K5 and K6 in 14e, none in 15, K1-K4 (not K5/K6) in each of 16a-e;
 K3 and K4r (not K4) in 17b's Hartley and knot metric, K1r, K2r, K3 and K4r
 (not K1, K2, K4) in its exact metric and its position-sharded MGVI, K1-K4
-(not the range forms) in its MGVI by ``devices=``;
+(not the range forms) in its MGVI by ``devices=``; K1r, K2r, K3 and K4r (not
+K1, K2, K4) in each run of 17c and 17d, K1-K4 on a batch in 17e;
 under ``vmap`` (and in the ``VModel``, density, NDVCG and mean-field runs) each must have launched on a batch of samples,
 chains or channels (``native.batched_launches``), under ``lmap`` none.
 Then it prints the whole run's seconds, the card line, the kernel summary
@@ -339,7 +354,15 @@ TOL = {"k2": 1e-6, "hartley": 1e-5, "metric": 1e-4, "kl_maps": 1e-5,  # K1 must 
        # unsharded from the same seed with its CG and Newton-CG cut to 3 steps: at
        # phase 8's 20 CG steps past convergence, rounding grows without bound (on
        # the CPU in float64 the two runs part by 4e-17 at 3 steps, 4e-6 at 20)
-       "pencil": 1e-6, "sharded_metric": 1e-6, "sharded_vi": 1e-4}
+       "pencil": 1e-6, "sharded_metric": 1e-6, "sharded_vi": 1e-4,
+       # 17c: the LOS's row blocks (f32 sums of a ray's segments, regrouped by rank)
+       # against the whole, of the maximum; the sharded tomography metric against
+       # 13a's (the partial ray sums add over the ranks in another order)
+       "los_rows": 1e-6, "tomography_metric": 1e-5,
+       # 17e: whole NUTS runs (12 transitions of up to 31 leapfrog steps) amplify
+       # float32 rounding: a batch of one against the 4-chain batch on the CPU parts
+       # by 1.7e-3 after phase 10's run, another chain by O(1); the depths must agree
+       "chains": 1e-2}
 
 
 def emit(obj):
@@ -484,7 +507,7 @@ def aux_phase(dev, read_launches, rel_l2):
     emit({"phase": "aux_total", "seconds": time.perf_counter() - t16})
 
 
-def parallel_phase(dev, read_launches, timing, built=None):
+def parallel_phase(dev, read_launches, timing, built=None, tomo=None, nuts=None):
     """Phase 17 (``PARALLEL``): (a) the range kernels at ``shape``² over
     virtual ranks, each rank's block launched in turn in this process: the
     pencil Hartley's stages (K3 on a rank's rows, K4r on its column block)
@@ -497,8 +520,12 @@ def parallel_phase(dev, read_launches, timing, built=None):
     ``optimize_kl`` with ``position_sharding=`` and with ``devices=``
     against the unsharded iteration from the same seed.  Launches are read
     by ``read_launches`` after each run of (b); ``built`` maps a shape to
-    phase 4's unsharded exact ``build_likelihood`` of it, reused.  Returns
-    the kernel summary rows of K1r, K2r and K4r."""
+    phase 4's unsharded exact ``build_likelihood`` of it, reused.  Then,
+    with ``tomo`` (phase 13a's likelihood, start and tangent) and ``nuts``
+    (phase 10's model, start and ``"vmap"`` chains): (c) the sharded
+    tomography, (d) ``optimize_kl`` with ``odir`` and a resume across the
+    group, (e) ``nuts_sample(chain_map="pmap")``.  Returns the kernel
+    summary rows of K1r, K2r and K4r."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -506,8 +533,9 @@ def parallel_phase(dev, read_launches, timing, built=None):
     import nifty_tpu_torch as nt
     from nifty_tpu_torch import native, parallel
     from nifty_tpu_torch.bench.timing import device_ms, fft_flops
+    from nifty_tpu_torch import io
     from nifty_tpu_torch.bench.workload import (build_likelihood, build_vi_likelihood, grid_index,
-                                                short_vi_settings, vi_settings)
+                                                sharded_tomography, short_vi_settings, vi_settings)
     from nifty_tpu_torch.ops import cuda_expand as ce
     from nifty_tpu_torch.ops import cuda_fft as cfft
     from nifty_tpu_torch.parallel.fft import pencil_stages, uses_kernels
@@ -603,6 +631,137 @@ def parallel_phase(dev, read_launches, timing, built=None):
 
         return x, H, scale
 
+    def tomography_17c(mesh, vi, rel_pos, short):
+        """17c: phase 13a's LOS cut to the rows of 2, 4 and 8 virtual ranks
+        (partial ray sums and joined pull-backs against the whole), then
+        on the group the row-sharded tomography metric against 13a's
+        unsharded one and one MGVI iteration by ``position_sharding=``
+        against the unsharded; 17d: ``optimize_kl`` with ``odir`` there,
+        two iterations against one and a resume."""
+        lh_t, start_np, tan_np = tomo["lh"], tomo["start_np"], tomo["tan_np"]
+        los = lh_t.forward_model.outer
+        n = los.domain.shape[0]
+        pw, tw = (nt.position_from_numpy(lh_t.forward_model, v) for v in (start_np, tan_np))
+        with torch.no_grad():
+            rho = lh_t.forward_model.inner(pw)
+        cot = torch.randn(tuple(los.target.shape), generator=g, device=dev)
+        whole = los(rho)
+        pull_whole = torch.func.vjp(los, rho)[1](cot)[0]
+        t0 = time.perf_counter()
+        virtual = {}
+        for p in PARALLEL["ranks"]:
+            b = n // p
+            parts, pulls = 0, []
+            for r in range(p):
+                rows = rho[r * b:(r + 1) * b]
+                parts = parts + los.rows_partial(rows, r * b)
+                pulls.append(torch.func.vjp(lambda v, r=r: los.rows_partial(v, r * b), rows)[1](cot)[0])
+            e_sum = float((parts - whole).abs().max()) / float(whole.abs().max())
+            e_pull = float((torch.cat(pulls) - pull_whole).abs().max()) / float(pull_whole.abs().max())
+            virtual[p] = {"ray_sums_rel_err": e_sum, "pull_backs_rel_err": e_pull,
+                          "block_bytes": sum(t.table_bytes() for t in los.row_tables.values())}
+            los.row_tables.clear()
+            if not (e_sum <= TOL["los_rows"] and e_pull <= TOL["los_rows"]):
+                fail(f"parallel: the LOS's row blocks over {p} ranks are {e_sum} (ray sums), "
+                     f"{e_pull} (pull-backs) > {TOL['los_rows']} off the whole")
+        virtual_s = time.perf_counter() - t0
+        del parts, pulls, whole, pull_whole, rho, cot
+
+        lh_s = sharded_tomography(lh_t, mesh)
+        cf_s = lh_s.forward_model.inner.inner
+        sh = cf_s.position_sharding()
+        rows_keys = [k for k, v in sh.items() if v.split_axes()]
+        ps, ts = (nt.position_from_numpy(cf_s, v, sharding=sh) for v in (start_np, tan_np))
+        native.reset_launches()
+        t0 = time.perf_counter()
+        with parallel.field_sharded(mesh.get_group("fx"), rows_keys):
+            ms = lh_s.metric(ps, ts)
+            sync()
+            first_s = time.perf_counter() - t0
+            read_launches("parallel_tomography_metric", SHARDED, refuse=("K1", "K2", "K4"))
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                lh_s.metric(ps, ts)
+                sync()
+                times.append(1e3 * (time.perf_counter() - t0))
+        ref = lh_t.metric(pw, tw)
+        err = rel_pos(ms, ref)
+        emit({"phase": "parallel_tomography", "shape": [n, n], "rays": int(los.target.shape[0]),
+              "ranks": 1, "virtual_ranks": virtual, "virtual_s": virtual_s, "metric_first_s": first_s,
+              "metric_apply_ms_median": float(np.median(times)), "metric_apply_ms_all": times,
+              "rel_l2_vs_unsharded": err})
+        if not err <= TOL["tomography_metric"]:
+            fail(f"parallel: the sharded tomography metric {err} > {TOL['tomography_metric']}")
+        del ms, ref, ts
+        ref_short, _, ref_s = vi(lh_t, pw, short)
+        native.reset_launches()
+        got, st, secs = vi(lh_s, ps, short, position_sharding=sh)
+        read_launches("parallel_tomography_vi", SHARDED, refuse=("K1", "K2", "K4"))
+        err = rel_pos(got.pos, ref_short.pos)
+        emit({"phase": "parallel_tomography_vi", "shape": [n, n], "ranks": 1, "by": "position_sharding",
+              "settings": "CG 3", "seconds": secs, "unsharded_seconds": ref_s,
+              "kl_after": float(st.minimization_state.fun), "rel_l2_vs_unsharded": err})
+        if not (err <= TOL["sharded_vi"] and all(bool(torch.isfinite(v).all()) for v in got.pos.values())):
+            fail(f"parallel: the sharded tomography MGVI iteration is {err} > {TOL['sharded_vi']} off")
+
+        # 17d. optimize_kl with odir across the group: two iterations, and one then a resume
+        native.reset_launches()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as od:
+            runs = {}
+            for name, iters in (("straight", (2,)), ("resumed", (1, 2))):
+                for it in iters:
+                    smp, st, _ = vi(lh_s, ps, short, n_total_iterations=it, position_sharding=sh,
+                                    odir=os.path.join(od, name), resume=name == "resumed" and it == 2,
+                                    export_operators={"field": cf_s})
+                runs[name] = (smp, st, io.load_samples(os.path.join(od, name, "last.pkl"), "cpu"),
+                              np.load(os.path.join(od, name, "operator_outputs", "field_last.npz")))
+            secs = time.perf_counter() - t0
+        read_launches("parallel_odir", SHARDED, refuse=("K1", "K2", "K4"))
+        (a, st_a, file_a, exp_a), (b, st_b, file_b, exp_b) = runs["straight"], runs["resumed"]
+        err = rel_pos(b.pos, a.pos)
+        file_same = all(torch.equal(file_a.pos[k], a.pos[k].cpu()) for k in a.pos)
+        exp_ok = exp_a["mean"].shape == (n, n) and bool(np.isfinite(exp_a["mean"]).all())
+        emit({"phase": "parallel_odir", "shape": [n, n], "ranks": 1, "settings": "CG 3",
+              "seconds": secs, "nit": [st_a.nit, st_b.nit], "rel_l2_resumed_vs_straight": err,
+              "last_pkl_equals_gathered": file_same, "export_mean_shape": list(exp_a["mean"].shape),
+              "export_rel_l2_resumed_vs_straight": float(
+                  np.linalg.norm(exp_b["mean"] - exp_a["mean"]) / np.linalg.norm(exp_a["mean"]))})
+        if not (st_a.nit == st_b.nit == 2 and err <= TOL["sharded_vi"] and file_same and exp_ok):
+            fail(f"parallel: odir across the group: nit {st_a.nit}, {st_b.nit}, resumed {err} off, "
+                 f"last.pkl the gathered samples {file_same}, export {exp_ok}")
+        del lh_s, cf_s, ps, got, runs, a, b, file_a, file_b
+        tomo.clear()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def nuts_17e():
+        """17e: phase 10's NUTS run with ``chain_map="pmap"`` on the group
+        (its one rank takes every chain) against phase 10's ``"vmap"``
+        chains."""
+        lh_m, start, info_v = nuts["lh"], nuts["start"], nuts["info"]
+        native.reset_launches()
+        t0 = time.perf_counter()
+        _, info = nt.nuts_sample(
+            lh_m, MCMC["seed"], n_chains=MCMC["chains"], n_samples=MCMC["n_samples"],
+            n_warmup=MCMC["n_warmup"], initial_position=start, max_tree_depth=MCMC["max_tree_depth"],
+            step_size=MCMC["step_size"], chain_map="pmap")
+        sync()
+        secs = time.perf_counter() - t0
+        read_launches("parallel_nuts_pmap", FIELD, batch=FIELD)
+        got, want = info["chain_samples"], info_v["chain_samples"]
+        num = sum(float(((got[k].double() - want[k].double()) ** 2).sum()) for k in want)
+        err = (num / sum(float((want[k].double() ** 2).sum()) for k in want)) ** 0.5
+        same_depths = torch.equal(info["tree_depths"].cpu(), info_v["tree_depths"].cpu())
+        emit({"phase": "parallel_nuts_pmap", "ranks": 1, "chains": MCMC["chains"], "seconds": secs,
+              "rel_l2_vs_vmap": err, "same_tree_depths": same_depths,
+              "tree_depths": info["tree_depths"].tolist()})
+        if not (same_depths and err <= TOL["chains"]):
+            fail(f"parallel: pmap chains off the vmap ones: depths equal {same_depths}, "
+                 f"relative L2 {err} > {TOL['chains']}")
+        nuts.clear()
+
     t17 = time.perf_counter()
     f32 = torch.float32
     g = torch.Generator(device=dev).manual_seed(PARALLEL["seed"])
@@ -675,11 +834,11 @@ def parallel_phase(dev, read_launches, timing, built=None):
 
             short = short_vi_settings()
 
-            def vi(lh, pos, settings, **kw):
+            def vi(lh, pos, settings, n_total_iterations=1, **kw):
                 t0 = time.perf_counter()
                 smp, st = nt.optimize_kl(lh, pos, key=torch.Generator(device=dev).manual_seed(
-                    PARALLEL["seed"]), n_total_iterations=1, sample_mode="linear_resample",
-                    **settings, **kw)
+                    PARALLEL["seed"]), n_total_iterations=n_total_iterations,
+                    sample_mode="linear_resample", **settings, **kw)
                 sync()
                 return smp, st, time.perf_counter() - t0
 
@@ -715,6 +874,11 @@ def parallel_phase(dev, read_launches, timing, built=None):
                 if not err_short <= TOL["sharded_vi"]:
                     fail(f"parallel: the MGVI iteration by {name} (CG 3) is {err_short} > "
                          f"{TOL['sharded_vi']} off the unsharded one")
+            del lh_x, lh_s, ref, ref_short, start
+            if tomo is not None:
+                tomography_17c(mesh, vi, rel_pos, short)
+            if nuts is not None:
+                nuts_17e()
         finally:
             dist.destroy_process_group()
     emit({"phase": "parallel_total", "seconds": time.perf_counter() - t17})
@@ -1302,6 +1466,7 @@ def main() -> int:
     if not dh_err.max() <= TOL["dH"]:
         fail(f"mcmc: ΔH over {MCMC['hmc_steps']} leapfrog steps {dh32} on the card, {dh64} in "
              f"f64 on the CPU: {dh_err} > {TOL['dH']}")
+    nuts_ref = dict(lh=lh_m, start=start, info=info)  # 17e's "vmap" chains
     del lh_m, lh64, cf64, samples, info, last, start, nuts_chain, hmc_chain, hmc_out, by_map
     del grad, x_last, g4, q8, p8
     torch.cuda.empty_cache()
@@ -1677,6 +1842,7 @@ def main() -> int:
           "rel_max_vs_exact": rel_max(a, b), "excess_over_tolerance": excess, "ms_median": sampled_ms})
     if not excess <= 0:
         fail(f"sampled LOS: {excess} beyond {TOL['sampled_los']} (abs and rel) of the exact LOS")
+    tomo_ref = dict(lh=lh_t, start_np=start_np, tan_np=tan_np)  # 17c reuses the model and tables
     del lh_t, los, tab, rho, sampled, exact_sub, pull, a, b, g_s
     torch.cuda.empty_cache()
 
@@ -2061,7 +2227,8 @@ def main() -> int:
     aux_phase(dev, read_launches, rel_l2)
 
     # -- 17. the multi-GPU slice (PARALLEL) ------------------------------------------
-    summary.update(parallel_phase(dev, read_launches, timing, built=card))
+    summary.update(parallel_phase(dev, read_launches, timing, built=card, tomo=tomo_ref,
+                                  nuts=nuts_ref))
 
     sources = {"K1": ("nifty_tpu_torch/csrc/expand.cu", "nifty_tpu/ops/pallas_expand.py:108"),
                "K2": ("nifty_tpu_torch/csrc/expand.cu", "nifty_tpu/ops/pallas_expand.py:161"),

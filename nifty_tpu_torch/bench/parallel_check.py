@@ -3,7 +3,8 @@
 Usage (from the root of a checkout)::
 
     python3 nifty_tpu_torch/bench/parallel_check.py --ranks 4 [--shape 4096] [--vi 1280]
-    python3 nifty_tpu_torch/bench/parallel_check.py --ranks 4 --device cpu --shape 512 --vi 256
+    python3 nifty_tpu_torch/bench/parallel_check.py --ranks 4 --device cpu --shape 512 --vi 256 \
+        --tomography 256 --rays 512 --nuts 64
 
 It starts ``--ranks`` processes (NCCL, rank r on card r; gloo with
 ``--device cpu``), float32, and on every rank, against the same work done
@@ -23,7 +24,23 @@ unsharded on the rank's own card:
    ``devices=`` (each rank its share of ``ranks`` sample pairs), against
    the unsharded iteration from the same seed with CG and Newton-CG cut to
    3 steps (past that, rounding grows without bound): relative L2 1e-4;
-   and the seconds of an iteration at ``bench.workload.vi_settings``.
+   and the seconds of an iteration at ``bench.workload.vi_settings``;
+4. demo 1 at full width (``bench.workload.tomography``: the exact
+   ``tomography``² field through ``exp`` and ``ExactGridLOS`` over
+   ``rays`` rays) on the row-sharded field, the rank's share of the rays'
+   data: its metric inside the field context against the unsharded
+   (relative L2 1e-5), and one MGVI iteration by ``position_sharding=``
+   against the unsharded at CG 3 (1e-4), with the seconds of each;
+5. ``optimize_kl`` of 4. with ``odir``: two iterations against one and a
+   resume (1e-4), ``last.pkl`` (written by rank 0) against the gathered
+   samples, bit for bit;
+6. ``nuts_sample(chain_map="pmap")`` of ``nuts``² exact (chip_smoke.py's
+   phase 10 settings: 4 chains, 8 warm-up and 4 samples, depth 5), a block
+   of chains a rank, against the same chains by ``"lmap"`` on the rank's own
+   card (with one chain a rank, the same arithmetic: batches of one), the
+   same tree depths and relative L2 1e-2 (a whole run amplifies float32
+   rounding: 4 gloo ranks at 64² part from the 4-chain batch by 1.7e-3,
+   another chain by O(1)), with the seconds of each and of ``"vmap"``.
 
 Times are host seconds around work that ends in a synchronize and a
 barrier (the slowest rank's), the median of ``--reps`` after one warm-up.
@@ -41,7 +58,8 @@ import sys
 import tempfile
 import time
 
-TOL = {"hartley": 1e-6, "metric": 1e-5, "vi": 1e-4}
+TOL = {"hartley": 1e-6, "metric": 1e-5, "vi": 1e-4, "chains": 1e-2}
+NUTS = dict(n_chains=4, n_warmup=8, n_samples=4, max_tree_depth=5, step_size=1e-3)  # chip_smoke.py's MCMC
 
 
 def _rel(got, ref):
@@ -57,8 +75,10 @@ def _rank(args):
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir, os.pardir))
     import nifty_tpu_torch as nt
     from nifty_tpu_torch import parallel
-    from nifty_tpu_torch.bench.workload import (build_likelihood, build_vi_likelihood,
-                                                short_vi_settings, vi_settings)
+    from nifty_tpu_torch import io
+    from nifty_tpu_torch.bench.workload import (build_likelihood, build_vi_likelihood, latent_draw,
+                                                sharded_tomography, short_vi_settings, tomography,
+                                                vi_settings)
     from nifty_tpu_torch.ops import cuda_fft as cfft
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -137,9 +157,9 @@ def _rank(args):
     sh = lh_s.forward_model.inner.position_sharding()
     short = short_vi_settings()
 
-    def vi(lh, pos, settings, **kw):
+    def vi(lh, pos, settings, n_total_iterations=1, **kw):
         return nt.optimize_kl(lh, pos, key=torch.Generator(device=dev).manual_seed(81),
-                              n_total_iterations=1, sample_mode="linear_resample",
+                              n_total_iterations=n_total_iterations, sample_mode="linear_resample",
                               **settings, **kw)[0]
 
     whole = nt.position_from_numpy(lh_x.forward_model, start_np)
@@ -158,6 +178,74 @@ def _rank(args):
                 "sample_pairs": n_pairs, "s_median": med, "s_all": all_s,
                 "unsharded_s_median": seconds(lambda: vi(lh_x, whole, settings), args.reps)[0]},
                err, TOL["vi"])
+    del lh_x, lh_s, whole
+
+    # 4. demo 1 at full width on the row-sharded field
+    nt_ = args.tomography
+    lh_t, _, start_np, _ = tomography(nt_, args.rays, dev)
+    tan_np = latent_draw(lh_t.forward_model.domain, 3)
+    lh_ts = sharded_tomography(lh_t, mesh)
+    cf_s = lh_ts.forward_model.inner.inner
+    sh = cf_s.position_sharding()
+    rows = [k for k, v in sh.items() if v.split_axes()]
+    ps, ts = (nt.position_from_numpy(cf_s, v, sharding=sh) for v in (start_np, tan_np))
+    pw, tw = (nt.position_from_numpy(lh_t.forward_model, v) for v in (start_np, tan_np))
+    with parallel.field_sharded(mesh.get_group("fx"), rows):
+        ms = lh_ts.metric(ps, ts)
+        med, all_s = seconds(lambda: lh_ts.metric(ps, ts), args.reps)
+    mf = lh_t.metric(pw, tw)
+    report({"check": "tomography_metric", "shape": [nt_, nt_], "rays": args.rays, "ranks": p,
+            "ms_median": 1e3 * med, "ms_all": [1e3 * s for s in all_s],
+            "unsharded_ms_median": 1e3 * seconds(lambda: lh_t.metric(pw, tw), args.reps)[0]},
+           _rel(ms, {k: sh[k].shard(v) for k, v in mf.items()}), TOL["metric"])
+    del ms, mf, ts, tw
+    ref = vi(lh_t, pw, short)
+    got = vi(lh_ts, ps, short, position_sharding=sh)
+    settings = vi_settings()
+    med, all_s = seconds(lambda: vi(lh_ts, ps, settings, position_sharding=sh), args.reps)
+    report({"check": "tomography_mgvi_iteration", "by": "position_sharding", "shape": [nt_, nt_],
+            "rays": args.rays, "ranks": p, "s_median": med, "s_all": all_s,
+            "unsharded_s_median": seconds(lambda: vi(lh_t, pw, settings), args.reps)[0]},
+           _rel(got.pos, {k: sh[k].shard(v) for k, v in ref.pos.items()}), TOL["vi"])
+
+    # 5. odir: two iterations, and one then a resume
+    od = os.path.join(os.path.dirname(args.store), "odir")
+    t0 = time.perf_counter()
+    straight = vi(lh_ts, ps, short, 2, position_sharding=sh, odir=os.path.join(od, "straight"))
+    vi(lh_ts, ps, short, 1, position_sharding=sh, odir=os.path.join(od, "resumed"))
+    resumed = vi(lh_ts, ps, short, 2, position_sharding=sh, odir=os.path.join(od, "resumed"), resume=True)
+    secs = time.perf_counter() - t0
+    whole = nt.OptimizeVI(lh_ts, 2, position_sharding=sh).gather(straight)
+    same = True
+    if rank == 0:
+        saved = io.load_samples(os.path.join(od, "straight", "last.pkl"), "cpu")
+        same = all(torch.equal(saved.pos[k], v.cpu()) for k, v in whole.pos.items())
+    report({"check": "odir_resume", "by": "position_sharding", "shape": [nt_, nt_], "ranks": p,
+            "seconds_three_runs": secs, "last_pkl_equals_gathered": same},
+           _rel(resumed.pos, straight.pos) if same else float("inf"), TOL["vi"])
+    del lh_t, lh_ts, cf_s, ps, pw, ref, got, straight, resumed, whole
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # 6. NUTS chains across the ranks
+    lh_m, _ = build_vi_likelihood(args.nuts, dev, f32, None)
+    truth = latent_draw(lh_m.forward_model.domain, 0)
+    start = nt.position_from_numpy(lh_m.forward_model, {
+        k: np.repeat(v[None], NUTS["n_chains"], axis=0) for k, v in truth.items()}, batch=(NUTS["n_chains"],))
+    runs = {}
+    for cmap in ("lmap", "vmap", "pmap"):
+        t0 = time.perf_counter()
+        runs[cmap] = nt.nuts_sample(lh_m, 21, initial_position=start, chain_map=cmap, **NUTS)[1]
+        sync()
+        runs[cmap]["seconds"] = time.perf_counter() - t0
+    got, want = runs["pmap"], runs["lmap"]
+    depths = torch.equal(got["tree_depths"].cpu(), want["tree_depths"].cpu())
+    report({"check": "nuts_pmap", "shape": [args.nuts, args.nuts], "ranks": p, **NUTS,
+            "s": got["seconds"], "lmap_s": want["seconds"], "vmap_s": runs["vmap"]["seconds"],
+            "same_tree_depths": depths, "tree_depths": got["tree_depths"].tolist(),
+            "rel_l2_vs_vmap": _rel(got["chain_samples"], runs["vmap"]["chain_samples"])},
+           _rel(got["chain_samples"], want["chain_samples"]) if depths else float("inf"),
+           TOL["chains"])
     dist.destroy_process_group()
     if rank == 0:
         for line in results:
@@ -172,6 +260,9 @@ def main(argv=None):
     parser.add_argument("--shape", type=int, default=4096)
     parser.add_argument("--vi", type=int, default=1280)
     parser.add_argument("--reps", type=int, default=5)
+    parser.add_argument("--tomography", type=int, default=1280, help="demo 1's grid (check 4)")
+    parser.add_argument("--rays", type=int, default=16384, help="demo 1's rays (check 4)")
+    parser.add_argument("--nuts", type=int, default=1280, help="the NUTS grid (check 6)")
     parser.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     parser.add_argument("--store", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
@@ -179,7 +270,8 @@ def main(argv=None):
         return _rank(args)
     store = os.path.join(tempfile.mkdtemp(), "store")
     cmd = [sys.executable, os.path.abspath(__file__), "--store", store, "--ranks", str(args.ranks),
-           "--shape", str(args.shape), "--vi", str(args.vi), "--reps", str(args.reps)]
+           "--shape", str(args.shape), "--vi", str(args.vi), "--reps", str(args.reps),
+           "--tomography", str(args.tomography), "--rays", str(args.rays), "--nuts", str(args.nuts)]
     cmd += ["--device", args.device] if args.device else []
     procs = [subprocess.Popen(cmd + ["--rank", str(r)]) for r in range(args.ranks)]
     codes = [pr.wait() for pr in procs]

@@ -305,6 +305,26 @@ def tomography(n, n_rays, device, noise=1e-2):
     return lh32, lh64, latent_draw(fwd32.domain, 2), table_s
 
 
+def sharded_tomography(lh, field_mesh):
+    """:func:`tomography`'s card likelihood ``lh`` on a row-sharded field:
+    the same line of sight (its tables cut for the rank's rows at the first
+    apply inside the field context) and noise, :func:`bench_field`
+    row-sharded over ``field_mesh``'s axis "fx", and the rank's share of
+    the rays' data."""
+    import torch
+
+    import nifty_tpu_torch as nt
+    from nifty_tpu_torch.parallel.fft import mesh_axis
+
+    los, gauss = lh.forward_model.outer, lh.likelihood
+    w = los.table.wgt
+    cf = bench_field(los.domain.shape[0], w.device, w.dtype, field_mesh=field_mesh)
+    ax = mesh_axis(field_mesh, "fx")
+    data = gauss.data.chunk(ax.size)[ax.rank].contiguous()
+    return nt.Gaussian(data, noise_cov_inv=gauss.cov_weight).amend(
+        nt.ChainModel(los, nt.ChainModel(torch.exp, cf)))
+
+
 def sphere_field(nside, device, dtype, regular=None):
     """``bench_extra.py:98-125``'s spherical correlated field (HEALPix,
     lmax 2 nside); with ``regular``, its outer product with a regular axis

@@ -7,8 +7,11 @@ chain axis), where the JAX package's users ``jax.vmap`` the call:
 ``chain_map="vmap"`` runs the chains as one batch, so the potential's
 energy and gradient go through ``torch.func.vmap`` and every kernel
 launches once per batch; ``"lmap"`` runs them one after another as
-batches of one.  Chain ``c`` draws from its own generator, seeded with
-its key, so both maps give the same chains.
+batches of one; ``"pmap"`` gives each rank of the process group a block
+of the chains, which it runs as by ``"vmap"`` on its own card, and hands
+every rank all of them (chains are independent: no collective runs until
+the results are gathered).  Chain ``c`` draws from its own generator,
+seeded with its key, so the three maps give the same chains.
 
 Inside a run a chain's position and momentum are its tree's leaves laid
 end to end (:class:`Ravel`), a ``(B, D)`` tensor for B chains, so the
@@ -142,22 +145,52 @@ def _cat(outs):
     return tree_map(lambda *xs: None if xs[0] is None else torch.cat(xs), *outs)
 
 
+def _pmap_chains(run, draws: ChainDraws, *forests):
+    """``"pmap"``: this rank's block of the chains (``host_local_slice``)
+    run as one batch, then every rank's outputs gathered in chain order
+    (padded to the largest block)."""
+    from .parallel.mesh import gather_axis
+    from .parallel.multihost import host_local_slice, process_count
+
+    n, p = len(draws), process_count()
+    if n < p:
+        raise ValueError(f"chain_map 'pmap': {n} chains over {p} ranks leave a rank none")
+    lo, hi = host_local_slice(n)
+    block = ChainDraws(draws.keys[lo:hi], draws.device, draws.generators[lo:hi])
+    out = run(block, *(tree_map(lambda x: x[lo:hi], f) for f in forests))
+    if p == 1:
+        return out
+    import torch.distributed as dist
+
+    m = -(-n // p)  # blocks of m or m - 1 chains: pad to m, gather, keep each block
+    sizes = [host_local_slice(n, count=p, index=r) for r in range(p)]
+
+    def gather(x):
+        if x is None:
+            return None
+        pad = x.new_zeros((m - x.shape[0],) + tuple(x.shape[1:]))
+        full = gather_axis(torch.cat([x, pad]), 0, dist.group.WORLD)
+        return torch.cat([full[r * m : r * m + (b - a)] for r, (a, b) in enumerate(sizes)])
+
+    return tree_map(gather, out)
+
+
 def map_chains(chain_map, run, draws: ChainDraws, *forests):
     """``run(draws, *forests)`` over the chains: ``"vmap"`` calls it once
     on all of them; ``"lmap"`` (or ``"smap"``) once a chain, on batches of
-    one, concatenating the outputs along their leading (chain) axis.
-    ``"pmap"`` (chains across ranks) is not ported: a chain's tree is built
-    on the host, one leaf at a time, so the ranks would wait on each other
-    every leaf (ROADMAP.md)."""
+    one; ``"pmap"`` once on each rank's block of the chains, as the
+    default process group's ranks share them out
+    (``parallel.host_local_slice``), every rank getting every chain's
+    outputs; each concatenating the outputs along their leading (chain)
+    axis."""
     spec = str(chain_map).lower()
     if spec == "vmap":
         return run(draws, *forests)
     if spec == "pmap":
-        raise NotImplementedError("chain_map 'pmap': chains across ranks are not ported "
-                                  "(ROADMAP.md); use 'vmap' or 'lmap'")
+        return _pmap_chains(run, draws, *forests)
     if spec not in ("lmap", "smap"):
         get_map(spec)  # raises for unknown maps
-        raise ValueError(f"chain_map must be 'vmap' or 'lmap', not {chain_map!r}")
+        raise ValueError(f"chain_map must be 'vmap', 'lmap' or 'pmap', not {chain_map!r}")
     return _cat([
         run(draws.chain(c), *(tree_map(lambda x, c=c: x[c:c + 1], f) for f in forests))
         for c in range(len(draws))

@@ -13,6 +13,18 @@ index, weight)`` tables, and the apply is the weighted gather-reduce of
 gather over a cell-major table: deterministic on the card.  The indices
 are int64, so grids of 2³¹ cells and more are indexed right (the JAX
 package's tables are int32); the weights are float32, as the reference's.
+
+Both are field-aware: inside :func:`~.parallel.collectives.field_sharded`
+their input is the rank's rows of a row-sharded field, and their output
+the rank's share of the rays (``field_share``), so the likelihood's data
+are that share (see :mod:`.parallel.collectives`).  The exact response
+then applies the tables of the rank's cells, cut once per row range in
+numpy (:func:`~.ops.gather_reduce.column_block` of the per-ray tables, a
+slice of the cell-major ones) and kept, and reduce-scatters the partial
+ray sums; the sampled one weights only the corners in the rank's rows and
+reduce-scatters likewise.  A point outside the whole grid is NaN on every
+rank, one outside the rank's rows adds 0.  Outside the context both act
+on the whole grid.
 """
 
 from __future__ import annotations
@@ -22,11 +34,35 @@ import torch
 
 from . import device as _device
 from .model import LazyModel
-from .ops.gather_reduce import PaddedSparse
+from .ops.gather_reduce import PaddedSparse, column_block, transpose_block, transpose_tables
 from .ops.ndimage import map_coordinates
+from .parallel import collectives
 from .utils.tree import ShapeWithDtype
 
 __all__ = ["ExactGridLOS", "SamplingCartesianGridLOS"]
+
+
+def _share(target, p):
+    """The shape of a rank's share of an output of shape ``target`` split
+    over ``p`` ranks along its leading axis."""
+    if not target or target[0] % p:
+        raise NotImplementedError(
+            f"position_sharding= takes a line of sight whose rays split over the ranks: "
+            f"{tuple(target)} rays over {p} ranks do not (ROADMAP.md)")
+    return (target[0] // p,) + tuple(target[1:])
+
+
+def _field_aware(response, x):
+    """``response`` applied to ``x``: the whole grid outside a field
+    context; inside one, ``x`` the rank's rows, the ranks' partial outputs
+    summed and this rank's share of them kept."""
+    ctx = collectives.field()
+    if ctx is None:
+        return response.rows_partial(x)
+    response.field_share(torch.distributed.get_world_size(ctx.group))
+    lo, _ = collectives.rank_rows(ctx.group, x.shape[0], response.domain.shape[0])
+    out = collectives.reduce_scatter(response.rows_partial(x, lo), ctx.group)
+    return collectives.note_split(out)
 
 
 class SamplingCartesianGridLOS(LazyModel):
@@ -52,15 +88,25 @@ class SamplingCartesianGridLOS(LazyModel):
         self.n_sampling_points = int(n_sampling_points)
         self.order = int(interpolation_order)
 
-    def forward(self, x):
+    def field_share(self, p: int):
+        """The shape of a rank's share of the output over ``p`` ranks."""
+        return _share(tuple(self.target.shape), p)
+
+    def rows_partial(self, x, lo=None):
+        """Every ray's integral over the grid's rows ``[lo, lo + len(x))``,
+        ``x`` those rows (over the whole grid for ``lo`` None)."""
         n = self.n_sampling_points
         start, end = torch.broadcast_tensors(self.start, self.end)
         si, ei = start * self.l2i, end * self.l2i
         t = torch.arange(n, device=si.device, dtype=si.dtype) + 0.5
         pts = si[..., None] + ((ei - si) / n)[..., None] * t  # (..., ndim, n)
         length = torch.linalg.vector_norm(end - start, dim=-1)
-        vals = map_coordinates(x, pts.movedim(-2, 0), self.order, cval=float("nan"))
+        rows = None if lo is None else (lo, self.domain.shape[0])
+        vals = map_coordinates(x, pts.movedim(-2, 0), self.order, cval=float("nan"), rows=rows)
         return vals.sum(-1) * (length / n)
+
+    def forward(self, x):
+        return _field_aware(self, x)
 
 
 # --- exact ray-cell traversal (the reference's LOSResponse) --------------------
@@ -207,7 +253,9 @@ class ExactGridLOS(LazyModel):
     the expectation over endpoints, truncated at ``truncation`` sigma.
     The tables (:func:`los_tables`) live on ``device`` (the CUDA card by
     default), the weights in ``dtype``; ``table`` is the
-    :class:`~.ops.gather_reduce.PaddedSparse` response matrix."""
+    :class:`~.ops.gather_reduce.PaddedSparse` response matrix, and
+    ``row_tables`` those of the row ranges a sharded run has applied
+    (:meth:`rows_table`)."""
 
     def __init__(self, starts, ends, *, shape, distances, sigmas=None, truncation: float = 3.0,
                  dtype=None, device=None):
@@ -216,7 +264,38 @@ class ExactGridLOS(LazyModel):
         shape = tuple(int(s) for s in np.atleast_1d(shape))
         super().__init__(domain=ShapeWithDtype(shape, dtype),
                          target=ShapeWithDtype((idx.shape[0],), dtype))
-        self.table = PaddedSparse(idx, wgt, int(np.prod(shape)), device=device, dtype=dtype)
+        t_tables = transpose_tables(idx, wgt)
+        self.table = PaddedSparse(idx, wgt, int(np.prod(shape)), device=device, dtype=dtype,
+                                  transpose=t_tables)
+        self._tables = (idx, wgt) + t_tables  # numpy, cut for a rank's rows
+        self.row_tables = torch.nn.ModuleDict()
+
+    def field_share(self, p: int):
+        """The shape of a rank's share of the rays over ``p`` ranks."""
+        return _share(tuple(self.target.shape), p)
+
+    def rows_table(self, lo: int, n: int) -> PaddedSparse:
+        """The response of the grid's rows ``[lo, lo + n)``: every ray's
+        segments in those rows, over their cells; cut in numpy at the first
+        call and kept (``row_tables``) on the device and in the dtype of
+        ``table``; ``table`` itself for every row."""
+        if lo == 0 and n == self.domain.shape[0]:
+            return self.table
+        key = f"{lo}_{n}"
+        if key not in self.row_tables:
+            cells = int(np.prod(self.domain.shape[1:]))
+            c0, c1 = lo * cells, (lo + n) * cells
+            w = self.table.wgt
+            self.row_tables[key] = PaddedSparse(
+                *column_block(*self._tables[:2], c0, c1), n * cells, device=w.device,
+                dtype=w.dtype, transpose=transpose_block(*self._tables[2:], c0, c1))
+        return self.row_tables[key]
+
+    def rows_partial(self, x, lo=None):
+        """Every ray's integral over the grid's rows ``[lo, lo + len(x))``,
+        ``x`` those rows (over the whole grid for ``lo`` None)."""
+        table = self.table if lo is None else self.rows_table(lo, x.shape[0])
+        return table @ x.reshape(-1)
 
     def forward(self, x):
-        return self.table @ x.reshape(-1)
+        return _field_aware(self, x)

@@ -230,7 +230,10 @@ def nuts_sample(
     by chain) plus ``leapfrog_steps`` (``(n_chains, n_samples)``, each
     step evaluating the gradient twice) and ``transition_seconds``
     (``(n_chains, n_warmup + n_samples)``, host clock); under ``"vmap"``
-    these two are the batch's, shared by its chains.
+    these two are the batch's, shared by its chains, under ``"pmap"`` the
+    rank's block's.  ``chain_map="pmap"`` runs a block of the chains on
+    each rank of the process group (every rank calls it) and returns
+    every chain on every rank, in chain order.
     """
     device = None
     if isinstance(likelihood_or_logdensity, Likelihood):

@@ -715,7 +715,12 @@ class CorrelatedField(Model):
         out = self.harmonic_amplitude(p) * p[self.xi_key]
         for dvol, ht in zip(self.harmonic_volumes, self.harmonic_transforms):
             out = dvol * ht(out)
-        return self.offset_mean + out
+        out = self.offset_mean + out
+        if self.axis is None:
+            return out
+        from ..parallel.collectives import note_split
+
+        return note_split(out)  # the rank's rows
 
 
 # --- the maker ---------------------------------------------------------------

@@ -25,6 +25,15 @@ gathering the rows of a trailing batch, ``(n_cols, B)``, took torch's
 ``vectorized_gather_kernel`` 60 ms a launch at 1280² with 16,384 rays on
 an H100, against ~0.3 ms for one sample's gather
 (``bench/metric_profile.py --los 16384 [--vi]``).
+
+On a row-sharded field a rank holds a block of the columns (the raveled
+cells of its rows).  :func:`column_block` cuts the tables to the entries
+of such a block, in numpy: the block's matrix gives the rank's partial
+product over every row (ray), which a reduce-scatter over the ranks
+(:func:`~..parallel.collectives.reduce_scatter`) turns into the rank's
+share of the rows of ``A x``; the pull-back all-gathers the cotangent and
+gathers it along the block's own cell-major table, deterministic as
+before.
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ import torch
 
 from .. import device as _device
 
-__all__ = ["GatherReduce", "GatherReduceT", "PaddedSparse"]
+__all__ = ["GatherReduce", "GatherReduceT", "PaddedSparse", "column_block", "transpose_block"]
 
 
 def _weights(t, x):
@@ -129,6 +138,40 @@ def transpose_tables(idx, wgt):
     return cols, t_rows, t_wgt
 
 
+def column_block(idx, wgt, lo: int, hi: int):
+    """The entries of the padded tables ``(idx, wgt)`` (numpy) whose column
+    lies in ``[lo, hi)``: tables of every row, their columns shifted by
+    ``-lo`` (int64), each row's entries in their order, padded with weight
+    0 to the widest row of the block."""
+    idx = np.asarray(idx, np.int64)
+    wgt = np.asarray(wgt)
+    mask = idx >= lo
+    mask &= idx < hi
+    mask &= wgt != 0
+    flat = np.flatnonzero(mask)  # row-major: each row's entries in their order
+    rows = flat // idx.shape[1]
+    counts = np.bincount(rows, minlength=idx.shape[0])
+    first = np.concatenate(([0], np.cumsum(counts)[:-1]))
+    width = max(int(counts.max()) if counts.size else 0, 1)
+    dest = rows * width + (np.arange(flat.size) - first[rows])
+    b_idx = np.zeros((idx.shape[0], width), np.int64)
+    b_wgt = np.zeros((idx.shape[0], width), wgt.dtype)
+    b_idx.reshape(-1)[dest] = idx.reshape(-1)[flat] - lo
+    b_wgt.reshape(-1)[dest] = wgt.reshape(-1)[flat]
+    return b_idx, b_wgt
+
+
+def transpose_block(cols, t_rows, t_wgt, lo: int, hi: int):
+    """The cell-major tables (:func:`transpose_tables`) of the columns
+    ``[lo, hi)``: a slice of the whole matrix's, sorted by column, their
+    columns shifted by ``-lo`` and cut to the block's busiest column; the
+    same as :func:`transpose_tables` of :func:`column_block`'s tables."""
+    a, b = np.searchsorted(cols, [lo, hi])
+    counts = (t_wgt[a:b] != 0).sum(1)
+    width = max(int(counts.max()) if counts.size else 0, 1)
+    return cols[a:b] - lo, t_rows[a:b, :width], t_wgt[a:b, :width]
+
+
 class PaddedSparse(torch.nn.Module):
     """A sparse ``(rows, n_cols)`` matrix from padded tables ``idx`` (column
     indices) and ``wgt`` (weights, 0 in the padding), both ``(rows,
@@ -136,9 +179,10 @@ class PaddedSparse(torch.nn.Module):
     in ``dtype`` (the default floating dtype by default).  ``A @ x`` and
     ``A.T @ y`` take vectors or matrices (a matrix's columns as one
     batch); ``todense()`` for tests.  Repeated columns in a row add up, as
-    in a BCOO."""
+    in a BCOO.  ``transpose`` takes the cell-major tables when they are
+    known (:func:`transpose_block`), else they are built here."""
 
-    def __init__(self, idx, wgt, n_cols: int, *, device=None, dtype=None):
+    def __init__(self, idx, wgt, n_cols: int, *, device=None, dtype=None, transpose=None):
         super().__init__()
         device = _device.resolve(device)
         dtype = dtype or torch.get_default_dtype()
@@ -149,7 +193,7 @@ class PaddedSparse(torch.nn.Module):
         if idx.size and (idx.min() < 0 or idx.max() >= n_cols):
             raise ValueError(f"column indices outside [0, {n_cols})")
         self.n_cols = int(n_cols)
-        cols, t_rows, t_wgt = transpose_tables(idx, wgt)
+        cols, t_rows, t_wgt = transpose if transpose is not None else transpose_tables(idx, wgt)
         self.all_cols = cols.size == self.n_cols
         for name, a in (("idx", idx), ("wgt", wgt), ("cols", cols), ("t_rows", t_rows),
                         ("t_wgt", t_wgt)):

@@ -9,6 +9,12 @@ at weight 0), and ``wrap`` takes ``index % size`` (period ``size``,
 scipy's ``grid-wrap``).  Every corner is one gather over all points, so
 the result is differentiable in the field and, for order 1, in the
 coordinates, and maps under ``torch.func.vmap``.
+
+On a row-sharded field, ``rows=(lo, n0)`` says that ``input`` holds rows
+``[lo, lo + len(input))`` of a leading axis of ``n0``: the bounds (and
+``cval``, the wrap) are those of the whole grid, and only the corners
+that lie in the rank's rows are weighted, the others add 0, so the ranks'
+partial results sum to the whole grid's.
 """
 
 from __future__ import annotations
@@ -34,10 +40,12 @@ def _linear(c):
 
 
 def map_coordinates(input, coordinates: Sequence[torch.Tensor], order: int,
-                    mode: str = "constant", cval=0.0):
+                    mode: str = "constant", cval=0.0, *, rows=None):
     """``input`` interpolated at ``coordinates`` (one tensor of fractional
     indices per axis of ``input``, all of one shape; a ``(ndim, ...)``
-    tensor is read as that sequence)."""
+    tensor is read as that sequence).  With ``rows=(lo, n0)``, ``input``
+    is rows ``[lo, lo + len(input))`` of a grid of ``n0`` rows, and the
+    result this block's part of the whole grid's (see the module)."""
     coordinates = list(coordinates)
     if len(coordinates) != input.ndim:
         raise ValueError(f"coordinates must be a sequence of length input.ndim, but "
@@ -52,28 +60,43 @@ def map_coordinates(input, coordinates: Sequence[torch.Tensor], order: int,
     for d in range(input.ndim - 2, -1, -1):
         strides[d] = strides[d + 1] * input.shape[d + 1]
 
+    lo, sizes = 0, list(input.shape)
+    if rows is not None:
+        lo, sizes[0] = int(rows[0]), int(rows[1])
+        if not 0 <= lo <= lo + input.shape[0] <= sizes[0]:
+            raise ValueError(f"rows {lo}..{lo + input.shape[0]} outside a grid of {sizes[0]} rows")
+
     per_axis = []
-    for c, size in zip(coordinates, input.shape):
+    for d, (c, size) in enumerate(zip(coordinates, sizes)):
         axis = []
         for index, weight in nodes(c):
             if mode == "wrap":
-                axis.append((index % size, None, weight))
+                index, valid = index % size, None
             else:
-                axis.append((index.clamp(0, size - 1), (index >= 0) & (index < size), weight))
+                index, valid = index.clamp(0, size - 1), (index >= 0) & (index < size)
+            mine = None
+            if d == 0 and rows is not None:  # the corner's row in this block
+                index = index - lo
+                mine = (index >= 0) & (index < input.shape[0])
+                index = index.clamp(0, input.shape[0] - 1)
+            axis.append((index, valid, weight, mine))
         per_axis.append(axis)
 
     outputs = []
     for items in itertools.product(*per_axis):
-        pos = sum(i * s for (i, _, _), s in zip(items, strides))
+        pos = sum(i * s for (i, _, _, _), s in zip(items, strides))
         val = flat[pos]
-        valid = [v for _, v, _ in items if v is not None]
+        mine = [m for _, _, _, m in items if m is not None]
+        if mine:
+            val = torch.where(mine[0], val, torch.zeros((), dtype=val.dtype, device=val.device))
+        valid = [v for _, v, _, _ in items if v is not None]
         if valid:
             ok = valid[0]
             for v in valid[1:]:
                 ok = ok & v
             val = torch.where(ok, val, torch.as_tensor(cval, dtype=val.dtype, device=val.device))
         weight = items[0][2]
-        for _, _, w in items[1:]:
+        for _, _, w, _ in items[1:]:
             weight = weight * w
         outputs.append(weight * val)
     result = outputs[0]

@@ -38,11 +38,19 @@ finalized with ``field_mesh=``) runs the whole loop on the rank's rows of
 the field: the tree algebra and the energies sum over the field axis
 inside :func:`~.parallel.collectives.field_sharded`; a mesh with a
 ``"samples"`` axis beside the field's shares the samples over it too.
-That takes a likelihood whose data are the field's rows (each data
-leaf's leading axis the rank's rows of ξ); one whose response mixes rows
-(LOS, NUFFT, a sum or a cut of the field) is refused at the first
-position the run sees (ROADMAP.md §A.2).  The samples and positions are the rank's shards (:meth:`OptimizeVI.gather`
-puts them together); the status message reads them gathered.
+Each data leaf is split along its leading axis: it is either the rank's
+rows of the field, or the rank's share of the output of a field-aware
+response (``ExactGridLOS``, ``SamplingCartesianGridLOS``), which sums the
+ranks' partial outputs and keeps the rank's block of them.  Any other
+likelihood (a response that mixes rows otherwise: the NUFFT, SKI, a sum
+or a cut of the field; replicated data) is refused at the first position
+the run sees (ROADMAP.md).  The samples and positions are the rank's
+shards (:meth:`OptimizeVI.gather` puts them together, :meth:`OptimizeVI.
+scatter` cuts them); the status message reads them gathered.  With
+``odir`` the run's first rank writes the files of the one-process run,
+from the gathered samples, and a resume cuts the loaded ones again; each
+exported operator runs on the shards and its output is gathered along
+its leading axis where a field or a field-aware response returned it.
 
 :class:`OptimizeVI` takes the JAX package's hooks: ``kl_reduce`` (the
 reduction over the sample axis, the mean by default), and functions in
@@ -62,6 +70,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_leaves
 
 from . import io, optimize
 from .evi import (
@@ -165,6 +174,18 @@ def _sample_mean(forest, axis):
     return tree_map(lambda x: (_all_reduce(x.sum(dim=0), axis.group) / n).to(x.dtype), forest)
 
 
+def _mesh_group(mesh):
+    """The group of every rank of ``mesh``: its own for one axis, the
+    default group for a mesh over every rank."""
+    import torch.distributed as dist
+
+    if mesh.ndim == 1:
+        return mesh.get_group()
+    if mesh.mesh.numel() != dist.get_world_size():
+        raise NotImplementedError("a mesh of several axes over some of the ranks")
+    return dist.group.WORLD
+
+
 def _gather(forest, field=None, samples=None, keys=None):
     """The whole of a forest of this rank's shards: the row shards (the
     leaves under ``keys``; every leaf when ``keys`` is None) gathered over
@@ -181,6 +202,51 @@ def _gather(forest, field=None, samples=None, keys=None):
     if samples is not None:
         forest = tree_map(lambda x: gather_axis(x, 0, samples.group), forest)
     return forest
+
+
+def _field_aware(root):
+    """The field-aware responses (objects with a ``field_share`` method)
+    that ``root`` can call: through modules, containers, partials, bound
+    methods and functions' closures, defaults and the globals they name."""
+    import types
+
+    found, seen, todo = [], set(), [root]
+    while todo:
+        obj = todo.pop()
+        if id(obj) in seen or isinstance(obj, (torch.Tensor, np.ndarray, str, bytes, int, float,
+                                               type, types.ModuleType)):
+            continue
+        seen.add(id(obj))
+        if callable(getattr(obj, "field_share", None)):
+            found.append(obj)
+        if isinstance(obj, dict):
+            todo.extend(obj.values())
+        elif isinstance(obj, (list, tuple, set, frozenset)):
+            todo.extend(obj)
+        elif isinstance(obj, partial):
+            todo.extend((obj.func, *obj.args, *obj.keywords.values()))
+        elif isinstance(obj, types.MethodType):
+            todo.extend((obj.__self__, obj.__func__))
+        elif isinstance(obj, types.FunctionType):
+            todo.extend(c.cell_contents for c in obj.__closure__ or () if _filled(c))
+            todo.extend((obj.__defaults__ or ()) + tuple((obj.__kwdefaults__ or {}).values()))
+            codes, names = [obj.__code__], set()
+            while codes:
+                code = codes.pop()
+                names.update(code.co_names)
+                codes.extend(c for c in code.co_consts if isinstance(c, types.CodeType))
+            todo.extend(obj.__globals__[n] for n in names if n in obj.__globals__)
+        elif hasattr(obj, "__dict__"):
+            todo.extend(vars(obj).values())
+    return found
+
+
+def _filled(cell):
+    try:
+        cell.cell_contents
+    except ValueError:  # a cell not yet bound
+        return False
+    return True
 
 
 def get_status_message(samples, state, residual=None, *, name="", map="vmap") -> str:
@@ -233,7 +299,7 @@ class OptimizeVI:
             raise NotImplementedError("unmirrored samples are not supported")
         get_map(kl_map), get_map(residual_map)  # raise here for an unknown map
         self.field, self.field_keys, self.samples_axis = None, frozenset(), None
-        self._row_axes, self._rows_checked = (), False
+        self._row_axes, self._rows_checked, self._mesh = (), False, None
         if position_sharding is not None:
             if devices is not None:
                 raise NotImplementedError(
@@ -249,6 +315,7 @@ class OptimizeVI:
             self._row_axes = tuple((k, i) for k, sh in split.items() for i, _ in sh.split_axes())
             if "samples" in mesh.mesh_dim_names:
                 self.samples_axis = mesh_axis(mesh, "samples")
+            self._mesh = mesh
         if devices is not None:
             from torch.distributed.device_mesh import DeviceMesh
 
@@ -256,6 +323,7 @@ class OptimizeVI:
 
             mesh = devices if isinstance(devices, DeviceMesh) else sample_mesh(devices)
             self.samples_axis = mesh_axis(mesh, mesh.mesh_dim_names[0])
+            self._mesh = mesh
         if self.samples_axis is not None:
             if kl_reduce is not _mean:
                 raise NotImplementedError("a kl_reduce of its own with samples across ranks")
@@ -289,10 +357,12 @@ class OptimizeVI:
 
     def _check_rows(self, pos):
         """Refuse, at the first position (or :class:`Samples`) it sees, a
-        likelihood whose data are not the field's rows: a field-sharded run
-        sums the energies over the field group and keeps the rank's rows
-        of the data-space noise, which is right only where every data
-        leaf's leading axis is the rank's rows of ξ."""
+        likelihood whose data it cannot vouch for.  A field-sharded run sums
+        the energies over the field group and keeps the rank's block of the
+        data-space noise's leading axis, which is right where each data
+        leaf is the rank's rows of ξ or the rank's share of the output of a
+        field-aware response the likelihood can call (before any
+        collective: the responses are found in the likelihood, not run)."""
         if self._rows_checked or not self._row_axes:
             return
         pos = pos.pos if isinstance(pos, Samples) else pos
@@ -300,15 +370,26 @@ class OptimizeVI:
         rows = {pos[k].shape[i] for k, i in self._row_axes if k in pos}
         if not rows:
             return
-        data = torch.utils._pytree.tree_leaves(
-            self.likelihood.lsm_tangents_shape, is_leaf=lambda x: isinstance(x, ShapeWithDtype))
-        lead = {d.shape[0] if len(d.shape) else None for d in data}
-        if len(rows) != 1 or lead != rows:
-            raise NotImplementedError(
-                f"position_sharding= takes a likelihood whose data are the field's rows: each"
-                f" data leaf's leading axis the rank's {sorted(rows)} rows of the field, not"
-                f" {sorted(lead, key=str)}; a response that mixes rows (LOS, NUFFT, a sum or a"
-                " cut of the field) is not ported (ROADMAP.md §A.2)")
+        data = tree_leaves(self.likelihood.lsm_tangents_shape,
+                           is_leaf=lambda x: isinstance(x, ShapeWithDtype))
+        shares = None
+        for d in data:
+            if len(rows) == 1 and len(d.shape) and d.shape[0] in rows:
+                continue
+            if shares is None:
+                import torch.distributed as dist
+
+                found = _field_aware(self.likelihood)
+                p = dist.get_world_size(self.field) if found else 1
+                shares = {tuple(r.field_share(p)) for r in found}
+            if tuple(d.shape) not in shares:
+                raise NotImplementedError(
+                    f"position_sharding= takes a likelihood whose data are the field's rows or"
+                    f" a field-aware response's share (ExactGridLOS, SamplingCartesianGridLOS):"
+                    f" each data leaf's leading axis the rank's {sorted(rows)} rows of the"
+                    f" field, or a leaf of shape {sorted(shares)}, not {tuple(d.shape)}; a"
+                    " response that mixes rows otherwise (the NUFFT, SKI, a sum or a cut of the"
+                    " field) is not ported (ROADMAP.md)")
         self._rows_checked = True
 
     def gather(self, samples):
@@ -333,20 +414,78 @@ class OptimizeVI:
             keys = [k for part in parts for k in part]
         return Samples(pos=pos, samples=res, keys=keys)
 
-    def _status_message(self, samples, state, residual=None, *, name="", map="vmap"):
-        """:func:`get_status_message`; in a parallel run the residuals are
-        computed on the shards and the reduced χ² read from them gathered."""
+    def scatter(self, samples):
+        """This rank's shards of whole ``samples`` (the inverse of
+        :meth:`gather`): the rows of the position's and the residuals' row
+        shards, and this rank's share of the sample pairs."""
         if self.field is None and self.samples_axis is None:
-            return get_status_message(samples, state, residual, name=name, map=map)
+            return samples
+        pos, res, keys = samples.pos, samples._samples, samples.keys
+        if self.field is not None:
+            import torch.distributed as dist
+
+            p, r = dist.get_world_size(self.field), dist.get_rank(self.field)
+            split = dict(self._row_axes)
+
+            def cut(x, axis):
+                b = x.shape[axis] // p
+                return x.narrow(axis, r * b, b).contiguous()
+
+            pos = {k: cut(v, split[k]) if k in split else v for k, v in pos.items()}
+            if res is not None:
+                res = {k: cut(v, split[k] + 1) if k in split else v for k, v in res.items()}
+        if self.samples_axis is not None and keys is not None:
+            from .parallel.multihost import host_local_slice
+
+            ax = self.samples_axis
+            lo, hi = host_local_slice(len(keys), count=ax.size, index=ax.rank)
+            keys = list(keys)[lo:hi]
+            res = tree_map(lambda x: x[2 * lo : 2 * hi], res)
+        return Samples(pos=pos, samples=res, keys=keys)
+
+    def gather_state(self, state: OptimizeVIState) -> OptimizeVIState:
+        """``state`` with the sample states of every rank's samples, in
+        order, as the one-process run has them (a collective); a geoVI
+        minimiser's result without its position and gradient, which are
+        the rank's shards."""
+        if self.field is None and self.samples_axis is None:
+            return state
+        st = state.sample_state
+        if isinstance(st, (list, tuple)):
+            st = [s._replace(x=None, jac=None, hess=None, hess_inv=None)
+                  if isinstance(s, optimize.OptimizeResults) else s for s in st]
+        if self.samples_axis is not None:
+            import torch.distributed as dist
+
+            from . import io as _io
+
+            parts = [None] * self.samples_axis.size
+            dist.all_gather_object(parts, _io.to_cpu(st), group=self.samples_axis.group)
+            if isinstance(st, torch.Tensor):
+                st = torch.cat(parts).to(st.device)
+            elif isinstance(st, (list, tuple)):
+                st = [s for part in parts for s in part]
+        return state._replace(sample_state=st)
+
+    def residual_forests(self, samples, residual=None, *, map="vmap"):
+        """``(residuals, prior)``: ``residual`` (the likelihood's normalized
+        residual, or None) of every sample and the samples themselves, each
+        whole, with a leading sample axis (a collective in a parallel run:
+        the residuals are computed on the shards and gathered)."""
         forest = samples.samples if len(samples) else tree_map(
             lambda x: x.unsqueeze(0), samples.pos)
-        mini_res = ""
+        res = None
         if residual is not None:
             with collectives.field_sharded(self.field, self.field_keys):
                 res = get_map(map)(residual)(forest)
             res = _gather(res, self.field, self.samples_axis)
-            mini_res = minisanity(Samples(samples=res))[1]
-        prior = _gather(forest, self.field, self.samples_axis, self.field_keys)
+        return res, _gather(forest, self.field, self.samples_axis, self.field_keys)
+
+    def _status_message(self, samples, state, residual=None, *, name="", map="vmap"):
+        """:func:`get_status_message`; in a parallel run the residuals are
+        computed on the shards and the reduced χ² read from them gathered."""
+        res, prior = self.residual_forests(samples, residual, map=map)
+        mini_res = "" if res is None else minisanity(Samples(samples=res))[1]
         return _status_text(state, mini_res, minisanity(Samples(samples=prior))[1], name)
 
     # -- sampling -------------------------------------------------------------
@@ -582,30 +721,63 @@ def _chisq_series(stats, prefix):
             yield from _chisq_series(v, f"{prefix}[{j}]")
 
 
-def _record_history(history, samples, state, likelihood):
+def _residual_stats(opt_vi, samples):
+    """The reduced-χ² statistics of the likelihood's residuals (None
+    without normalized residuals) and of the prior's over ``samples``,
+    from the gathered samples in a parallel run (a collective there)."""
+    try:
+        res, prior = opt_vi.residual_forests(samples, opt_vi.likelihood.normalized_residual)
+    except NotImplementedError:  # a likelihood without normalized residuals
+        res, prior = opt_vi.residual_forests(samples)
+    lh_stats = None if res is None else reduced_residual_stats(Samples(samples=res))
+    return lh_stats, reduced_residual_stats(Samples(samples=prior))
+
+
+def _record_history(history, state, lh_stats, prior_stats):
     history["nit"].append(state.nit)
     history["energy"].append(float(state.minimization_state.fun))
-    try:
-        lh_stats = reduced_residual_stats(samples, likelihood.normalized_residual)
-    except NotImplementedError:  # a likelihood without normalized residuals
-        lh_stats = None
-    for slot, stats, label in (("lh_chisq", lh_stats, "lh"),
-                               ("prior_chisq", reduced_residual_stats(samples), "prior")):
+    for slot, stats, label in (("lh_chisq", lh_stats, "lh"), ("prior_chisq", prior_stats, "prior")):
         if stats is not None:
             for name, val in _chisq_series(stats, ""):
                 history[slot].setdefault(name or label, []).append(val)
 
 
-def _export_operator_outputs(odir, export_operators, samples, nit):
+def _operator_values(opt_vi, op, samples):
+    """``op`` of every sample, stacked, whole (a collective in a parallel
+    run: every rank calls it).  In a field-sharded run
+    ``op`` runs on the rank's shards inside the field context: an output
+    that a field or a field-aware response returned (the last split value
+    noted, of the output's shape) is gathered along its leading axis, one
+    that none returned is replicated; the samples of every rank are
+    gathered after."""
+    with torch.no_grad(), collectives.field_sharded(opt_vi.field, opt_vi.field_keys) as ctx:
+        vals, split = [], False
+        for s in samples:
+            if ctx is not None:
+                ctx.notes.clear()
+            v = op(s)
+            if ctx is not None and ctx.notes:
+                split = ctx.notes[-1] == tuple(v.shape)
+                if not split:
+                    raise NotImplementedError(
+                        f"an exported operator's output of shape {tuple(v.shape)} is neither a"
+                        f" split value its model returned ({ctx.notes[-1]}) nor replicated")
+            vals.append(v)
+    vals = torch.stack(vals)
+    return _gather(vals, opt_vi.field if split else None, opt_vi.samples_axis)
+
+
+def _export_operator_outputs(odir, export_operators, samples, nit, opt_vi, write):
     """Each operator's posterior mean and standard deviation (``ddof`` 0)
-    over ``samples``, ``odir/operator_outputs/<name>_last.npz``."""
+    over every rank's ``samples``, ``odir/operator_outputs/<name>_last.npz``
+    (written where ``write``)."""
     opdir = os.path.join(odir, "operator_outputs")
-    os.makedirs(opdir, exist_ok=True)
-    with torch.no_grad():
-        for name, op in export_operators.items():
-            vals = torch.stack([op(s) for s in samples])
-            np.savez(os.path.join(opdir, f"{name}_last.npz"),
-                     mean=vals.mean(dim=0).cpu().numpy(),
+    if write:
+        os.makedirs(opdir, exist_ok=True)
+    for name, op in export_operators.items():
+        vals = _operator_values(opt_vi, op, samples)
+        if write:
+            np.savez(os.path.join(opdir, f"{name}_last.npz"), mean=vals.mean(dim=0).cpu().numpy(),
                      std=vals.std(dim=0, correction=0).cpu().numpy(), nit=nit)
 
 
@@ -645,8 +817,10 @@ def optimize_kl(
     ``_optimize_vi_state`` replace the :class:`OptimizeVI` and the state
     this function would make.  ``devices`` and ``position_sharding`` run
     it across ranks (see the module's docstring; the position is the
-    rank's shards, as ``position_from_numpy(..., sharding=)`` gives it);
-    ``odir`` is not taken with them."""
+    rank's shards, as ``position_from_numpy(..., sharding=)`` gives it):
+    every rank calls it, the run's first rank writes ``odir``'s files,
+    which hold the whole samples, and a resume loads them on every rank
+    and cuts its shards."""
     opt_vi = _optimize_vi or OptimizeVI(
         likelihood,
         n_total_iterations,
@@ -657,9 +831,9 @@ def optimize_kl(
         devices=devices,
         position_sharding=position_sharding,
     )
-    if odir is not None and (opt_vi.field is not None or opt_vi.samples_axis is not None):
-        raise NotImplementedError("odir with devices= or position_sharding= is not ported "
-                                  "(ROADMAP.md): gather the samples (OptimizeVI.gather) and save them")
+    across = opt_vi.field is not None or opt_vi.samples_axis is not None
+    group = _mesh_group(opt_vi._mesh) if across and odir is not None else None
+    writes = group is None or _first_rank(group)
     last_fn = os.path.join(odir, "last.pkl") if odir is not None else None
     resume_fn = resume if isinstance(resume, str) and os.path.isfile(resume) else last_fn
     sanity_fn = os.path.join(odir, "minisanity.txt") if odir is not None else None
@@ -668,8 +842,11 @@ def optimize_kl(
     if not isinstance(samples, Samples):
         samples = Samples(pos=position_or_samples)
     state = None
+    if group is not None and resume:
+        _barrier(group)  # the first rank's last write is whole before anyone reads
     if resume and resume_fn is not None and os.path.isfile(resume_fn):
         samples, state = io.load(resume_fn, device_of(samples.pos))
+        samples = opt_vi.scatter(samples)
     fresh = opt_vi.init_state(
         key,
         n_samples=n_samples,
@@ -684,7 +861,7 @@ def optimize_kl(
     if not state.config:  # a pickled state leaves its schedule behind
         state = state._replace(config=fresh.config)
 
-    if odir:
+    if odir and writes:
         os.makedirs(odir, exist_ok=True)
         if not resume:
             open(sanity_fn, "w").close()
@@ -692,16 +869,35 @@ def optimize_kl(
     for i in range(state.nit, opt_vi.n_total_iterations):
         logger.info(f"OPTIMIZE_KL: Starting {i + 1:04d}")
         samples, state = opt_vi.update(samples, state)
-        msg = opt_vi.get_status_message(samples, state, name="OPTIMIZE_KL")
+        whole_state = opt_vi.gather_state(state) if across else state
+        msg = opt_vi.get_status_message(samples, whole_state, name="OPTIMIZE_KL")
         logger.info(msg)
         if odir:
-            with open(sanity_fn, "a") as f:
-                f.write("\n" + msg)
-            _record_history(history, samples, state, opt_vi.likelihood)
-            _export_history(odir, history)
+            stats = _residual_stats(opt_vi, samples)
             if export_operators:
-                _export_operator_outputs(odir, export_operators, samples, state.nit)
-            io.dump((samples, state._replace(config={})), last_fn)
+                _export_operator_outputs(odir, export_operators, samples, state.nit, opt_vi, writes)
+            whole = opt_vi.gather(samples) if across else samples
+            if writes:
+                with open(sanity_fn, "a") as f:
+                    f.write("\n" + msg)
+                _record_history(history, state, *stats)
+                _export_history(odir, history)
+                io.dump((whole, whole_state._replace(config={})), last_fn)
         if callback is not None:
             callback(samples, state)
+    if group is not None:
+        _barrier(group)
     return samples, state
+
+
+def _first_rank(group) -> bool:
+    """Whether this process is rank 0 of ``group``."""
+    import torch.distributed as dist
+
+    return dist.get_rank(group) == 0
+
+
+def _barrier(group):
+    import torch.distributed as dist
+
+    dist.barrier(group=group)

@@ -1,27 +1,41 @@
 """The collectives of sharded execution: differentiable sums over a group,
-the all-to-all exchange, and the field context the tree algebra reads.
+the reduce-scatter and all-gather of a response's output, the all-to-all
+exchange, and the field context the tree algebra reads.
 
-A field-sharded run keeps on each rank the rows of the excitation field
-and of the data it holds, and every other leaf of the position whole
-(replicated).  Two linear maps, each the other's adjoint, make the
-reductions exact under ``torch.func`` (grad, jvp, vmap; forward over
-reverse):
+A field-sharded run keeps on each rank the rows of the excitation field,
+and every other leaf of the position whole (replicated).  Its data are
+of two kinds, each split along its leading axis: the field's rows, or
+the rank's share of the output of a field-aware response (a
+line-of-sight integral of the rows, say), which sums the rank's partial
+output over the ranks and keeps the rank's share of that sum.  Linear
+maps, each pair the other's adjoint, make the reductions exact under
+``torch.func`` (grad, jvp, vmap; forward over reverse):
 
 - :func:`reduce_sum`, the sum over the ranks of a group: the energies'
   sums over data rows, the tree algebra's inner products over field rows.
   Its adjoint hands each rank the cotangent (the sum is replicated);
 - :func:`replicate`, the identity on a replicated value that enters
   rank-local work (the amplitude's parameters before they colour the
-  rank's rows): its adjoint is the sum of the ranks' partial cotangents.
+  rank's rows): its adjoint is the sum of the ranks' partial cotangents;
+- :func:`reduce_scatter`, the sum over the ranks of a full-length partial
+  output, of which rank ``r`` keeps the ``r``-th of ``p`` equal blocks
+  along an axis: a field-aware response's output.  Its adjoint is
+  :func:`all_gather`, the blocks joined in rank order.  A share rather
+  than a replicated sum keeps every datum on one rank, so the energies,
+  the noise draws and the χ² sum their data over the group as they do
+  for field rows, with nothing counted twice.
 
 :func:`field_sharded` names, while it is active, the group and the
 position keys whose leaves are row shards: :func:`~..utils.tree.vdot`,
 ``dot``, ``norm``, ``sample_vdot`` and ``sample_norm`` sum those leaves'
-terms over the group, the likelihoods' energies sum their data over it
-(the data are the field's rows), and the white noise of a sample draws
-the full array and keeps the rank's rows, so a sharded run draws the
-samples of the one-process run.  Collectives take CUDA tensors under
-NCCL and CPU tensors under gloo; the data go where the group needs them.
+terms over the group, the likelihoods' energies sum their data over it,
+and the white noise of a sample draws the full array and keeps the
+rank's block of the leading axis, so a sharded run draws the samples of
+the one-process run.  A model that returns a split value (the field's
+rows, a field-aware response's share) notes its shape in the active
+:class:`FieldShards` (:func:`note_split`), from which a caller learns
+what ran.  Collectives take CUDA tensors under NCCL and CPU tensors
+under gloo; the data go where the group needs them.
 """
 
 from __future__ import annotations
@@ -36,9 +50,13 @@ from .multihost import backend_device
 
 __all__ = [
     "FieldShards",
+    "all_gather",
     "all_to_all",
     "field",
     "field_sharded",
+    "note_split",
+    "rank_rows",
+    "reduce_scatter",
     "reduce_sum",
     "replicate",
 ]
@@ -103,6 +121,102 @@ class _Replicate(torch.autograd.Function):
         return _Replicate.apply(x, group), in_dims[0]
 
 
+def _leading(x, axis):
+    """``x`` with ``axis`` moved to the front, contiguous, complex as its
+    real view."""
+    x = x.detach().movedim(axis, 0).contiguous()
+    return torch.view_as_real(x) if x.is_complex() else x
+
+
+def _back(buf, like, axis):
+    """A result of the leading-axis layout in ``like``'s dtype and device,
+    ``axis`` put back."""
+    out = torch.view_as_complex(buf) if like.is_complex() else buf
+    return out.to(like.device).movedim(0, axis)
+
+
+def _reduce_scatter(x, axis, group):
+    p = dist.get_world_size(group)
+    if x.shape[axis] % p:
+        raise ValueError(f"axis {axis} of {tuple(x.shape)} does not split over {p} ranks")
+    src = _leading(x, axis).to(backend_device())
+    out = src.new_empty((src.shape[0] // p,) + tuple(src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return _back(out, x, axis)
+
+
+def _all_gather(x, axis, group):
+    p = dist.get_world_size(group)
+    src = _leading(x, axis).to(backend_device())
+    out = src.new_empty((src.shape[0] * p,) + tuple(src.shape[1:]))
+    dist.all_gather_into_tensor(out, src, group=group)
+    return _back(out, x, axis)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Σ over the ranks of ``group``, rank ``r`` keeping block ``r`` of
+    ``axis``; the adjoint of :class:`_AllGather`."""
+
+    @staticmethod
+    def forward(x, group, axis):
+        return _reduce_scatter(x, axis, group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group, ctx.axis = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _AllGather.apply(grad, ctx.group, ctx.axis), None, None
+
+    @staticmethod
+    def jvp(ctx, tangent, *_):
+        return _ReduceScatter.apply(tangent, ctx.group, ctx.axis)
+
+    @staticmethod
+    def vmap(info, in_dims, x, group, axis):
+        # the batch leads: one collective for every sample
+        return _ReduceScatter.apply(x.movedim(in_dims[0], 0), group, axis + 1), 0
+
+
+class _AllGather(torch.autograd.Function):
+    """The ranks' blocks of ``axis`` joined in rank order; the adjoint of
+    :class:`_ReduceScatter`."""
+
+    @staticmethod
+    def forward(x, group, axis):
+        return _all_gather(x, axis, group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group, ctx.axis = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _ReduceScatter.apply(grad, ctx.group, ctx.axis), None, None
+
+    @staticmethod
+    def jvp(ctx, tangent, *_):
+        return _AllGather.apply(tangent, ctx.group, ctx.axis)
+
+    @staticmethod
+    def vmap(info, in_dims, x, group, axis):
+        return _AllGather.apply(x.movedim(in_dims[0], 0), group, axis + 1), 0
+
+
+def reduce_scatter(x, group, axis: int = 0):
+    """``x`` summed over the ranks of ``group``, of which this rank keeps
+    its block of ``axis`` (``p`` equal blocks in rank order;
+    differentiable, its adjoint :func:`all_gather`)."""
+    return _ReduceScatter.apply(x, group, axis % x.ndim)
+
+
+def all_gather(x, group, axis: int = 0):
+    """The ranks' ``x`` joined along ``axis`` in rank order
+    (differentiable, its adjoint :func:`reduce_scatter`)."""
+    return _AllGather.apply(x, group, axis % x.ndim)
+
+
 def reduce_sum(x, group):
     """``x`` summed over the ranks of ``group`` (differentiable)."""
     return _Reduce.apply(x, group)
@@ -136,10 +250,13 @@ def all_to_all(chunks, recv_shapes, group):
 
 
 class FieldShards(NamedTuple):
-    """The field group and the position keys whose leaves are row shards."""
+    """The field group, the position keys whose leaves are row shards, and
+    the shape of the last split value a model returned (``notes``, empty
+    before any)."""
 
     group: object
     keys: frozenset
+    notes: list
 
 
 _ACTIVE: Optional[FieldShards] = None
@@ -157,8 +274,26 @@ def field_sharded(group, keys):
     docstring); ``group`` None leaves the block unsharded."""
     global _ACTIVE
     before = _ACTIVE
-    _ACTIVE = None if group is None else FieldShards(group, frozenset(keys))
+    _ACTIVE = None if group is None else FieldShards(group, frozenset(keys), [])
     try:
         yield _ACTIVE
     finally:
         _ACTIVE = before
+
+
+def note_split(out):
+    """Note, in the active :class:`FieldShards`, that ``out`` is split over
+    its group along its leading axis (the field's rows, or a field-aware
+    response's share); ``out`` itself."""
+    if _ACTIVE is not None:
+        _ACTIVE.notes[:] = [tuple(out.shape)]
+    return out
+
+
+def rank_rows(group, n_local: int, n_total: int):
+    """``(lo, n_local)``: the rows this rank of ``group`` holds of a
+    leading axis of ``n_total`` split into equal blocks in rank order."""
+    p, r = dist.get_world_size(group), dist.get_rank(group)
+    if n_local * p != n_total:
+        raise ValueError(f"{n_local} rows a rank over {p} ranks are not the {n_total} rows of the grid")
+    return r * n_local, n_local

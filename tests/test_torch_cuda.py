@@ -856,3 +856,29 @@ def test_column_range_kernel_matches_plain(cuda_device, shape, p):
             Pp = cfft.hartley_cols_range_plain(G[..., r * w:], w)
             assert P.shape == Pp.shape and _rel(P, Pp) <= 1e-5
     assert native.launches["hartley_cols_range"] >= 2 * p
+
+
+def test_reduce_scatter_vmap_rule_on_one_rank(cuda_device, tmp_path):
+    """The reduce-scatter Function on a one-rank NCCL group: under
+    ``torch.func.vmap`` a batch is one collective along the mapped axis's
+    neighbour, its adjoint (the all-gather) by ``vjp``, its jvp itself."""
+    import torch.distributed as dist
+
+    from nifty_tpu_torch import parallel
+    from nifty_tpu_torch.parallel.collectives import all_gather, reduce_scatter
+
+    parallel.initialize(str(tmp_path / "store"), 1, 0)
+    try:
+        group = dist.group.WORLD
+        x = torch.randn(3, 8, 5, device=cuda_device)
+        fn = lambda v: reduce_scatter(v, group) * 2.0  # noqa: E731
+        assert torch.equal(torch.func.vmap(fn)(x), 2.0 * x)
+        assert torch.equal(torch.func.vmap(fn, in_dims=1, out_dims=1)(x.movedim(0, 1)),
+                           2.0 * x.movedim(0, 1))
+        y, pull = torch.func.vjp(fn, x[0])
+        assert torch.equal(pull(torch.ones_like(y))[0], torch.full_like(x[0], 2.0))
+        _, tan = torch.func.jvp(fn, (x[0],), (x[1],))
+        assert torch.equal(tan, 2.0 * x[1])
+        assert torch.equal(torch.func.vmap(lambda v: all_gather(v, group, axis=-1))(x), x)
+    finally:
+        dist.destroy_process_group()

@@ -112,9 +112,9 @@ def test_nuts_sample_std_normal_moments():
 
 
 def test_nuts_sample_maps_give_the_same_chains():
-    """``"lmap"`` (a chain at a time) and ``"vmap"`` (the batch) draw each
-    chain from its own generator: the same samples and diagnostics;
-    ``"pmap"`` is not ported."""
+    """``"lmap"`` (a chain at a time), ``"vmap"`` (the batch) and ``"pmap"``
+    (a block of chains a rank; here one process holds them all) draw each
+    chain from its own generator: the same samples and diagnostics."""
     kw = dict(n_chains=3, n_samples=6, n_warmup=30, max_tree_depth=5,
               position_proto={"a": torch.zeros(2, dtype=torch.float64),
                               "b": torch.zeros((), dtype=torch.float64)})
@@ -126,5 +126,8 @@ def test_nuts_sample_maps_give_the_same_chains():
     for k in ("step_size", "acceptance", "tree_depths", "divergences"):
         np.testing.assert_allclose(iv[k].numpy(), il[k].numpy(), rtol=1e-12)
     assert sv.samples["a"].shape == (18, 2)
-    with pytest.raises(NotImplementedError, match="pmap"):
-        nt.nuts_sample(logd, 7, chain_map="pmap", **kw)
+    sp, ip = nt.nuts_sample(logd, torch.Generator().manual_seed(7), chain_map="pmap", **kw)
+    for k in ("a", "b"):
+        np.testing.assert_array_equal(sp.samples[k].numpy(), sv.samples[k].numpy())
+    for k in ("step_size", "acceptance", "tree_depths", "divergences", "leapfrog_steps"):
+        np.testing.assert_array_equal(ip[k].numpy(), iv[k].numpy())

@@ -313,15 +313,6 @@ def test_position_sharding_refuses_data_not_rows():
     assert opt._rows_checked
 
 
-def test_optimize_kl_across_ranks_takes_no_odir():
-    class _Opt:  # an OptimizeVI across ranks, as far as optimize_kl looks
-        field, samples_axis = object(), None
-
-    with pytest.raises(NotImplementedError, match="odir"):
-        nt.optimize_kl(_lh(), {}, key=torch.Generator(), n_total_iterations=1, n_samples=0,
-                       odir="unused", _optimize_vi=_Opt())
-
-
 def test_named_sharding_placements():
     from torch.distributed.tensor import Replicate, Shard
 
