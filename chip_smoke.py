@@ -217,7 +217,20 @@ JAX.  Phases, each printing one JSON line to stdout:
    iterations against one and a resume to the second (1e-4), ``last.pkl``
    the gathered samples bit for bit; (e) phase 10's ``nuts_sample`` with
    ``chain_map="pmap"`` against phase 10's ``"vmap"`` chains (the same
-   tree depths, relative L2 1e-2: a whole run amplifies f32 rounding).
+   tree depths, relative L2 1e-2: a whole run amplifies f32 rounding);
+   (f, ``LARGE``) the sharded NUFFT's per-rank stages at 4096² and 2^20
+   points over 2, 4 and 8 virtual ranks against ``nufft2`` and
+   ``nufft_adjoint`` (1e-5 of the maximum, the joined pull-backs the same
+   bits twice; rank 0's stage times), then on the group a Gaussian over
+   ``nufft2(exp(cf(x)), coords)`` with the exact 4096² field: its metric and
+   energy against the unsharded (1e-5) and one MGVI iteration at CG 3
+   (1e-4, the step moving); (g) SKI's interpolation (grid 1024, 2^18
+   points) cut to the rows of 2, 4 and 8 virtual ranks against the whole
+   matrix (1e-6), a SKI likelihood of the sharded 1024² field on the group
+   (1e-5), and K7 against its plain version at 10^8 entries (the words the
+   same bits, the f32 normals 1e-6 of the maximum, f64 1e-12), a rank's
+   rows of a draw against the whole draw's, bit for bit, and K7's time
+   beside ``torch.randn``'s.
 
 The launch counters are set to 0 just before each of phases 4-6, 9, 10b
 and 11, and before each VI run of phases 7 and 8 (``vi_mgvi_vmap``,
@@ -237,8 +250,10 @@ each sub-phase of 12 (``matern_table``, ``matern_pixel``, ``vmodel``,
 17b (``parallel_hartley``, ``parallel_metric_exact``,
 ``parallel_metric_knot64``, ``parallel_vi_position_sharding``,
 ``parallel_vi_devices``), 17c (``parallel_tomography_metric``,
-``parallel_tomography_vi``), 17d (``parallel_odir``) and 17e
-(``parallel_nuts_pmap``), and read just after it:
+``parallel_tomography_vi``), 17d (``parallel_odir``), 17e
+(``parallel_nuts_pmap``), 17f (``parallel_nufft_metric``,
+``parallel_nufft_vi``) and 17g (``parallel_ski_metric``), and read just
+after it:
 K1-K4 must launch in phases 4, 5, 8-11, 12 (but for the Matérn pixel
 form and the 32² full-covariance VI) and 13a, K3/K4 (and not K1/K2) in 6,
 7, the pixel form and 13d, none in 10b, the 32² VI and 13b, c and e, and
@@ -248,7 +263,10 @@ K1, K2, K5 and K6 in 14e, none in 15, K1-K4 (not K5/K6) in each of 16a-e;
 K3 and K4r (not K4) in 17b's Hartley and knot metric, K1r, K2r, K3 and K4r
 (not K1, K2, K4) in its exact metric and its position-sharded MGVI, K1-K4
 (not the range forms) in its MGVI by ``devices=``; K1r, K2r, K3 and K4r (not
-K1, K2, K4) in each run of 17c and 17d, K1-K4 on a batch in 17e;
+K1, K2, K4) in each run of 17c and 17d, K1-K4 on a batch in 17e, K1r,
+K2r, K3 and K4r (not K1, K2, K4) in 17f-g's runs; K7 in 17b's MGVI
+iterations and 17f's (every sampler draws its noise by K7, so no phase
+that samples refuses it);
 under ``vmap`` (and in the ``VModel``, density, NDVCG and mean-field runs) each must have launched on a batch of samples,
 chains or channels (``native.batched_launches``), under ``lmap`` none.
 Then it prints the whole run's seconds, the card line, the kernel summary
@@ -316,12 +334,19 @@ AUX = dict(shape=1280, probes=8, eigenvalues=8, bins=128, low_shells=8, seed=71)
 # block a rank), then a one-rank NCCL group:
 # the pencil Hartley and the metric at 4096², an MGVI iteration at phase 8's 1280²
 PARALLEL = dict(shapes=(1280, 4096), ranks=(8, 4, 2), metric_knots=(None, 64), vi=1280, seed=81)
+# phase 17f-g: phase 13c's NUFFT image grown to 4096² (a complex64 oversampled frame of
+# 8192², 512 MB) at 2^20 points, its stages over 2, 4 and 8 virtual ranks, and radio
+# imaging through it on the one-rank group; phase 13's SKI (grid 1024, 2^18 points) on a
+# sharded 1024² field; K7 at 10^8 entries, its row ranges on a 4096² leaf
+LARGE = dict(nufft_shape=4096, nufft_points=2**20, ranks=(2, 4, 8), ski_grid=1024,
+             ski_points=2**18, k7_entries=10**8, k7_f64_entries=10**7, k7_rows=4096, seed=91)
 CG_ITERS = 20
 NAMES = {"K1": "expand_to_grid", "K2": "collapse_from_grid",
          "K3": "hartley_rows", "K4": "hartley_cols",
          "K5": "legendre_contract", "K6": "legendre_contract_t",
          "K1r": "expand_to_grid_rows", "K2r": "collapse_from_grid_rows",
-         "K4r": "hartley_cols_range"}
+         "K4r": "hartley_cols_range", "K7": "philox_normal"}
+TRANSFORMS = tuple(k for k in NAMES if k != "K7")  # every kernel but the noise draw of the samplers
 SHARDED = ("K1r", "K2r", "K3", "K4r")  # the row-sharded exact field's kernels
 FIELD = ("K1", "K2", "K3", "K4")  # the regular-grid field's kernels
 SPHERE_KERNELS = ("K1", "K2", "K5", "K6")  # the spherical field's
@@ -362,7 +387,15 @@ TOL = {"k2": 1e-6, "hartley": 1e-5, "metric": 1e-4, "kl_maps": 1e-5,  # K1 must 
        # 17e: whole NUTS runs (12 transitions of up to 31 leapfrog steps) amplify
        # float32 rounding: a batch of one against the 4-chain batch on the CPU parts
        # by 1.7e-3 after phase 10's run, another chain by O(1); the depths must agree
-       "chains": 1e-2}
+       "chains": 1e-2,
+       # 17f: the sharded NUFFT's stages against the unsharded nufft2 / nufft_adjoint,
+       # both f32 (FFTs of another factorisation, taps weighted in float64 then rounded),
+       # of the maximum; its metric and energy against the unsharded (relative L2)
+       "nufft_stages": 1e-5, "nufft_metric": 1e-5,
+       # 17g: SKI's row blocks against the whole matrix (f32 sums of 4 corners regrouped
+       # by rank), of the maximum; K7's f32 normals (logf, sincospif in f32) against the
+       # plain version's float64 Box-Muller rounded once, of the maximum; its f64 ones
+       "ski_rows": 1e-6, "k7": 1e-6, "k7_f64": 1e-12}
 
 
 def emit(obj):
@@ -852,8 +885,8 @@ def parallel_phase(dev, read_launches, timing, built=None, tomo=None, nuts=None)
             for name, lh, pos, kw, need, refuse in (
                 ("position_sharding", lh_s,
                  nt.position_from_numpy(lh_s.forward_model, start_np, sharding=sh),
-                 dict(position_sharding=sh), SHARDED, ("K1", "K2", "K4")),
-                ("devices", lh_x, start, dict(devices=parallel.sample_mesh()), FIELD,
+                 dict(position_sharding=sh), SHARDED + ("K7",), ("K1", "K2", "K4")),
+                ("devices", lh_x, start, dict(devices=parallel.sample_mesh()), FIELD + ("K7",),
                  ("K1r", "K2r", "K4r")),
             ):
                 native.reset_launches()
@@ -879,10 +912,240 @@ def parallel_phase(dev, read_launches, timing, built=None, tomo=None, nuts=None)
                 tomography_17c(mesh, vi, rel_pos, short)
             if nuts is not None:
                 nuts_17e()
+            summary.update(large_phase(dev, read_launches, timing, mesh, vi, rel_pos, sync, g))
         finally:
             dist.destroy_process_group()
     emit({"phase": "parallel_total", "seconds": time.perf_counter() - t17})
     return summary
+
+
+def large_phase(dev, read_launches, timing, mesh, vi, rel_pos, sync, g):
+    """Phases 17f-g (``LARGE``), inside 17b's one-rank group ``mesh``: (f) the
+    sharded NUFFT's stages over virtual ranks against ``nufft2`` and
+    ``nufft_adjoint`` of the whole image (the joined pull-backs the same
+    bits twice), then radio imaging on the group: the metric and energy of
+    a Gaussian over ``nufft2(exp(cf(x)), coords)`` with the exact field
+    (K1r, K2r, K3, K4r) against the unsharded one, and one MGVI iteration at
+    CG 3 (K7 drawing its noise); (g) SKI's interpolation cut to the rows of
+    virtual ranks against the whole matrix and, on the group, a SKI
+    likelihood's metric against the unsharded one; K7 against its plain
+    version (the words bit for bit, the normals to f32 rounding), a rank's
+    rows of a draw against the whole draw's, and K7's time beside
+    ``torch.randn``'s.  ``vi``, ``rel_pos`` and ``sync`` are 17b's; returns
+    K7's kernel summary row."""
+    import numpy as np
+    import torch
+
+    import nifty_tpu_torch as nt
+    from nifty_tpu_torch import native, parallel
+    from nifty_tpu_torch.bench.timing import device_ms
+    from nifty_tpu_torch.bench.workload import bench_field, latent_draw, nufft_likelihood
+    from nifty_tpu_torch.bench.workload import short_vi_settings
+    from nifty_tpu_torch.ops import cuda_normal as cn
+    from nifty_tpu_torch.ops.gather_reduce import GatherReduceT
+    from nifty_tpu_torch.parallel.nufft import nufft_stages
+
+    L, f32 = LARGE, torch.float32
+    rng = np.random.default_rng(L["seed"])
+
+    def event_ms(fn, reps=5):
+        """The median ms of ``reps`` calls between CUDA events after a warm-up,
+        host dispatch in (the NUFFT's steps copy and sort on the host)."""
+        fn()
+        times = []
+        for _ in range(reps):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            torch.cuda.synchronize()
+            times.append(s.elapsed_time(e))
+        return float(np.median(times))
+    short = short_vi_settings()
+    t17f = time.perf_counter()
+
+    def on_group(name, lh_s, cf_s, lh, cf, start_np, tan_np, metric_tol):
+        """The sharded likelihood's metric and energy inside the field context
+        against the unsharded ones: the line's numbers."""
+        sh = cf_s.position_sharding()
+        rows = [k for k, v in sh.items() if v.split_axes()]
+        ps, ts = (nt.position_from_numpy(cf_s, v, sharding=sh) for v in (start_np, tan_np))
+        pw, tw = (nt.position_from_numpy(cf, v) for v in (start_np, tan_np))
+        native.reset_launches()
+        with parallel.field_sharded(mesh.get_group("fx"), rows):
+            t0 = time.perf_counter()
+            ms = lh_s.metric(ps, ts)
+            sync()
+            first_s = time.perf_counter() - t0
+            read_launches(f"parallel_{name}_metric", SHARDED, refuse=("K1", "K2", "K4"))
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                lh_s.metric(ps, ts)
+                sync()
+                times.append(1e3 * (time.perf_counter() - t0))
+            e_s = float(lh_s(ps))
+        mf, e = lh.metric(pw, tw), float(lh(pw))
+        err, e_err = rel_pos(ms, mf), abs(e_s - e) / abs(e)
+        t0 = time.perf_counter()
+        lh.metric(pw, tw)
+        sync()
+        line = {"metric_first_s": first_s, "metric_apply_ms_median": float(np.median(times)),
+                "metric_apply_ms_all": times, "unsharded_metric_ms": 1e3 * (time.perf_counter() - t0),
+                "rel_l2_vs_unsharded": err, "energy_rel_err": e_err}
+        if not (err <= metric_tol and e_err <= metric_tol):
+            fail(f"{name}: the sharded metric {err} / energy {e_err} > {metric_tol} off the unsharded")
+        return line, sh, ps, pw
+
+    # 17f. the sharded NUFFT's stages over virtual ranks
+    n, m = L["nufft_shape"], L["nufft_points"]
+    img = torch.complex(torch.randn((n, n), generator=g, device=dev),
+                        torch.randn((n, n), generator=g, device=dev))
+    coords = torch.as_tensor(rng.uniform(-0.5, 0.5, (2, m)), device=dev, dtype=f32)
+    cot = torch.complex(torch.randn(m, generator=g, device=dev), torch.randn(m, generator=g, device=dev))
+    want, want_t = nt.nufft2(img, coords), nt.nufft_adjoint(cot, coords, (n, n))
+    scale, scale_t = float(want.abs().max()), float(want_t.abs().max())
+    unsharded = {"nufft2_ms": event_ms(lambda: nt.nufft2(img, coords)),
+                 "nufft_adjoint_ms": event_ms(lambda: nt.nufft_adjoint(cot, coords, (n, n)))}
+    virtual = {}
+    for p in L["ranks"]:
+        b = n // p
+        t0 = time.perf_counter()
+        st = nufft_stages((n, n), coords, p)
+        for r in range(p):
+            st.taps(r, dev, f32)
+        build_s = time.perf_counter() - t0
+        sent = [st.rows(img[None, r * b:(r + 1) * b], r) for r in range(p)]
+        got = sum(st.cols([sent[r][s] for r in range(p)], s) for s in range(p))[0]
+        recv0 = [sent[r][0].contiguous() for r in range(p)]  # what rank 0 receives
+        del sent
+
+        def pull(st=st, p=p, b=b):
+            back = [st.cols_t(cot[None], s) for s in range(p)]
+            return torch.cat([st.rows_t([back[s][r] for s in range(p)], r, False)
+                              for r in range(p)], dim=1)[0]
+
+        pulled = pull()
+        same = torch.equal(pulled, pull())
+        e_fwd = float((got - want).abs().max()) / scale
+        e_adj = float((pulled - want_t).abs().max()) / scale_t
+        back0 = [c.contiguous() for c in st.cols_t(cot[None], 0)]
+        x0 = img[None, :b]
+        virtual[p] = {"rows": b, "columns": st.bounds[1] - st.bounds[0], "tables_build_s": build_s,
+                      "tables_bytes": st.table_bytes(), "forward_rel_err": e_fwd,
+                      "adjoint_rel_err": e_adj, "pull_backs_same_bits": same,
+                      "rank0_ms": {"rows": event_ms(lambda: st.rows(x0, 0)),
+                                   "cols": event_ms(lambda: st.cols(recv0, 0)),
+                                   "cols_t": event_ms(lambda: st.cols_t(cot[None], 0)),
+                                   "rows_t": event_ms(lambda: st.rows_t(back0, 0, False))}}
+        del st, got, pulled, recv0, back0
+        if not (e_fwd <= TOL["nufft_stages"] and e_adj <= TOL["nufft_stages"] and same):
+            fail(f"nufft over {p} virtual ranks: forward {e_fwd}, adjoint {e_adj} (> "
+                 f"{TOL['nufft_stages']}?), the same bits twice {same}")
+    emit({"phase": "parallel_nufft_stages", "shape": [n, n], "points": m, "oversampled": [2 * n, 2 * n],
+          "virtual_ranks": virtual, "unsharded_ms": unsharded})
+    del img, cot, want, want_t, coords
+    torch.cuda.empty_cache()
+
+    # 17f. radio imaging on the group: the exact field through exp and the sharded NUFFT
+    lh, cf, _, start_np, tan_np = nufft_likelihood(n, m, dev, f32)
+    lh_s, cf_s, _, _, _ = nufft_likelihood(n, m, dev, f32, field_mesh=mesh)
+    line, sh, ps, pw = on_group("nufft", lh_s, cf_s, lh, cf, start_np, tan_np, TOL["nufft_metric"])
+    ref, _, ref_s = vi(lh, pw, short)
+    native.reset_launches()
+    got, st, secs = vi(lh_s, ps, short, position_sharding=sh)
+    read_launches("parallel_nufft_vi", SHARDED + ("K7",), refuse=("K1", "K2", "K4"))
+    err, moved = rel_pos(got.pos, ref.pos), rel_pos(ref.pos, pw)
+    emit({"phase": "parallel_nufft", "shape": [n, n], "points": m, "ranks": 1, **line,
+          "vi_settings": "CG 3", "vi_seconds": secs, "unsharded_vi_seconds": ref_s,
+          "vi_rel_l2_vs_unsharded": err, "vi_step_rel_l2": moved,
+          "kl_after": float(st.minimization_state.fun), "seconds": time.perf_counter() - t17f})
+    if not (err <= TOL["sharded_vi"] and moved > 0
+            and all(bool(torch.isfinite(v).all()) for v in got.pos.values())):
+        fail(f"nufft: the sharded MGVI iteration is {err} > {TOL['sharded_vi']} off the unsharded, "
+             f"or the step did not move ({moved})")
+    del lh, cf, lh_s, cf_s, ps, pw, ref, got
+    torch.cuda.empty_cache()
+
+    # 17g. SKI's interpolation cut to the rows of virtual ranks, then on the group
+    t17g = time.perf_counter()
+    ns, mp = L["ski_grid"], L["ski_points"]
+    pts = rng.uniform(0.0, 1.0, (2, mp))
+    ski = nt.HarmonicSKI((ns, ns), [(0.0, 1.0)] * 2, pts, harmonic_kernel=lambda k: 1.0 / (
+        1.0 + (k / 5.0) ** 2) ** 2, padding=0.5, device=dev, dtype=f32)
+    w = ski.w
+    x = torch.randn((ns, ns), generator=g, device=dev)
+    y = torch.randn(mp, generator=g, device=dev)
+    whole, pull_whole = w @ x.reshape(-1), w.T @ y
+    ski_virtual = {}
+    for p in L["ranks"]:
+        b = ns // p
+        parts = sum(w.rows_table(r * b, b) @ x[r * b:(r + 1) * b].reshape(-1) for r in range(p))
+        pulls = torch.cat([GatherReduceT.apply(y, w.rows_table(r * b, b)) for r in range(p)])
+        e_sum = float((parts - whole).abs().max()) / float(whole.abs().max())
+        e_pull = float((pulls - pull_whole).abs().max()) / float(pull_whole.abs().max())
+        ski_virtual[p] = {"partial_sums_rel_err": e_sum, "pull_backs_rel_err": e_pull,
+                          "block_bytes": sum(t.table_bytes() for t in w.row_tables.values())}
+        w.row_tables.clear()
+        if not (e_sum <= TOL["ski_rows"] and e_pull <= TOL["ski_rows"]):
+            fail(f"ski over {p} virtual ranks: partial sums {e_sum}, pull-backs {e_pull} > "
+                 f"{TOL['ski_rows']}")
+    del parts, pulls, whole, pull_whole, x, y
+
+    def ski_lh(field_mesh):
+        cf = bench_field(ns, dev, f32, field_mesh=field_mesh)
+        with torch.no_grad():
+            truth = bench_field(ns, dev, f32)(nt.position_from_numpy(cf, latent_draw(cf.domain, 0)))
+            data = w @ torch.exp(truth).reshape(-1)
+        data = data + 0.05 * torch.randn(mp, generator=torch.Generator(device=dev).manual_seed(5),
+                                         device=dev)
+        return nt.Gaussian(data, noise_std_inv=lambda r: r / 0.05).amend(
+            lambda x: w @ torch.exp(cf(x)).reshape(-1)), cf
+
+    (lh_s, cf_s), (lh, cf) = ski_lh(mesh), ski_lh(None)
+    line, _, _, _ = on_group("ski", lh_s, cf_s, lh, cf, latent_draw(cf.domain, 2),
+                             latent_draw(cf.domain, 3), TOL["nufft_metric"])
+    emit({"phase": "parallel_ski", "grid": [ns, ns], "points": mp, "virtual_ranks": ski_virtual,
+          "ranks": 1, **line})
+    del ski, w, lh, lh_s, cf, cf_s
+
+    # 17g. K7 against its plain version, a rank's rows against the whole draw, times
+    N, key, leaf = L["k7_entries"], 2**61 + 12345, 3
+    words_same = torch.equal(cn.philox_words(key, leaf, 0, N, dev),
+                             cn.philox_words_plain(key, leaf, 0, N, dev))
+    z = cn.philox_normal(key, leaf, 0, N, f32, dev)
+    zp = cn.philox_normal_plain(key, leaf, 0, N, f32, dev)
+    err = float((z - zp).abs().max()) / float(zp.abs().max())
+    abs_err = float((z - zp).abs().max())
+    moments = [float(z.double().mean()), float(z.double().var())]
+    del zp
+    n64 = L["k7_f64_entries"]
+    z64 = cn.philox_normal(key, leaf, 0, n64, torch.float64, dev)
+    err64 = float((z64 - cn.philox_normal_plain(key, leaf, 0, n64, torch.float64, dev)).abs().max()
+                  / z64.abs().max())
+    del z64
+    nr = L["k7_rows"]
+    draw = cn.philox_normal(key, leaf, 0, nr * nr, f32, dev)
+    rows_same = all(torch.equal(cn.philox_normal(key, leaf, r * (nr // p) * nr, (nr // p) * nr, f32, dev),
+                                draw[r * (nr // p) * nr:(r + 1) * (nr // p) * nr])
+                    for p in L["ranks"] for r in range(p))
+    rows_same = rows_same and torch.equal(cn.philox_normal(key, leaf, 4099, 12345, f32, dev),
+                                          draw[4099:4099 + 12345])
+    del draw
+    k7_ms = device_ms(lambda: cn.philox_normal(key, leaf, 0, N, f32, dev))
+    plain_ms = device_ms(lambda: cn.philox_normal_plain(key, leaf, 0, N, f32, dev), iters=2, warmup=1)
+    randn_ms = device_ms(lambda: torch.randn(N, device=dev))
+    # 4 bytes written an entry; per pair of entries a log, a sqrt and a sincospi (~40 f32
+    # operations each as the accurate functions evaluate them) and the Philox rounds
+    k7 = timing(k7_ms, plain_ms, 4 * N, flops=60.0 * N, library_ms=randn_ms)
+    emit({"phase": "kernels", "kernel": "K7", "entries": N, "words_same_bits": words_same,
+          "normals_rel_err": err, "f64_rel_err": err64, "rank_rows_same_bits": rows_same,
+          "mean_var": moments, "seconds": time.perf_counter() - t17g, **k7})
+    if not (words_same and rows_same and err <= TOL["k7"] and err64 <= TOL["k7_f64"]):
+        fail(f"K7: words the same bits {words_same}, rank rows the same bits {rows_same}, "
+             f"normals {err} (> {TOL['k7']}?), f64 {err64} (> {TOL['k7_f64']}?)")
+    torch.cuda.empty_cache()
+    return {"K7": dict(max_abs_err=abs_err, entries=N, **k7)}
 
 
 def main() -> int:
@@ -1496,7 +1759,7 @@ def main() -> int:
         depths.append(int(out.depths[0]))
     torch.cuda.synchronize()
     row_s = time.perf_counter() - t0
-    read_launches("mcmc_nuts_64", (), refuse=NAMES)
+    read_launches("mcmc_nuts_64", (), refuse=TRANSFORMS)
     if not all(bool(torch.isfinite(v).all()) for v in pos.values()):
         fail("mcmc 64²: the chain's position is non-finite")
     emit({"phase": "mcmc_row", "shape": [n, n], "knots": 16, "dtype": "float32",
@@ -1720,7 +1983,7 @@ def main() -> int:
            callback=lambda i, q, v: fc_losses.append(v))
     torch.cuda.synchronize()
     fc_s = time.perf_counter() - t0
-    read_launches("vi_fullcov", (), refuse=NAMES)
+    read_launches("vi_fullcov", (), refuse=TRANSFORMS)
     finite(fc.params, "FullCovarianceVI's parameters")
     if not np.all(np.isfinite(fc_losses)):
         fail(f"FullCovarianceVI: losses {fc_losses} not finite")
@@ -1836,7 +2099,7 @@ def main() -> int:
     sampled_ms = {"forward": float(np.median(event_ms(lambda: sampled(rho), 5))),
                   "pull_back": float(np.median(event_ms(lambda: pull(cot[:m]), 5)))}
     torch.cuda.synchronize()
-    read_launches("responses_sampled", (), refuse=NAMES)
+    read_launches("responses_sampled", (), refuse=TRANSFORMS)
     excess = float(((a - b).abs() - TOL["sampled_los"] * (1 + b.abs())).max())
     emit({"phase": "responses_sampled", "rays": m, "points_a_ray": R["sampled_points"],
           "rel_max_vs_exact": rel_max(a, b), "excess_over_tolerance": excess, "ms_median": sampled_ms})
@@ -1881,7 +2144,7 @@ def main() -> int:
     nufft_ms = {"nufft2": float(np.median(event_ms(lambda: nt.nufft2(x, c), 5))),
                 "nufft_adjoint": float(np.median(event_ms(lambda: nt.nufft_adjoint(yv, c, (n, n)), 5)))}
     torch.cuda.synchronize()
-    read_launches("responses_nufft", (), refuse=NAMES)
+    read_launches("responses_nufft", (), refuse=TRANSFORMS)
     emit({"phase": "responses_nufft", "shape": [n, n], "points": npts, "oversampled": [2 * n, 2 * n],
           "kernel_width": 6, "checked_points": k, "max_err_vs_direct_dft_over_max": dft_err,
           "adjoint_rel_err": adj_err, "coords_grad_rel_max_vs_cpu_f64": grad_err,
@@ -1966,7 +2229,7 @@ def main() -> int:
     op_err = {k: rel_max(op(f32_card).double().cpu(), op(f64_cpu)) for k, op in ops.items()}
     op_ms = {k: float(np.median(event_ms(lambda op=op: op(f32_card), 5))) for k, op in ops.items()}
     torch.cuda.synchronize()
-    read_launches("responses_dynamics_operators", (), refuse=NAMES)
+    read_launches("responses_dynamics_operators", (), refuse=TRANSFORMS)
     emit({"phase": "responses_dynamics_operators", "dynamics": {
               "shape": list(shape), "padding": list(R["dynamics_padding"]), "rel_vs_cpu_f64": dyn_err,
               "ms_median": dyn_ms},
@@ -2179,7 +2442,7 @@ def main() -> int:
         finite(m, f"icr {name}: the metric")
         fwd_ms = float(np.median(event_ms(lambda: f32m(p), 10)))
         met_ms = float(np.median(event_ms(lambda: lh.metric(p, t), 10)))
-        read_launches(f"icr_{name}", (), refuse=NAMES)
+        read_launches(f"icr_{name}", (), refuse=TRANSFORMS)
         with torch.no_grad():
             fwd_err = rel_max(fwd.double().cpu(), f64m(nt.position_from_numpy(f64m, pos_np)))
         met_err = rel_l2(m, lh64.metric(*(nt.position_from_numpy(f64m, v) for v in (pos_np, tan_np))))
@@ -2197,7 +2460,7 @@ def main() -> int:
                                            "depth": ICR["depth"], "build_s": build_s}, 61)
         if name == "fixed":
             start = nt.Samples(pos=nt.position_from_numpy(f32m, latent_draw(f32m.domain, 2)))
-            vi_phase("icr_mgvi_vmap", (), NAMES, nt.OptimizeVI(lh, 1), start, "linear_resample",
+            vi_phase("icr_mgvi_vmap", (), TRANSFORMS, nt.OptimizeVI(lh, 1), start, "linear_resample",
                      seed, 2, maps="vmap", fine_shape=list(f32m.grid.shapes[-1]))
         del lh
     del fields
@@ -2240,7 +2503,9 @@ def main() -> int:
                       "nifty_tpu/ops/sht.py:338 nifty_legendre_contract (XLA primitive, not Pallas)"),
                "K1r": ("nifty_tpu_torch/csrc/expand.cu", "nifty_tpu/ops/pallas_expand.py:108"),
                "K2r": ("nifty_tpu_torch/csrc/expand.cu", "nifty_tpu/ops/pallas_expand.py:161"),
-               "K4r": ("nifty_tpu_torch/csrc/hartley.cu", "nifty_tpu/ops/pallas_fft.py:246")}
+               "K4r": ("nifty_tpu_torch/csrc/hartley.cu", "nifty_tpu/ops/pallas_fft.py:246"),
+               "K7": ("nifty_tpu_torch/csrc/normal.cu",
+                      "nifty_tpu/evi.py:90 random_like (XLA's shard-local threefry draw, not Pallas)")}
     kernels = [
         {"name": f"{k} {NAMES[k]}", "route": "cuda", "source": sources[k][0],
          "replaces": sources[k][1],

@@ -5,7 +5,10 @@ exponentiated Matérn field of ``density_estimator`` on a grid padded to
 twice the size is fitted by MGVI to a histogram of numpy-drawn events
 (a bimodal density on [0, 1)) under a Poisson likelihood.  Runs on the
 CUDA card in float32, or with ``--device cpu`` in float64; ``--fast``
-runs two iterations of one sample pair::
+runs two iterations of one sample pair from a start nearer the prior's
+mean (0.1 times the full run's draw: from the full run's start, two
+iterations of one pair end in a collapsed density for about 1 seed in 12,
+whatever the noise generator)::
 
     python demos_torch/8_density_estimator.py [--device cpu] [--fast]
 """
@@ -46,7 +49,8 @@ def run(device=None, fast=False, seed=6):
     counts = events()
     lh = nt.Poissonian(counts.astype(np.int64), device=device).amend(rate)
     rng = np.random.default_rng(seed)
-    start = {k: rng.standard_normal(v.shape) for k, v in sorted(rate.domain.items())}
+    scale = 0.1 if fast else 1.0
+    start = {k: scale * rng.standard_normal(v.shape) for k, v in sorted(rate.domain.items())}
     samples, _ = nt.optimize_kl(
         lh, nt.position_from_numpy(rate, start), key=torch.Generator(device=device).manual_seed(seed),
         n_total_iterations=2 if fast else 4, n_samples=1 if fast else 2,
@@ -69,7 +73,8 @@ def check(out):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default=None, help="cpu, or the CUDA card when not given")
-    parser.add_argument("--fast", action="store_true", help="two iterations of one sample pair")
+    parser.add_argument("--fast", action="store_true",
+                        help="two iterations of one sample pair from 0.1 times the start")
     args = parser.parse_args(argv)
     check(run(args.device, fast=args.fast))
     return 0

@@ -5,6 +5,9 @@ Usage (from the root of a checkout)::
     python3 nifty_tpu_torch/bench/parallel_check.py --ranks 4 [--shape 4096] [--vi 1280]
     python3 nifty_tpu_torch/bench/parallel_check.py --ranks 4 --device cpu --shape 512 --vi 256 \
         --tomography 256 --rays 512 --nuts 64
+    python3 nifty_tpu_torch/bench/parallel_check.py --ranks 4 --large
+    python3 nifty_tpu_torch/bench/parallel_check.py --ranks 2 --device cpu --large --nufft-shape 256 \
+        --nufft-points 4096 --large-shapes 1024x512:16 128x64x16:8
 
 It starts ``--ranks`` processes (NCCL, rank r on card r; gloo with
 ``--device cpu``), float32, and on every rank, against the same work done
@@ -42,6 +45,23 @@ unsharded on the rank's own card:
    rounding: 4 gloo ranks at 64² part from the 4-chain batch by 1.7e-3,
    another chain by O(1)), with the seconds of each and of ``"vmap"``.
 
+With ``--large`` it runs instead the large-field surface:
+
+7. the sharded NUFFT's likelihood of radio imaging at full width
+   (``bench.workload.nufft_likelihood``: the exact ``--nufft-shape``²
+   field through ``exp`` and ``nufft2`` at ``--nufft-points`` uv points,
+   the rank's share of the visibilities): its metric inside the field
+   context against the unsharded one on the rank's own card (relative L2
+   1e-5) and one MGVI iteration by ``position_sharding=`` against the
+   unsharded at CG 3 (1e-4), with the seconds of each;
+8. ``tests/test_large_field.py:_run_step`` (``bench.workload.
+   large_field_step``: CG-3 draws from one key, one Newton-CG step of CG
+   2, ``kl_map="smap"``, float32) at 10240² knot64 and 8192²×16 knot64
+   (1.07·10⁹ dof), each rank's peak ``torch.cuda.max_memory_allocated``,
+   the step's seconds, ξ's rows a rank (n0/p) and the energy finite.  A
+   size that runs out of device memory is reported with the memory at
+   the failure, and 8192²×8 (5.4·10⁸) is tried after it.
+
 Times are host seconds around work that ends in a synchronize and a
 barrier (the slowest rank's), the median of ``--reps`` after one warm-up.
 Rank 0 prints one JSON line a check, then the card's name and power limit
@@ -59,6 +79,8 @@ import tempfile
 import time
 
 TOL = {"hartley": 1e-6, "metric": 1e-5, "vi": 1e-4, "chains": 1e-2}
+LARGE = ("10240x10240:64", "8192x8192x16:64")  # _run_step's 1.05e8 and 1.07e9 dof
+FALLBACK = "8192x8192x8:64"  # tried after a size that does not fit
 NUTS = dict(n_chains=4, n_warmup=8, n_samples=4, max_tree_depth=5, step_size=1e-3)  # chip_smoke.py's MCMC
 
 
@@ -83,6 +105,8 @@ def _rank(args):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     parallel.initialize(args.store, args.ranks, args.rank, device=args.device)
+    if args.large:
+        return _large(args)
     dev = parallel.multihost.backend_device() if args.device != "cpu" else torch.device("cpu")
     rank, p, f32 = args.rank, args.ranks, torch.float32
     mesh = parallel.global_mesh(("fx",))
@@ -253,6 +277,121 @@ def _rank(args):
     return 1 if failed else 0
 
 
+def _large(args):
+    """Checks 7 and 8 on this rank (``--large``)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import nifty_tpu_torch as nt
+    from nifty_tpu_torch import parallel
+    from nifty_tpu_torch.bench.workload import large_field_step, nufft_likelihood, short_vi_settings
+
+    dev = parallel.multihost.backend_device() if args.device != "cpu" else torch.device("cpu")
+    rank, p, f32 = args.rank, args.ranks, torch.float32
+    mesh = parallel.global_mesh(("fx",))
+    results, failed = [], []
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+        dist.barrier()
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    def every(value):
+        """``value`` of every rank, in rank order."""
+        got = [None] * p
+        dist.all_gather_object(got, value)
+        return got
+
+    def report(line, err, tol):
+        err = max(every(float(err)))
+        line.update(err=err, tol=tol, ok=err <= tol)
+        results.append(line)
+        if not err <= tol:
+            failed.append(line["check"])
+
+    # 7. the sharded NUFFT at full width
+    n, m = args.nufft_shape, args.nufft_points
+    lh, cf, _, start_np, tan_np = nufft_likelihood(n, m, dev, f32)
+    lh_s, cf_s, _, _, _ = nufft_likelihood(n, m, dev, f32, field_mesh=mesh)
+    sh = cf_s.position_sharding()
+    rows = [k for k, v in sh.items() if v.split_axes()]
+    ps, ts = (nt.position_from_numpy(cf_s, v, sharding=sh) for v in (start_np, tan_np))
+    pw, tw = (nt.position_from_numpy(cf, v) for v in (start_np, tan_np))
+    with parallel.field_sharded(mesh.get_group("fx"), rows):
+        ms, first_s = timed(lambda: lh_s.metric(ps, ts))
+        again = [timed(lambda: lh_s.metric(ps, ts))[1] for _ in range(args.reps)]
+        energy = float(lh_s(ps))
+    mf, whole_s = timed(lambda: lh.metric(pw, tw))
+    e_rel = abs(energy - float(lh(pw))) / abs(float(lh(pw)))
+    report({"check": "nufft_metric", "shape": [n, n], "points": m, "ranks": p, "first_s": first_s,
+            "s_median": float(np.median(again)), "s_all": again, "unsharded_s": whole_s,
+            "energy_rel_err": e_rel},
+           max(_rel(ms, {k: sh[k].shard(v) for k, v in mf.items()}), e_rel), TOL["metric"])
+    del ms, mf, ts, tw
+
+    def vi(lh_, pos, **kw):
+        return nt.optimize_kl(lh_, pos, key=torch.Generator(device=dev).manual_seed(81),
+                              n_total_iterations=1, sample_mode="linear_resample",
+                              **short_vi_settings(), **kw)[0]
+
+    ref, ref_s = timed(lambda: vi(lh, pw))
+    got, got_s = timed(lambda: vi(lh_s, ps, position_sharding=sh))
+    moved = _rel(ref.pos, pw)  # the step itself: 0 would compare two runs that did nothing
+    report({"check": "nufft_mgvi_iteration", "by": "position_sharding", "shape": [n, n],
+            "points": m, "ranks": p, "settings": "CG 3", "s": got_s, "unsharded_s": ref_s,
+            "step_rel_l2": moved},
+           _rel(got.pos, {k: sh[k].shard(v) for k, v in ref.pos.items()}) if moved > 0 else float("inf"),
+           TOL["vi"])
+    del lh, lh_s, cf, cf_s, ps, pw, ref, got
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # 8. the large-field VI step
+    sizes, i = list(args.large_shapes), 0
+    while i < len(sizes):
+        spec = sizes[i]
+        dims, knots = spec.split(":")
+        shape = tuple(int(d) for d in dims.split("x"))
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        line = {"check": "large_field_step", "shape": list(shape), "knots": int(knots),
+                "dof": int(np.prod(shape)), "ranks": p, "kl_map": "smap"}
+        try:
+            (cfl, x, energy), secs = timed(lambda: large_field_step(shape, int(knots), dev,
+                                                                    field_mesh=mesh))
+            xi = x[cfl.xi_key]
+            ok = (tuple(xi.shape) == (shape[0] // p,) + shape[1:] and cfl.rows == (rank * shape[0] // p,
+                  shape[0] // p) and xi.dtype == f32 and bool(np.isfinite(energy)))
+            line.update(seconds=secs, energy=energy, xi_rows_a_rank=int(xi.shape[0]))
+            del cfl, x, xi
+            err = 0.0 if ok else float("inf")
+        except torch.cuda.OutOfMemoryError as e:
+            line.update(out_of_memory=str(e).splitlines()[0][:300])
+            err = float("inf")
+            if FALLBACK not in sizes:
+                sizes.insert(i + 1, FALLBACK)
+        if cuda:
+            line.update(peak_allocated_gib_by_rank=every(torch.cuda.max_memory_allocated() / 2**30),
+                        allocated_gib_at_end_by_rank=every(torch.cuda.memory_allocated() / 2**30))
+        report(line, err, 0.0)
+        i += 1
+    dist.destroy_process_group()
+    if rank == 0:
+        for line in results:
+            print(json.dumps(line), flush=True)
+    return 1 if failed else 0
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ranks", type=int, default=4)
@@ -263,6 +402,11 @@ def main(argv=None):
     parser.add_argument("--tomography", type=int, default=1280, help="demo 1's grid (check 4)")
     parser.add_argument("--rays", type=int, default=16384, help="demo 1's rays (check 4)")
     parser.add_argument("--nuts", type=int, default=1280, help="the NUTS grid (check 6)")
+    parser.add_argument("--large", action="store_true", help="checks 7-8 in place of 1-6")
+    parser.add_argument("--nufft-shape", type=int, default=4096, help="the NUFFT's image (check 7)")
+    parser.add_argument("--nufft-points", type=int, default=2**22, help="its uv points (check 7)")
+    parser.add_argument("--large-shapes", nargs="+", default=list(LARGE),
+                        help="the steps of check 8 as n0xn1[xn2]:knots")
     parser.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     parser.add_argument("--store", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
@@ -271,8 +415,11 @@ def main(argv=None):
     store = os.path.join(tempfile.mkdtemp(), "store")
     cmd = [sys.executable, os.path.abspath(__file__), "--store", store, "--ranks", str(args.ranks),
            "--shape", str(args.shape), "--vi", str(args.vi), "--reps", str(args.reps),
-           "--tomography", str(args.tomography), "--rays", str(args.rays), "--nuts", str(args.nuts)]
+           "--tomography", str(args.tomography), "--rays", str(args.rays), "--nuts", str(args.nuts),
+           "--nufft-shape", str(args.nufft_shape), "--nufft-points", str(args.nufft_points),
+           "--large-shapes", *args.large_shapes]
     cmd += ["--device", args.device] if args.device else []
+    cmd += ["--large"] if args.large else []
     procs = [subprocess.Popen(cmd + ["--rank", str(r)]) for r in range(args.ranks)]
     codes = [pr.wait() for pr in procs]
     if args.device != "cpu":

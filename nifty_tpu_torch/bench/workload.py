@@ -4,8 +4,10 @@ the energy change of a leapfrog trajectory on a model's standardized
 posterior, the models of ``chip_smoke.py``'s phase 12 (a Matérn
 field, the density estimator's events, the full-covariance Gaussian's
 forward model), phase 13's tomography (demo 1 at full width), phases
-14-15's spherical and multi-grid fields, and phase 14a's library yardstick
-for K5/K6 (a batched matrix product against a precomputed λ table)."""
+14-15's spherical and multi-grid fields, phase 14a's library yardstick
+for K5/K6 (a batched matrix product against a precomputed λ table), the
+sharded NUFFT's likelihood of phase 17f and ``parallel_check.py --large``,
+and the large-field VI step (``tests/test_large_field.py:_run_step``)."""
 
 from __future__ import annotations
 
@@ -17,12 +19,14 @@ __all__ = [
     "gaussian_at_own_draw",
     "grid_index",
     "icr_fields",
+    "large_field_step",
     "latent_draw",
     "leapfrog_energy_change",
     "legendre_bmm_operands",
     "legendre_table",
     "matern_field",
     "ndvcg_forward",
+    "nufft_likelihood",
     "poisson_at_own_draw",
     "sphere_field",
     "sphere_index",
@@ -439,3 +443,79 @@ def icr_fields(device, depth=6):
         f64 = build(device="cpu", dtype=torch.float64)
         out[name] = (copy.deepcopy(f64).to(device, torch.float32), f64, time.perf_counter() - t0)
     return out
+
+
+def nufft_likelihood(n, n_points, device, dtype, field_mesh=None, noise=0.1, seed=51):
+    """Radio imaging at full width: ``nufft2(exp(cf(x)), coords)`` of the
+    exact ``n``² field (:func:`bench_field`) at ``n_points`` uv points
+    uniform in [-1/2, 1/2)² cycles a pixel (numpy ``seed``), its
+    visibilities at the model's own draw (:func:`latent_draw` seed 0) with
+    complex noise whose std a part is ``noise`` times the visibilities' rms
+    modulus (a fixed std would leave float32 residuals of a large image
+    below their rounding).  With ``field_mesh`` the field
+    is row-sharded and the data are the rank's share of the points.
+    Returns the likelihood, the coordinates (a tensor on ``device``) and the
+    start and a tangent as numpy (latent seeds 2 and 3)."""
+    import numpy as np
+    import torch
+
+    import nifty_tpu_torch as nt
+
+    rng = np.random.default_rng(seed)
+    coords = torch.as_tensor(rng.uniform(-0.5, 0.5, (2, n_points)), device=device, dtype=dtype)
+    cf = bench_field(n, device, dtype)
+    with torch.no_grad():
+        vis = nt.nufft2(torch.exp(cf(nt.position_from_numpy(cf, latent_draw(cf.domain, 0)))), coords)
+    vis = vis.cpu().numpy()
+    noise = noise * float(np.sqrt(np.mean(np.abs(vis) ** 2)))
+    vis = vis + noise * (rng.standard_normal(n_points) + 1j * rng.standard_normal(n_points))
+    if field_mesh is not None:
+        cf = bench_field(n, device, dtype, field_mesh=field_mesh)
+        from nifty_tpu_torch.parallel.fft import mesh_axis
+
+        ax = mesh_axis(field_mesh, "fx")
+        vis = np.split(vis, ax.size)[ax.rank]
+    cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
+    lh = nt.Gaussian(torch.as_tensor(vis, device=device, dtype=cdt),
+                     noise_cov_inv=lambda r: r / noise**2).amend(
+        lambda x: nt.nufft2(torch.exp(cf(x)), coords))
+    return lh, cf, coords, latent_draw(cf.domain, 2), latent_draw(cf.domain, 3)
+
+
+def large_field_step(shape, knots, device, field_mesh=None, residual_map="vmap", kl_map="smap",
+                     seed=0, key=1):
+    """``tests/test_large_field.py:_run_step`` on the port: the float32
+    correlated field of ``shape`` with ``knots`` mode knots (row-sharded
+    over ``field_mesh``'s axis "fx" when given), ``Gaussian(zeros,
+    noise_std_inv=3x)`` with the data born as the rank's rows, the
+    position drawn by the counter-based K7 from ``seed`` (a rank draws its
+    rows of ξ), then CG-3 draws from the one ``key`` (two mirrored
+    samples) and one Newton-CG step of CG 2 with the KL mapped by
+    ``kl_map``.  Returns the field, the new position (the rank's rows) and
+    the KL energy after the step."""
+    import math
+
+    import torch
+
+    import nifty_tpu_torch as nt
+    from nifty_tpu_torch.utils.tree import counter_normal
+
+    cfm = nt.CorrelatedFieldMaker("cf")
+    cfm.set_amplitude_total_offset(offset_mean=0.0, offset_std=(1e-1, 3e-2))
+    cfm.add_fluctuations(shape, distances=1.0 / shape[0], fluctuations=(1.0, 5e-1),
+                         loglogavgslope=(-3.0, 2e-1), flexibility=(1e0, 2e-1), n_mode_knots=knots)
+    cf = cfm.finalize(device=device, dtype=torch.float32, field_mesh=field_mesh)
+    lo, rows = cf.rows
+    local = (rows,) + tuple(shape[1:])
+    lh = nt.Gaussian(torch.zeros(local, device=device), noise_std_inv=lambda x: 3.0 * x).amend(cf)
+    row = math.prod(shape[1:])
+    pos = {k: counter_normal(seed, i, local, torch.float32, start=lo * row, device=device)
+           if k == cf.xi_key else counter_normal(seed, i, v.shape, torch.float32, device=device)
+           for i, (k, v) in enumerate(sorted(cf.domain.items()))}
+    sharding = None if field_mesh is None else cf.position_sharding()
+    opt = nt.OptimizeVI(lh, 1, kl_map=kl_map, residual_map=residual_map, position_sharding=sharding)
+    fixed = lambda m: dict(maxiter=m, miniter=m, resnorm=-1.0)  # noqa: E731
+    samples, _ = opt.draw_linear_samples(pos, [key], cg=nt.static_cg, cg_kwargs=fixed(3))
+    res = opt.kl_minimize(samples, minimize=nt.static_newton_cg,
+                          minimize_kwargs=dict(maxiter=1, cg_kwargs=fixed(2)))
+    return cf, res.x, float(res.fun)

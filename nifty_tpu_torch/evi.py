@@ -8,9 +8,12 @@ geoVI residual refines it: Newton-CG on the nonlinear residual in the
 coordinates where the likelihood's metric is Euclidean.
 
 Randomness: a sample's ``key`` is an integer seed, from which
-:func:`white_noise` draws d̃ then ξ̃ with a :class:`torch.Generator` on the
-position's device.  A seed replays: geoVI draws its metric sample from the
-same key as the linear residual.  Every sampler also
+:func:`white_noise` draws d̃ then ξ̃ on the position's device by the
+counter-based K7 (Philox-4x32-10): each entry a function of the seed, its
+leaf and its index in the whole leaf, so a rank of a field-sharded run
+draws only its rows and gets those of the one-process draw.  A seed
+replays: geoVI draws its metric sample from the same key as the linear
+residual.  Every sampler also
 takes the draws themselves (``white=``), so a test can hand both packages
 the same numbers.  Positions are dicts of tensors; point estimates are
 keys held fixed, whose residuals are zeros.
@@ -35,6 +38,8 @@ from functools import partial
 from typing import Any, Callable, NamedTuple, Optional
 
 import inspect
+import itertools
+import math
 
 import numpy as np
 import torch
@@ -45,8 +50,8 @@ from .interop import position_from_numpy
 from .likelihood import Likelihood, LikelihoodWithModel, frozen_keys
 from .utils.tree import (
     ShapeWithDtype,
+    counter_normal,
     get_map,
-    random_like,
     stack,
     tree_add,
     tree_map,
@@ -84,28 +89,31 @@ def white_noise(likelihood: Likelihood, pos, key, point_estimates=()) -> WhiteNo
     position's device: the data-space draws in the dtypes of the
     likelihood's ``lsm_tangents_shape`` (complex normals for complex data;
     the position's real dtype where it names none), the prior draws in the
-    position's."""
+    position's.  Every leaf is drawn by the counter-based K7
+    (:func:`~.utils.tree.counter_normal`) from ``key`` and its index in
+    draw order (the data leaves, then the prior's).  In a field-sharded run
+    a split leaf (the data, the field's rows of ξ) draws only the rank's
+    block, its entries at their indices in the whole leaf: the rows of the
+    one-process draw, bit for bit, without making the rest."""
     from .parallel.collectives import field
 
     lh, p_liquid = likelihood.freeze(primals=pos, point_estimates=point_estimates)
     leaf = tree_leaves(p_liquid)[0]
-    gen = torch.Generator(device=leaf.device).manual_seed(int(key))
-    draw = partial(random_like, gen, device=leaf.device)
     ctx = field()
-    # a field-sharded run draws the whole arrays, in the one-process order,
-    # and keeps the rank's rows: the data (the field's rows) and ξ
-    p = 1 if ctx is None else torch.distributed.get_world_size(ctx.group)
-    r = 0 if ctx is None else torch.distributed.get_rank(ctx.group)
-    whole = lambda s: ShapeWithDtype((s.shape[0] * p,) + tuple(s.shape[1:]), s.dtype)  # noqa: E731
-    rows = lambda x: x.narrow(0, r * (x.shape[0] // p), x.shape[0] // p)  # noqa: E731
-    data = draw(tree_map(lambda s: whole(ShapeWithDtype(s.shape, s.dtype or leaf.real.dtype)),
-                         lh.lsm_tangents_shape, is_leaf=lambda x: isinstance(x, ShapeWithDtype)))
+    rank = 0 if ctx is None else torch.distributed.get_rank(ctx.group)
+    order = itertools.count()
+
+    def draw(s, split):
+        n = math.prod(s.shape)
+        return counter_normal(int(key), next(order), s.shape, s.dtype or leaf.real.dtype,
+                              start=rank * n if split else 0, device=leaf.device)
+
+    data = tree_map(lambda s: draw(s, ctx is not None), lh.lsm_tangents_shape,
+                    is_leaf=lambda x: isinstance(x, ShapeWithDtype))
     if ctx is None:
-        return WhiteNoise(data, draw(tree_map(ShapeWithDtype.from_leave, p_liquid)))
-    prior = draw({k: whole(ShapeWithDtype.from_leave(v)) if k in ctx.keys
-                  else ShapeWithDtype.from_leave(v) for k, v in p_liquid.items()})
-    data = tree_map(rows, data)
-    prior = {k: rows(v) if k in ctx.keys else v for k, v in prior.items()}
+        prior = tree_map(lambda v: draw(ShapeWithDtype.from_leave(v), False), p_liquid)
+    else:
+        prior = {k: draw(ShapeWithDtype.from_leave(v), k in ctx.keys) for k, v in p_liquid.items()}
     return WhiteNoise(data, prior)
 
 

@@ -34,7 +34,7 @@ import torch
 
 from . import device as _device
 from .model import LazyModel
-from .ops.gather_reduce import PaddedSparse, column_block, transpose_block, transpose_tables
+from .ops.gather_reduce import PaddedSparse, rows_block, transpose_tables
 from .ops.ndimage import map_coordinates
 from .parallel import collectives
 from .utils.tree import ShapeWithDtype
@@ -47,8 +47,9 @@ def _share(target, p):
     over ``p`` ranks along its leading axis."""
     if not target or target[0] % p:
         raise NotImplementedError(
-            f"position_sharding= takes a line of sight whose rays split over the ranks: "
-            f"{tuple(target)} rays over {p} ranks do not (ROADMAP.md)")
+            f"position_sharding= takes a line of sight whose rays split over the ranks, as it "
+            f"takes the NUFFT's and SKI's interpolation's points: {tuple(target)} rays over {p} "
+            f"ranks do not (ROADMAP.md)")
     return (target[0] // p,) + tuple(target[1:])
 
 
@@ -283,12 +284,8 @@ class ExactGridLOS(LazyModel):
             return self.table
         key = f"{lo}_{n}"
         if key not in self.row_tables:
-            cells = int(np.prod(self.domain.shape[1:]))
-            c0, c1 = lo * cells, (lo + n) * cells
-            w = self.table.wgt
-            self.row_tables[key] = PaddedSparse(
-                *column_block(*self._tables[:2], c0, c1), n * cells, device=w.device,
-                dtype=w.dtype, transpose=transpose_block(*self._tables[2:], c0, c1))
+            self.row_tables[key] = rows_block(self._tables, int(np.prod(self.domain.shape[1:])),
+                                              lo, n, self.table.wgt)
         return self.row_tables[key]
 
     def rows_partial(self, x, lo=None):

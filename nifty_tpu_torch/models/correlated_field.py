@@ -720,7 +720,7 @@ class CorrelatedField(Model):
             return out
         from ..parallel.collectives import note_split
 
-        return note_split(out)  # the rank's rows
+        return note_split(out, rows=True)  # the rank's rows
 
 
 # --- the maker ---------------------------------------------------------------

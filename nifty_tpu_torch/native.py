@@ -1,7 +1,8 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The sources are ``csrc/*.cu``: plain C entry points, compiled at first use
-with ``nvcc`` for ``sm_90a`` into one shared library under ``_build/``
+with ``nvcc`` for ``sm_90a`` (one process a source, all at once, then one
+link) into one shared library under ``_build/``
 (named by a hash of the sources and flags, so an edited source is never
 served a stale build) and bound with :mod:`ctypes`.  Every entry point
 launches on the caller's CUDA stream and returns ``cudaGetLastError()``;
@@ -61,6 +62,8 @@ _SIGNATURES = {
     ),
     "nt_legendre_contract": (_P,) * 7 + (_I,) * 10 + (_P,),
     "nt_legendre_contract_t": (_P,) * 8 + (_I,) * 10 + (_P,),
+    "nt_philox_normal": (_P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint,
+                         ctypes.c_uint, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -99,12 +102,25 @@ def build(verbose: bool = False) -> str:
     os.makedirs(_BUILD, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     report = ("-Xptxas", "-v") if verbose else ()
-    res = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, *report, "-o", tmp, *sources], capture_output=True, text=True
-    )
-    _build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{_build_log}")
+    # one nvcc a source, all started together, then one link
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    procs = [subprocess.Popen([_nvcc(), *compile_flags, *report, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    logs = [pr.communicate()[0] for pr in procs]
+    _build_log = "".join(logs)
+    bad = [(src, pr.returncode) for src, pr in zip(sources, procs) if pr.returncode != 0]
+    if not bad:
+        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *objs], capture_output=True,
+                             text=True)
+        _build_log += res.stdout + res.stderr
+        bad = [("link", res.returncode)] if res.returncode != 0 else []
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if bad:
+        raise RuntimeError(f"nvcc failed ({bad}):\n{_build_log}")
     os.replace(tmp, path)
     return path
 

@@ -43,7 +43,8 @@ import torch
 
 from .. import device as _device
 
-__all__ = ["GatherReduce", "GatherReduceT", "PaddedSparse", "column_block", "transpose_block"]
+__all__ = ["GatherReduce", "GatherReduceT", "PaddedSparse", "column_block", "rows_block",
+           "transpose_block"]
 
 
 def _weights(t, x):
@@ -170,6 +171,17 @@ def transpose_block(cols, t_rows, t_wgt, lo: int, hi: int):
     counts = (t_wgt[a:b] != 0).sum(1)
     width = max(int(counts.max()) if counts.size else 0, 1)
     return cols[a:b] - lo, t_rows[a:b, :width], t_wgt[a:b, :width]
+
+
+def rows_block(tables, row_cells: int, lo: int, n: int, like):
+    """The matrix of the rows ``[lo, lo + n)`` of a grid whose rows hold
+    ``row_cells`` cells each, from the whole matrix's numpy tables ``(idx,
+    wgt, cols, t_rows, t_wgt)``: a :class:`PaddedSparse` over the block's
+    cells (:func:`column_block`, :func:`transpose_block`) on the device and
+    in the dtype of the tensor ``like``."""
+    c0, c1 = lo * row_cells, (lo + n) * row_cells
+    return PaddedSparse(*column_block(*tables[:2], c0, c1), n * row_cells, device=like.device,
+                        dtype=like.dtype, transpose=transpose_block(*tables[2:], c0, c1))
 
 
 class PaddedSparse(torch.nn.Module):

@@ -11,6 +11,14 @@ window weights are computed from the coordinates on every call, so the
 type 2 is differentiable in them (:class:`VariablePositionNufft`,
 :class:`ShiftedPositionFFT`).
 
+On a row-sharded field (inside a field context, the input the rank's rows
+the field noted) :func:`nufft2` is the sharded type 2 of
+:mod:`~..parallel.nufft` at fixed coordinates: an exchange of column
+blocks before the oversampled axis 0 is padded, the taps cut to the rank's
+block, and the rank's share of the points.  Coordinates as model inputs
+(:class:`VariablePositionNufft`, :class:`ShiftedPositionFFT`) are refused
+there (ROADMAP.md).
+
 Conventions: ``coords`` holds frequencies in cycles per pixel, shape
 ``(ndim, M)``; the type 2 computes ``y_k = Σ_j x_j · exp(-2πi · coords_k
 · (j - N/2))`` (centred image indices).
@@ -102,7 +110,19 @@ def _centre_shifts(shape):
 def nufft2(x, coords, *, oversampling: float = 2.0, kernel_width: int = 6):
     """Type-2 NUFFT (uniform to non-uniform): the DFT of the real or complex
     image ``x`` at the frequencies ``coords`` ``(ndim, M)`` in cycles per
-    pixel.  Linear in ``x``, differentiable in both arguments."""
+    pixel.  Linear in ``x``, differentiable in both arguments.
+
+    Inside a field context, on the rank's rows of a row-sharded field (a
+    shape the field noted), it is the sharded NUFFT of
+    :mod:`~..parallel.nufft`: the rank's share of the points, the
+    coordinates fixed."""
+    from ..parallel import collectives
+
+    ctx = collectives.row_shard(x)
+    if ctx is not None:
+        from ..parallel.nufft import sharded_nufft2
+
+        return sharded_nufft2(x, coords, ctx, oversampling=oversampling, kernel_width=kernel_width)
     shape = tuple(x.shape)
     ndim = len(shape)
     if coords.shape[0] != ndim:
@@ -158,6 +178,18 @@ def _sorted_domain(domain):
     return {k: domain[k] for k in sorted(domain)}
 
 
+def _unsharded(model):
+    """Refuse ``model`` (a NUFFT whose coordinates are inputs) inside a
+    field-sharded run."""
+    from ..parallel import collectives
+
+    if collectives.field() is not None:
+        raise NotImplementedError(
+            f"position_sharding= takes the type-2 NUFFT of the row-sharded field at fixed "
+            f"coordinates; {type(model).__name__} (coordinates as model inputs) is not ported "
+            "(ROADMAP.md)")
+
+
 class VariablePositionNufft(Model):
     """Type-2 NUFFT with the sampling positions as inputs: the field's
     Fourier transform at arbitrary, possibly learned, positions,
@@ -183,6 +215,7 @@ class VariablePositionNufft(Model):
         super().__init__(domain=domain, init=init)
 
     def forward(self, x):
+        _unsharded(self)
         return nufft2(x[self._k_grid], x[self._k_coord], oversampling=self.oversampling,
                       kernel_width=self.kernel_width)
 
@@ -223,6 +256,7 @@ class ShiftedPositionFFT(Model):
         super().__init__(domain=domain, init=init)
 
     def forward(self, x):
+        _unsharded(self)
         delta = x[self._k_delta].reshape(len(self.shift_directions), -1)
         rows = list(self._base.like(delta, delta.dtype))
         for i, d in enumerate(self.shift_directions):

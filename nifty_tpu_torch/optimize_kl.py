@@ -39,14 +39,16 @@ the field: the tree algebra and the energies sum over the field axis
 inside :func:`~.parallel.collectives.field_sharded`; a mesh with a
 ``"samples"`` axis beside the field's shares the samples over it too.
 Each data leaf is split along its leading axis: it is either the rank's
-rows of the field, or the rank's share of the output of a field-aware
-response (``ExactGridLOS``, ``SamplingCartesianGridLOS``), which sums the
-ranks' partial outputs and keeps the rank's block of them.  Any other
-likelihood (a response that mixes rows otherwise: the NUFFT, SKI, a sum
-or a cut of the field; replicated data) is refused at the first position
-the run sees (ROADMAP.md).  The samples and positions are the rank's
-shards (:meth:`OptimizeVI.gather` puts them together, :meth:`OptimizeVI.
-scatter` cuts them); the status message reads them gathered.  With
+rows of the field, or the rank's share of the output of a response of
+them (``ExactGridLOS``, ``SamplingCartesianGridLOS``, ``nufft2`` at fixed
+coordinates, SKI's ``interp_mat``), which sums or exchanges the ranks'
+partial outputs and keeps the rank's block of them.  Any other
+likelihood (a response that mixes rows otherwise: a sum or a cut of the
+field, ``ToeplitzSKI``, a NUFFT whose coordinates are inputs; replicated
+data) is refused at the first position the run sees (ROADMAP.md).  The
+samples and positions are the rank's shards (:meth:`OptimizeVI.gather`
+puts them together, :meth:`OptimizeVI.scatter` cuts them); the status
+message reads them gathered.  With
 ``odir`` the run's first rank writes the files of the one-process run,
 from the gathered samples, and a resume cuts the loaded ones again; each
 exported operator runs on the shards and its output is gathered along
@@ -205,14 +207,21 @@ def _gather(forest, field=None, samples=None, keys=None):
 
 
 def _field_aware(root):
-    """The field-aware responses (objects with a ``field_share`` method)
-    that ``root`` can call: through modules, containers, partials, bound
-    methods and functions' closures, defaults and the globals they name."""
+    """``(found, nufft)``: the field-aware responses (objects with a
+    ``field_share`` method) that ``root`` can call, and whether it can call
+    ``nufft2`` (whose share of a row-sharded field shows only when it
+    runs): through modules, containers, partials, bound methods and
+    functions' closures, defaults, the globals they name and the
+    attributes of this package's modules they name (``nt.nufft2``)."""
     import types
 
-    found, seen, todo = [], set(), [root]
+    from .ops.nufft import nufft2
+
+    pkg = __name__.split(".")[0]
+    found, nufft, seen, todo = [], False, set(), [root]
     while todo:
         obj = todo.pop()
+        nufft = nufft or obj is nufft2
         if id(obj) in seen or isinstance(obj, (torch.Tensor, np.ndarray, str, bytes, int, float,
                                                type, types.ModuleType)):
             continue
@@ -228,7 +237,8 @@ def _field_aware(root):
         elif isinstance(obj, types.MethodType):
             todo.extend((obj.__self__, obj.__func__))
         elif isinstance(obj, types.FunctionType):
-            todo.extend(c.cell_contents for c in obj.__closure__ or () if _filled(c))
+            cells = [c.cell_contents for c in obj.__closure__ or () if _filled(c)]
+            todo.extend(cells)
             todo.extend((obj.__defaults__ or ()) + tuple((obj.__kwdefaults__ or {}).values()))
             codes, names = [obj.__code__], set()
             while codes:
@@ -236,9 +246,18 @@ def _field_aware(root):
                 names.update(code.co_names)
                 codes.extend(c for c in code.co_consts if isinstance(c, types.CodeType))
             todo.extend(obj.__globals__[n] for n in names if n in obj.__globals__)
+            mods, read = [obj.__globals__.get(n) for n in names] + cells, set()
+            while mods:  # this package's modules: the attributes the code names
+                m = mods.pop()
+                if (isinstance(m, types.ModuleType) and m.__name__.split(".")[0] == pkg
+                        and m.__name__ not in read):
+                    read.add(m.__name__)
+                    attrs = [getattr(m, n) for n in names if hasattr(m, n)]
+                    mods.extend(attrs)
+                    todo.extend(attrs)
         elif hasattr(obj, "__dict__"):
             todo.extend(vars(obj).values())
-    return found
+    return found, nufft
 
 
 def _filled(cell):
@@ -358,11 +377,14 @@ class OptimizeVI:
     def _check_rows(self, pos):
         """Refuse, at the first position (or :class:`Samples`) it sees, a
         likelihood whose data it cannot vouch for.  A field-sharded run sums
-        the energies over the field group and keeps the rank's block of the
-        data-space noise's leading axis, which is right where each data
-        leaf is the rank's rows of ξ or the rank's share of the output of a
-        field-aware response the likelihood can call (before any
-        collective: the responses are found in the likelihood, not run)."""
+        the energies over the field group and draws the data-space noise
+        of the rank's block of each data leaf's leading axis, which is right
+        where each data leaf is the rank's rows of ξ, the rank's share of
+        the output of a field-aware response the likelihood can call (the
+        line of sight, SKI's interpolation: found in the likelihood, before
+        any collective), or, where the likelihood can call ``nufft2``, the
+        share that a response noted when the likelihood ran once at ``pos``
+        in the field context (every rank runs it alike)."""
         if self._rows_checked or not self._row_axes:
             return
         pos = pos.pos if isinstance(pos, Samples) else pos
@@ -372,24 +394,35 @@ class OptimizeVI:
             return
         data = tree_leaves(self.likelihood.lsm_tangents_shape,
                            is_leaf=lambda x: isinstance(x, ShapeWithDtype))
-        shares = None
+        shares, pending = None, []
         for d in data:
             if len(rows) == 1 and len(d.shape) and d.shape[0] in rows:
                 continue
             if shares is None:
                 import torch.distributed as dist
 
-                found = _field_aware(self.likelihood)
+                found, nufft = _field_aware(self.likelihood)
                 p = dist.get_world_size(self.field) if found else 1
                 shares = {tuple(r.field_share(p)) for r in found}
             if tuple(d.shape) not in shares:
+                pending.append(tuple(d.shape))
+        noted = set()
+        if pending and nufft:  # the NUFFT's share shows when it runs
+            with torch.no_grad(), collectives.field_sharded(self.field, self.field_keys) as ctx:
+                self.likelihood(pos)
+                noted = set(ctx.notes) - ctx.rows
+        if pending:
+            bad = [s for s in pending if s not in noted]
+            if bad:
                 raise NotImplementedError(
                     f"position_sharding= takes a likelihood whose data are the field's rows or"
-                    f" a field-aware response's share (ExactGridLOS, SamplingCartesianGridLOS):"
+                    f" the rank's share of a response of them (ExactGridLOS,"
+                    f" SamplingCartesianGridLOS, nufft2 at fixed coordinates, SKI's interp_mat):"
                     f" each data leaf's leading axis the rank's {sorted(rows)} rows of the"
-                    f" field, or a leaf of shape {sorted(shares)}, not {tuple(d.shape)}; a"
-                    " response that mixes rows otherwise (the NUFFT, SKI, a sum or a cut of the"
-                    " field) is not ported (ROADMAP.md)")
+                    f" field, or a leaf of shape {sorted(shares | noted)}, not {bad[0]}; a"
+                    " response that mixes rows otherwise (a sum or a cut of the field,"
+                    " ToeplitzSKI, a NUFFT whose coordinates are inputs) is not ported"
+                    " (ROADMAP.md)")
         self._rows_checked = True
 
     def gather(self, samples):

@@ -6,8 +6,9 @@ A field-sharded run keeps on each rank the rows of the excitation field,
 and every other leaf of the position whole (replicated).  Its data are
 of two kinds, each split along its leading axis: the field's rows, or
 the rank's share of the output of a field-aware response (a
-line-of-sight integral of the rows, say), which sums the rank's partial
-output over the ranks and keeps the rank's share of that sum.  Linear
+line-of-sight integral of the rows, SKI's interpolation of them, or their
+type-2 NUFFT, :mod:`.nufft`), which sums the rank's partial output over
+the ranks and keeps the rank's share of that sum.  Linear
 maps, each pair the other's adjoint, make the reductions exact under
 ``torch.func`` (grad, jvp, vmap; forward over reverse):
 
@@ -29,13 +30,15 @@ maps, each pair the other's adjoint, make the reductions exact under
 position keys whose leaves are row shards: :func:`~..utils.tree.vdot`,
 ``dot``, ``norm``, ``sample_vdot`` and ``sample_norm`` sum those leaves'
 terms over the group, the likelihoods' energies sum their data over it,
-and the white noise of a sample draws the full array and keeps the
-rank's block of the leading axis, so a sharded run draws the samples of
-the one-process run.  A model that returns a split value (the field's
-rows, a field-aware response's share) notes its shape in the active
-:class:`FieldShards` (:func:`note_split`), from which a caller learns
-what ran.  Collectives take CUDA tensors under NCCL and CPU tensors
-under gloo; the data go where the group needs them.
+and the white noise of a sample draws, by the counter-based K7, only the
+rank's block of the leading axis, the entries at their indices in the
+whole leaf, so a sharded run draws the samples of the one-process run.
+A model that returns a split value (the field's rows, a field-aware
+response's share) notes its shape in the active :class:`FieldShards`
+(:func:`note_split`), from which a caller learns what ran and a response
+of the field's rows recognises its input (:func:`row_shard`).
+Collectives take CUDA tensors under NCCL and CPU tensors under gloo; the
+data go where the group needs them.
 """
 
 from __future__ import annotations
@@ -59,6 +62,7 @@ __all__ = [
     "reduce_scatter",
     "reduce_sum",
     "replicate",
+    "row_shard",
 ]
 
 
@@ -250,13 +254,15 @@ def all_to_all(chunks, recv_shapes, group):
 
 
 class FieldShards(NamedTuple):
-    """The field group, the position keys whose leaves are row shards, and
-    the shape of the last split value a model returned (``notes``, empty
-    before any)."""
+    """The field group, the position keys whose leaves are row shards, the
+    shapes of the split values models returned (``notes``, each once, the
+    last returned last; empty before any) and those of them that are the
+    field's rows (``rows``)."""
 
     group: object
     keys: frozenset
     notes: list
+    rows: set
 
 
 _ACTIVE: Optional[FieldShards] = None
@@ -274,20 +280,34 @@ def field_sharded(group, keys):
     docstring); ``group`` None leaves the block unsharded."""
     global _ACTIVE
     before = _ACTIVE
-    _ACTIVE = None if group is None else FieldShards(group, frozenset(keys), [])
+    _ACTIVE = None if group is None else FieldShards(group, frozenset(keys), [], set())
     try:
         yield _ACTIVE
     finally:
         _ACTIVE = before
 
 
-def note_split(out):
+def note_split(out, rows: bool = False):
     """Note, in the active :class:`FieldShards`, that ``out`` is split over
-    its group along its leading axis (the field's rows, or a field-aware
-    response's share); ``out`` itself."""
+    its group along its leading axis: the field's rows (``rows``), or a
+    field-aware response's share; ``out`` itself.  A response that takes
+    the field's rows knows them by the shapes noted so."""
     if _ACTIVE is not None:
-        _ACTIVE.notes[:] = [tuple(out.shape)]
+        shape = tuple(out.shape)
+        if shape in _ACTIVE.notes:
+            _ACTIVE.notes.remove(shape)
+        _ACTIVE.notes.append(shape)
+        if rows:
+            _ACTIVE.rows.add(shape)
     return out
+
+
+def row_shard(x) -> Optional[FieldShards]:
+    """The active :class:`FieldShards` where ``x`` has the shape of the
+    field's rows a model noted in it, else None."""
+    if _ACTIVE is not None and tuple(x.shape) in _ACTIVE.rows:
+        return _ACTIVE
+    return None
 
 
 def rank_rows(group, n_local: int, n_total: int):

@@ -11,6 +11,13 @@ Hartley transform, so K3/K4 on a 2-D f32 grid whose axes are multiples of
 256) or as a Toeplitz product by circulant embedding
 (:class:`ToeplitzSKI`).  ``evaluate`` materialises the covariance through
 ``torch.func.vmap`` (for tests).
+
+On a row-sharded field the interpolation is field-aware: inside a field
+context ``W @ cf(x).reshape(-1)`` (``W`` from :func:`interp_mat`, a
+:class:`GridInterpolation`, e.g. ``HarmonicSKI.w``) applies the tables of
+the rank's cells and reduce-scatters, as the exact line of sight does,
+giving the rank's share of the points.  :class:`ToeplitzSKI` is refused
+there (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -23,7 +30,8 @@ import torch
 from . import device as _device
 from .models.correlated_field import get_fourier_mode_distributor
 from .ops.fft import hartley
-from .ops.gather_reduce import PaddedSparse
+from .ops.gather_reduce import PaddedSparse, rows_block, transpose_tables
+from .parallel import collectives
 
 __all__ = ["matmul_toeplitz", "interp_mat", "HarmonicSKI", "ToeplitzSKI"]
 
@@ -81,7 +89,58 @@ def interp_mat(grid_shape, grid_bounds, sampling_points, *, distances=None, devi
         weights[i] = np.prod(np.abs(1.0 - corners[:, i : i + 1] - frac), axis=0)
         idx = np.clip(base + corners[:, i : i + 1], 0, (np.asarray(grid_shape) - 1)[:, None])
         cols[i] = np.ravel_multi_index(idx, grid_shape)
-    return PaddedSparse(cols.T, weights.T, int(np.prod(grid_shape)), device=device, dtype=dtype)
+    return GridInterpolation(cols.T, weights.T, grid_shape, device=device, dtype=dtype)
+
+
+class GridInterpolation(PaddedSparse):
+    """:func:`interp_mat`'s matrix: a :class:`~.ops.gather_reduce.PaddedSparse`
+    from the cells of a regular grid of ``grid_shape`` that knows its grid.
+    Inside a field context, ``W @ v`` of the rank's rows of a row-sharded
+    field on that grid (raveled; the field noted their shape) applies the
+    block of the rank's cells (:func:`~.ops.gather_reduce.column_block` of
+    the tables, cut once per row range in numpy and kept in
+    ``row_tables``) and reduce-scatters the partial product: the rank's
+    share of the points, whose pull-back all-gathers the cotangent and
+    gathers it along the block's cell-major table."""
+
+    def __init__(self, idx, wgt, grid_shape, *, device=None, dtype=None):
+        idx, wgt = np.asarray(idx, np.int64), np.asarray(wgt)
+        t_tables = transpose_tables(idx, wgt)
+        self.grid_shape = tuple(int(n) for n in grid_shape)
+        super().__init__(idx, wgt, int(np.prod(self.grid_shape)), device=device, dtype=dtype,
+                         transpose=t_tables)
+        self._tables = (idx, wgt) + t_tables  # numpy, cut for a rank's rows
+        self.row_tables = torch.nn.ModuleDict()
+
+    def field_share(self, p: int):
+        """The shape of a rank's share of the points over ``p`` ranks."""
+        if self.shape[0] % p:
+            raise NotImplementedError(
+                f"position_sharding= takes an interpolation whose points split over the ranks: "
+                f"{self.shape[0]} points over {p} ranks do not (ROADMAP.md)")
+        return (self.shape[0] // p,)
+
+    def rows_table(self, lo: int, n: int) -> PaddedSparse:
+        """The matrix of the grid's rows ``[lo, lo + n)``, cut at the first call
+        and kept on the device and in the dtype of the weights."""
+        key = f"{lo}_{n}"
+        if key not in self.row_tables:
+            self.row_tables[key] = rows_block(self._tables, int(np.prod(self.grid_shape[1:])), lo, n,
+                                              self.wgt)
+        return self.row_tables[key]
+
+    def __matmul__(self, x):
+        ctx = collectives.field()
+        if ctx is not None and x.ndim == 1:
+            p = torch.distributed.get_world_size(ctx.group)
+            b = self.grid_shape[0] // p
+            rows = (b,) + self.grid_shape[1:]
+            if b * p == self.grid_shape[0] and rows in ctx.rows and x.numel() == int(np.prod(rows)):
+                self.field_share(p)
+                lo = torch.distributed.get_rank(ctx.group) * b
+                out = collectives.reduce_scatter(self.rows_table(lo, b) @ x, ctx.group)
+                return collectives.note_split(out)
+        return super().__matmul__(x)
 
 
 def _parse_jitter(jitter, dtype):
@@ -206,6 +265,10 @@ class ToeplitzSKI(torch.nn.Module):
         return self._kernel
 
     def forward(self, x, kernel=None):
+        if collectives.field() is not None:
+            raise NotImplementedError(
+                "position_sharding= takes SKI's interpolation of the row-sharded field; "
+                "ToeplitzSKI (a 1-D grid, which has no row split) is not ported (ROADMAP.md)")
         kernel = self.kernel if kernel is None else kernel
         g = self.w.T @ x.reshape(-1)
         g = matmul_toeplitz(kernel(self.grid_distances_to_zero).reshape(-1), g)

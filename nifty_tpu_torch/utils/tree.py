@@ -50,6 +50,7 @@ __all__ = [
     "norm",
     "ones_like",
     "pmap",
+    "counter_normal",
     "random_like",
     "ravel",
     "sample_norm",
@@ -358,6 +359,30 @@ def random_like(generator, primals, *, device=None, dtype=None):
     return pytree.tree_map(
         draw, primals, is_leaf=lambda x: isinstance(x, ShapeWithDtype)
     )
+
+
+_REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
+
+
+def counter_normal(seed: int, leaf: int, shape, dtype=None, *, start: int = 0, device=None):
+    """Standard normals of ``shape``: the entries ``[start, start + n)`` (``n``
+    the shape's size) of leaf ``leaf`` of the counter-based draw ``seed``
+    (K7, :func:`~..ops.cuda_normal.philox_normal`), on ``device`` (the CUDA
+    card by default) in ``dtype`` (the default floating dtype by default).
+    Each entry is a function of ``(seed, leaf, its index)`` alone, so a
+    range drawn alone equals that range of the whole draw, bit for bit.  A
+    complex entry takes the normals ``2 e`` and ``2 e + 1`` as its real and
+    imaginary parts, each of variance ½."""
+    from ..ops.cuda_normal import philox_normal
+
+    device = _device.resolve(device)
+    dt = dtype or torch.get_default_dtype()
+    shape = tuple(int(s) for s in shape)
+    n = math.prod(shape)
+    if dt in _REAL:
+        z = philox_normal(seed, leaf, 2 * start, 2 * n, _REAL[dt], device) * math.sqrt(0.5)
+        return torch.view_as_complex(z.reshape(shape + (2,)))
+    return philox_normal(seed, leaf, start, n, dt, device).reshape(shape)
 
 
 def tree_add(a, b):

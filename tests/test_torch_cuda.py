@@ -882,3 +882,24 @@ def test_reduce_scatter_vmap_rule_on_one_rank(cuda_device, tmp_path):
         assert torch.equal(torch.func.vmap(lambda v: all_gather(v, group, axis=-1))(x), x)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("start, n", [(0, 1 << 20), (3, 100003), (4096 * 1024, 4096 * 256)])
+def test_philox_normal_matches_plain(cuda_device, start, n):
+    """K7 against its plain version on the card: the Philox words the same
+    bits, the f32 normals within 1e-6 of the maximum (the kernel's f32
+    ``logf``/``sincospif`` against the plain float64 Box-Muller rounded
+    once), the f64 ones within 1e-12; a range alone is that range of a
+    longer draw, bit for bit; one count a launch."""
+    from nifty_tpu_torch.ops import cuda_normal as cn
+
+    native.reset_launches()
+    assert torch.equal(cn.philox_words(2**50 + 9, 4, start, n, cuda_device),
+                       cn.philox_words_plain(2**50 + 9, 4, start, n, cuda_device))
+    for dt, tol in ((torch.float32, 1e-6), (torch.float64, 1e-12)):
+        z = cn.philox_normal(2**50 + 9, 4, start, n, dt, cuda_device)
+        zp = cn.philox_normal_plain(2**50 + 9, 4, start, n, dt, cuda_device)
+        assert z.dtype == dt and z.shape == (n,) and _rel(z, zp) <= tol
+        longer = cn.philox_normal(2**50 + 9, 4, start - start % 4, n + 8, dt, cuda_device)
+        assert torch.equal(longer[start % 4:start % 4 + n], z)
+    assert native.launches["philox_normal"] == 4

@@ -15,7 +15,8 @@ tomography metric and energy, one MGVI iteration with ``position_sharding=``
 over an ``ExactGridLOS``, ``odir`` with resume, NUTS chains across ranks;
 the JAX package's ``position_sharding=`` run, whose compile is the longest
 piece, runs in a process of its own beside them.
-(c) The refusals that stay.
+(c) The refusal of rays that do not split over the ranks (the NUFFT's and
+SKI's on a row-sharded field are ``test_torch_parallel_large.py``'s).
 
 Tolerances, and why: partial sums and pull-backs 1e-12 of the maximum
 (float64 sums in another order); the sharded metric and energy 1e-10 (as
@@ -183,60 +184,6 @@ def test_map_coordinates_rows_outside_the_rank_add_nothing():
     _close((lo + hi)[:2].numpy(), whole[:2].numpy())
     with pytest.raises(ValueError, match="outside"):
         map_coordinates(grid[:4], pts, 1, rows=(6, 8))
-
-
-# --- (c) the refusals that stay ----------------------------------------------------------
-
-
-class _GroupMesh:
-    """A one-axis mesh of ``p`` ranks whose group is never used: the
-    refusals come before any collective."""
-
-    mesh_dim_names = ("fx",)
-    device_type = "cpu"
-    ndim = 1
-
-    def __init__(self, p):
-        self.p = p
-
-    def get_group(self, name=None):
-        return object()
-
-    def size(self, dim=0):
-        return self.p
-
-    def get_local_rank(self, name):
-        return 0
-
-
-def _maker(shape):
-    cfm = nt.CorrelatedFieldMaker("cf")
-    cfm.set_amplitude_total_offset(0.5, (1e-1, 3e-2))
-    cfm.add_fluctuations(shape, 1.0 / shape[0], (1.0, 0.5), (-3.0, 0.2), (1.0, 0.2))
-    return cfm
-
-
-@pytest.mark.parametrize("response", ["nufft", "ski"])
-def test_position_sharding_still_refuses_nufft_and_ski(response):
-    """The NUFFT and SKI interpolation of a row-sharded field mix rows that
-    no exchange of theirs brings together: refused at the first position,
-    naming ROADMAP.md."""
-    cf = _maker((8, 8)).finalize(field_mesh=_GroupMesh(2), **CPU)
-    pos = {k: torch.zeros(s.shape, dtype=torch.float64) for k, s in cf.domain.items()}
-    pos["cfxi"] = pos["cfxi"][:4]
-    pts = np.random.default_rng(0).uniform(0.1, 0.9, (2, 6))
-    if response == "nufft":
-        coords = torch.from_numpy(pts - 0.5)
-        fwd = lambda x: nt.nufft2(cf(x), coords)  # noqa: E731
-        data = torch.zeros(6, dtype=torch.complex128)
-    else:
-        ski = nt.HarmonicSKI((8, 8), [(0.0, 1.0)] * 2, pts, harmonic_kernel=lambda k: 1.0 / (1.0 + k**2),
-                             **CPU)
-        fwd = lambda x: ski.w @ cf(x).reshape(-1)  # noqa: E731
-        data = torch.zeros(6, dtype=torch.float64)
-    opt = nt.OptimizeVI(nt.Gaussian(data).amend(fwd), 1, position_sharding=cf.position_sharding())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        opt.draw_linear_samples(pos, [1])
 
 
 # --- (b) the ranks: 2 and 4 gloo processes -----------------------------------------------
