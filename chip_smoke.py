@@ -392,6 +392,11 @@ TOL = {"k2": 1e-6, "hartley": 1e-5, "metric": 1e-4, "kl_maps": 1e-5,  # K1 must 
        # both f32 (FFTs of another factorisation, taps weighted in float64 then rounded),
        # of the maximum; its metric and energy against the unsharded (relative L2)
        "nufft_stages": 1e-5, "nufft_metric": 1e-5,
+       # 17f: its MGVI iteration at CG 3 against the unsharded, of the unsharded step
+       # ||ref - start|| (the step is ~2.5e-4 of the position, so 1e-4 of the position
+       # would pass a step 40 % off): 5.3e-5 measured on one H100 (1.32e-8 of the
+       # position over a step of 2.49e-4), 1.9e-5 on four (4.6e-9 over 2.47e-4)
+       "nufft_vi_step": 1e-3,
        # 17g: SKI's row blocks against the whole matrix (f32 sums of 4 corners regrouped
        # by rank), of the maximum; K7's f32 normals (logf, sincospif in f32) against the
        # plain version's float64 Box-Muller rounded once, of the maximum; its f64 ones
@@ -1056,14 +1061,17 @@ def large_phase(dev, read_launches, timing, mesh, vi, rel_pos, sync, g):
     got, st, secs = vi(lh_s, ps, short, position_sharding=sh)
     read_launches("parallel_nufft_vi", SHARDED + ("K7",), refuse=("K1", "K2", "K4"))
     err, moved = rel_pos(got.pos, ref.pos), rel_pos(ref.pos, pw)
+    # the step is ~2.5e-4 of the position: held against the step, not the position
+    step = {k: ref.pos[k].double() - pw[k].double() for k in pw}
+    err_step = rel_pos({k: got.pos[k].double() - pw[k].double() for k in pw}, step)
     emit({"phase": "parallel_nufft", "shape": [n, n], "points": m, "ranks": 1, **line,
           "vi_settings": "CG 3", "vi_seconds": secs, "unsharded_vi_seconds": ref_s,
-          "vi_rel_l2_vs_unsharded": err, "vi_step_rel_l2": moved,
+          "vi_rel_l2_vs_unsharded": err, "vi_step_rel_l2": moved, "vi_err_over_step": err_step,
           "kl_after": float(st.minimization_state.fun), "seconds": time.perf_counter() - t17f})
-    if not (err <= TOL["sharded_vi"] and moved > 0
+    if not (err_step <= TOL["nufft_vi_step"]
             and all(bool(torch.isfinite(v).all()) for v in got.pos.values())):
-        fail(f"nufft: the sharded MGVI iteration is {err} > {TOL['sharded_vi']} off the unsharded, "
-             f"or the step did not move ({moved})")
+        fail(f"nufft: the sharded MGVI iteration is {err_step} of the unsharded one's step "
+             f"(> {TOL['nufft_vi_step']}) off it, or non-finite")
     del lh, cf, lh_s, cf_s, ps, pw, ref, got
     torch.cuda.empty_cache()
 
@@ -1759,7 +1767,7 @@ def main() -> int:
         depths.append(int(out.depths[0]))
     torch.cuda.synchronize()
     row_s = time.perf_counter() - t0
-    read_launches("mcmc_nuts_64", (), refuse=TRANSFORMS)
+    read_launches("mcmc_nuts_64", (), refuse=NAMES)
     if not all(bool(torch.isfinite(v).all()) for v in pos.values()):
         fail("mcmc 64²: the chain's position is non-finite")
     emit({"phase": "mcmc_row", "shape": [n, n], "knots": 16, "dtype": "float32",
@@ -1983,7 +1991,7 @@ def main() -> int:
            callback=lambda i, q, v: fc_losses.append(v))
     torch.cuda.synchronize()
     fc_s = time.perf_counter() - t0
-    read_launches("vi_fullcov", (), refuse=TRANSFORMS)
+    read_launches("vi_fullcov", (), refuse=NAMES)
     finite(fc.params, "FullCovarianceVI's parameters")
     if not np.all(np.isfinite(fc_losses)):
         fail(f"FullCovarianceVI: losses {fc_losses} not finite")
@@ -2099,7 +2107,7 @@ def main() -> int:
     sampled_ms = {"forward": float(np.median(event_ms(lambda: sampled(rho), 5))),
                   "pull_back": float(np.median(event_ms(lambda: pull(cot[:m]), 5)))}
     torch.cuda.synchronize()
-    read_launches("responses_sampled", (), refuse=TRANSFORMS)
+    read_launches("responses_sampled", (), refuse=NAMES)
     excess = float(((a - b).abs() - TOL["sampled_los"] * (1 + b.abs())).max())
     emit({"phase": "responses_sampled", "rays": m, "points_a_ray": R["sampled_points"],
           "rel_max_vs_exact": rel_max(a, b), "excess_over_tolerance": excess, "ms_median": sampled_ms})
@@ -2144,7 +2152,7 @@ def main() -> int:
     nufft_ms = {"nufft2": float(np.median(event_ms(lambda: nt.nufft2(x, c), 5))),
                 "nufft_adjoint": float(np.median(event_ms(lambda: nt.nufft_adjoint(yv, c, (n, n)), 5)))}
     torch.cuda.synchronize()
-    read_launches("responses_nufft", (), refuse=TRANSFORMS)
+    read_launches("responses_nufft", (), refuse=NAMES)
     emit({"phase": "responses_nufft", "shape": [n, n], "points": npts, "oversampled": [2 * n, 2 * n],
           "kernel_width": 6, "checked_points": k, "max_err_vs_direct_dft_over_max": dft_err,
           "adjoint_rel_err": adj_err, "coords_grad_rel_max_vs_cpu_f64": grad_err,
@@ -2229,7 +2237,7 @@ def main() -> int:
     op_err = {k: rel_max(op(f32_card).double().cpu(), op(f64_cpu)) for k, op in ops.items()}
     op_ms = {k: float(np.median(event_ms(lambda op=op: op(f32_card), 5))) for k, op in ops.items()}
     torch.cuda.synchronize()
-    read_launches("responses_dynamics_operators", (), refuse=TRANSFORMS)
+    read_launches("responses_dynamics_operators", (), refuse=NAMES)
     emit({"phase": "responses_dynamics_operators", "dynamics": {
               "shape": list(shape), "padding": list(R["dynamics_padding"]), "rel_vs_cpu_f64": dyn_err,
               "ms_median": dyn_ms},
@@ -2442,7 +2450,7 @@ def main() -> int:
         finite(m, f"icr {name}: the metric")
         fwd_ms = float(np.median(event_ms(lambda: f32m(p), 10)))
         met_ms = float(np.median(event_ms(lambda: lh.metric(p, t), 10)))
-        read_launches(f"icr_{name}", (), refuse=TRANSFORMS)
+        read_launches(f"icr_{name}", (), refuse=NAMES)
         with torch.no_grad():
             fwd_err = rel_max(fwd.double().cpu(), f64m(nt.position_from_numpy(f64m, pos_np)))
         met_err = rel_l2(m, lh64.metric(*(nt.position_from_numpy(f64m, v) for v in (pos_np, tan_np))))

@@ -4,9 +4,13 @@ The PyTorch port's version of ``demos/11_model_comparison.py``: data from
 a 1-D correlated field with log-log slope -3 are fitted by MGVI under two
 priors, the matched one (slope -3) and a stiff one (slope -6); the ELBO
 (``estimate_evidence_lower_bound``, 24 eigenvalues) must prefer the
-matched prior.  The truth and the noise are numpy draws.  Runs on the
+matched prior.  The truth and the noise are numpy draws.  Each prior is
+fitted from ``STARTS`` numpy-drawn starts and keeps the fit of the
+highest ELBO: from one start, MGVI at these settings ends in fits whose
+ELBOs spread by some 20 nats, as wide as the gap between the priors, so
+a single fit's ranking depends on its start and noise draws.  Runs on the
 CUDA card in float32, or with ``--device cpu`` in float64; ``--fast``
-runs two iterations of one sample pair and 8 eigenvalues::
+runs one start, two iterations of one sample pair and 8 eigenvalues::
 
     python demos_torch/11_model_comparison.py [--device cpu] [--fast]
 """
@@ -20,6 +24,7 @@ import nifty_tpu_torch as nt
 from nifty_tpu_torch.device import resolve
 
 NOISE_STD = 0.05
+STARTS = 4
 SLOPES = {"matched (-3)": -3.0, "stiff (-6)": -6.0}
 
 
@@ -32,9 +37,9 @@ def make_model(slope_mean, device, dtype):
 
 
 def run(device=None, fast=False, seed=31):
-    """The truth, the data, and for each prior its starting latent, the
-    field of every sample (numpy) and its ELBO (the mean of
-    ``elbo_mean``)."""
+    """The truth, the data, and for each prior the starting latent of its
+    fit of the highest ELBO, the field of every sample of that fit (numpy)
+    and its ELBO (the mean of ``elbo_mean``)."""
     device = resolve(device)
     dtype = torch.float64 if device.type == "cpu" else torch.float32
     rng = np.random.default_rng(seed)
@@ -49,16 +54,19 @@ def run(device=None, fast=False, seed=31):
         model = make_model(slope, device, dtype)
         lh = nt.Gaussian(torch.as_tensor(data, dtype=dtype, device=device),
                          noise_cov_inv=1.0 / NOISE_STD**2).amend(model)
-        out["start"][name] = start = draw(model)
-        samples, _ = nt.optimize_kl(
-            lh, nt.position_from_numpy(model, start), key=gen,
-            n_total_iterations=2 if fast else 4, n_samples=1 if fast else 2,
-            draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=64)), sample_mode="linear_resample")
-        _, stats = nt.estimate_evidence_lower_bound(lh, samples, 8 if fast else 24, key=gen,
-                                                    verbose=False)
-        with torch.no_grad():
-            out["fields"][name] = torch.func.vmap(model)(samples.samples).double().cpu().numpy()
-        out["elbo"][name] = float(np.mean(np.asarray(stats["elbo_mean"])))
+        for _ in range(1 if fast else STARTS):
+            start = draw(model)
+            samples, _ = nt.optimize_kl(
+                lh, nt.position_from_numpy(model, start), key=gen,
+                n_total_iterations=2 if fast else 4, n_samples=1 if fast else 2,
+                draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=64)), sample_mode="linear_resample")
+            _, stats = nt.estimate_evidence_lower_bound(lh, samples, 8 if fast else 24, key=gen,
+                                                        verbose=False)
+            elbo = float(np.mean(np.asarray(stats["elbo_mean"])))
+            if elbo > out["elbo"].get(name, -np.inf):
+                out["start"][name], out["elbo"][name] = start, elbo
+                with torch.no_grad():
+                    out["fields"][name] = torch.func.vmap(model)(samples.samples).double().cpu().numpy()
     return out
 
 
@@ -74,7 +82,7 @@ def check(out):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default=None, help="cpu, or the CUDA card when not given")
-    parser.add_argument("--fast", action="store_true", help="two iterations, 8 eigenvalues")
+    parser.add_argument("--fast", action="store_true", help="one start, two iterations, 8 eigenvalues")
     args = parser.parse_args(argv)
     check(run(args.device, fast=args.fast))
     return 0

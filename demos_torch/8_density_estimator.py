@@ -5,10 +5,11 @@ exponentiated Matérn field of ``density_estimator`` on a grid padded to
 twice the size is fitted by MGVI to a histogram of numpy-drawn events
 (a bimodal density on [0, 1)) under a Poisson likelihood.  Runs on the
 CUDA card in float32, or with ``--device cpu`` in float64; ``--fast``
-runs two iterations of one sample pair from a start nearer the prior's
-mean (0.1 times the full run's draw: from the full run's start, two
-iterations of one pair end in a collapsed density for about 1 seed in 12,
-whatever the noise generator)::
+runs ``FAST_ITERATIONS`` (5) iterations of one sample pair: with two or
+three, 3 of the seeds 6-29 end in a collapsed density (the first Newton
+steps can overshoot into a near-zero rate, where the Poisson metric
+vanishes, and later iterations climb out; ``seed_sweep.py`` counts
+them)::
 
     python demos_torch/8_density_estimator.py [--device cpu] [--fast]
 """
@@ -23,6 +24,7 @@ from nifty_tpu_torch.device import resolve
 
 SHAPE = (64,)
 N_EVENTS = 3000
+FAST_ITERATIONS = 5
 
 
 def events(seed=5):
@@ -49,32 +51,35 @@ def run(device=None, fast=False, seed=6):
     counts = events()
     lh = nt.Poissonian(counts.astype(np.int64), device=device).amend(rate)
     rng = np.random.default_rng(seed)
-    scale = 0.1 if fast else 1.0
-    start = {k: scale * rng.standard_normal(v.shape) for k, v in sorted(rate.domain.items())}
+    start = {k: rng.standard_normal(v.shape) for k, v in sorted(rate.domain.items())}
     samples, _ = nt.optimize_kl(
         lh, nt.position_from_numpy(rate, start), key=torch.Generator(device=device).manual_seed(seed),
-        n_total_iterations=2 if fast else 4, n_samples=1 if fast else 2,
+        n_total_iterations=FAST_ITERATIONS if fast else 4, n_samples=1 if fast else 2,
         draw_linear_kwargs=dict(cg_kwargs=dict(maxiter=50)), sample_mode="linear_resample")
     with torch.no_grad():
         rates = torch.func.vmap(rate)(samples.samples).double().cpu().numpy()
     return dict(counts=counts, start=start, fields=rates, fast=fast)
 
 
+def l1(out):
+    """The L1 distance of the recovered density to the empirical one."""
+    emp = out["counts"] / out["counts"].sum()
+    post = out["fields"].mean(0)
+    return float(np.abs(emp - post / post.sum()).sum())
+
+
 def check(out):
     """Print the L1 distance of the recovered density to the empirical one
     and assert what ``demos/8_density_estimator.py`` asserts."""
-    emp = out["counts"] / out["counts"].sum()
-    post = out["fields"].mean(0)
-    l1 = float(np.abs(emp - post / post.sum()).sum())
-    print(f"density L1(empirical, recovered): {l1:.4f}")
-    assert l1 < 0.35
+    dist = l1(out)
+    print(f"density L1(empirical, recovered): {dist:.4f}")
+    assert dist < 0.35
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default=None, help="cpu, or the CUDA card when not given")
-    parser.add_argument("--fast", action="store_true",
-                        help="two iterations of one sample pair from 0.1 times the start")
+    parser.add_argument("--fast", action="store_true", help="five iterations of one sample pair")
     args = parser.parse_args(argv)
     check(run(args.device, fast=args.fast))
     return 0

@@ -78,7 +78,10 @@ import sys
 import tempfile
 import time
 
-TOL = {"hartley": 1e-6, "metric": 1e-5, "vi": 1e-4, "chains": 1e-2}
+TOL = {"hartley": 1e-6, "metric": 1e-5, "vi": 1e-4, "chains": 1e-2,
+       # check 7's MGVI iteration against the unsharded, of the unsharded step: 1.9e-5
+       # on four H100s (4.6e-9 of the position over a step of 2.47e-4 of it)
+       "vi_step": 1e-3}
 LARGE = ("10240x10240:64", "8192x8192x16:64")  # _run_step's 1.05e8 and 1.07e9 dof
 FALLBACK = "8192x8192x8:64"  # tried after a size that does not fit
 NUTS = dict(n_chains=4, n_warmup=8, n_samples=4, max_tree_depth=5, step_size=1e-3)  # chip_smoke.py's MCMC
@@ -345,12 +348,14 @@ def _large(args):
 
     ref, ref_s = timed(lambda: vi(lh, pw))
     got, got_s = timed(lambda: vi(lh_s, ps, position_sharding=sh))
-    moved = _rel(ref.pos, pw)  # the step itself: 0 would compare two runs that did nothing
+    # held against the unsharded run's step, ~2.5e-4 of the position (TOL["vi_step"])
+    mine = {k: sh[k].shard(v) for k, v in ref.pos.items()}
+    start = {k: sh[k].shard(v) for k, v in pw.items()}
+    step = {k: mine[k].double() - start[k].double() for k in mine}
     report({"check": "nufft_mgvi_iteration", "by": "position_sharding", "shape": [n, n],
             "points": m, "ranks": p, "settings": "CG 3", "s": got_s, "unsharded_s": ref_s,
-            "step_rel_l2": moved},
-           _rel(got.pos, {k: sh[k].shard(v) for k, v in ref.pos.items()}) if moved > 0 else float("inf"),
-           TOL["vi"])
+            "step_rel_l2": _rel(ref.pos, pw), "rel_l2": _rel(got.pos, mine)},
+           _rel({k: got.pos[k].double() - start[k].double() for k in mine}, step), TOL["vi_step"])
     del lh, lh_s, cf, cf_s, ps, pw, ref, got
     if cuda:
         torch.cuda.empty_cache()

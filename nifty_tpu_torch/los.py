@@ -34,7 +34,7 @@ import torch
 
 from . import device as _device
 from .model import LazyModel
-from .ops.gather_reduce import PaddedSparse, rows_block, transpose_tables
+from .ops.gather_reduce import PaddedSparse, RowBlocks, transpose_tables
 from .ops.ndimage import map_coordinates
 from .parallel import collectives
 from .utils.tree import ShapeWithDtype
@@ -268,8 +268,7 @@ class ExactGridLOS(LazyModel):
         t_tables = transpose_tables(idx, wgt)
         self.table = PaddedSparse(idx, wgt, int(np.prod(shape)), device=device, dtype=dtype,
                                   transpose=t_tables)
-        self._tables = (idx, wgt) + t_tables  # numpy, cut for a rank's rows
-        self.row_tables = torch.nn.ModuleDict()
+        self.row_tables = RowBlocks(idx, wgt, t_tables, shape)
 
     def field_share(self, p: int):
         """The shape of a rank's share of the rays over ``p`` ranks."""
@@ -282,11 +281,7 @@ class ExactGridLOS(LazyModel):
         ``table``; ``table`` itself for every row."""
         if lo == 0 and n == self.domain.shape[0]:
             return self.table
-        key = f"{lo}_{n}"
-        if key not in self.row_tables:
-            self.row_tables[key] = rows_block(self._tables, int(np.prod(self.domain.shape[1:])),
-                                              lo, n, self.table.wgt)
-        return self.row_tables[key]
+        return self.row_tables(lo, n, self.table.wgt)
 
     def rows_partial(self, x, lo=None):
         """Every ray's integral over the grid's rows ``[lo, lo + len(x))``,

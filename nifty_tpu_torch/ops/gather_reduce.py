@@ -43,7 +43,7 @@ import torch
 
 from .. import device as _device
 
-__all__ = ["GatherReduce", "GatherReduceT", "PaddedSparse", "column_block", "rows_block",
+__all__ = ["GatherReduce", "GatherReduceT", "PaddedSparse", "RowBlocks", "column_block",
            "transpose_block"]
 
 
@@ -173,15 +173,29 @@ def transpose_block(cols, t_rows, t_wgt, lo: int, hi: int):
     return cols[a:b] - lo, t_rows[a:b, :width], t_wgt[a:b, :width]
 
 
-def rows_block(tables, row_cells: int, lo: int, n: int, like):
-    """The matrix of the rows ``[lo, lo + n)`` of a grid whose rows hold
-    ``row_cells`` cells each, from the whole matrix's numpy tables ``(idx,
-    wgt, cols, t_rows, t_wgt)``: a :class:`PaddedSparse` over the block's
-    cells (:func:`column_block`, :func:`transpose_block`) on the device and
-    in the dtype of the tensor ``like``."""
-    c0, c1 = lo * row_cells, (lo + n) * row_cells
-    return PaddedSparse(*column_block(*tables[:2], c0, c1), n * row_cells, device=like.device,
-                        dtype=like.dtype, transpose=transpose_block(*tables[2:], c0, c1))
+class RowBlocks(torch.nn.ModuleDict):
+    """The matrices of row ranges of a grid of ``grid_shape`` (its cells
+    raveled row-major), cut from a sparse matrix over its cells given by
+    the numpy tables ``(idx, wgt)`` and the cell-major ``t_tables``
+    (:func:`transpose_tables`).  ``blocks(lo, n, like)`` is the
+    :class:`PaddedSparse` of the rows ``[lo, lo + n)`` over their cells
+    (:func:`column_block`, :func:`transpose_block`), cut at the first call
+    and kept under ``f"{lo}_{n}"``, on the device and in the dtype of the
+    tensor ``like``."""
+
+    def __init__(self, idx, wgt, t_tables, grid_shape):
+        super().__init__()
+        self._tables = (idx, wgt) + tuple(t_tables)
+        self._row_cells = int(np.prod(grid_shape[1:]))
+
+    def forward(self, lo: int, n: int, like) -> "PaddedSparse":
+        key = f"{lo}_{n}"
+        if key not in self:
+            c0, c1 = lo * self._row_cells, (lo + n) * self._row_cells
+            self[key] = PaddedSparse(*column_block(*self._tables[:2], c0, c1), c1 - c0,
+                                     device=like.device, dtype=like.dtype,
+                                     transpose=transpose_block(*self._tables[2:], c0, c1))
+        return self[key]
 
 
 class PaddedSparse(torch.nn.Module):

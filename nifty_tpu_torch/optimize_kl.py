@@ -210,14 +210,13 @@ def _field_aware(root):
     """``(found, nufft)``: the field-aware responses (objects with a
     ``field_share`` method) that ``root`` can call, and whether it can call
     ``nufft2`` (whose share of a row-sharded field shows only when it
-    runs): through modules, containers, partials, bound methods and
-    functions' closures, defaults, the globals they name and the
-    attributes of this package's modules they name (``nt.nufft2``)."""
+    runs: the function itself, or code that names it, ``nt.nufft2`` too),
+    through modules, containers, partials, bound methods and functions'
+    closures, defaults and the globals they name."""
     import types
 
     from .ops.nufft import nufft2
 
-    pkg = __name__.split(".")[0]
     found, nufft, seen, todo = [], False, set(), [root]
     while todo:
         obj = todo.pop()
@@ -237,24 +236,15 @@ def _field_aware(root):
         elif isinstance(obj, types.MethodType):
             todo.extend((obj.__self__, obj.__func__))
         elif isinstance(obj, types.FunctionType):
-            cells = [c.cell_contents for c in obj.__closure__ or () if _filled(c)]
-            todo.extend(cells)
+            todo.extend(c.cell_contents for c in obj.__closure__ or () if _filled(c))
             todo.extend((obj.__defaults__ or ()) + tuple((obj.__kwdefaults__ or {}).values()))
             codes, names = [obj.__code__], set()
             while codes:
                 code = codes.pop()
                 names.update(code.co_names)
                 codes.extend(c for c in code.co_consts if isinstance(c, types.CodeType))
+            nufft = nufft or "nufft2" in names
             todo.extend(obj.__globals__[n] for n in names if n in obj.__globals__)
-            mods, read = [obj.__globals__.get(n) for n in names] + cells, set()
-            while mods:  # this package's modules: the attributes the code names
-                m = mods.pop()
-                if (isinstance(m, types.ModuleType) and m.__name__.split(".")[0] == pkg
-                        and m.__name__ not in read):
-                    read.add(m.__name__)
-                    attrs = [getattr(m, n) for n in names if hasattr(m, n)]
-                    mods.extend(attrs)
-                    todo.extend(attrs)
         elif hasattr(obj, "__dict__"):
             todo.extend(vars(obj).values())
     return found, nufft

@@ -44,6 +44,7 @@ data go where the group needs them.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -302,10 +303,17 @@ def note_split(out, rows: bool = False):
     return out
 
 
-def row_shard(x) -> Optional[FieldShards]:
+def row_shard(x, grid_shape=None) -> Optional[FieldShards]:
     """The active :class:`FieldShards` where ``x`` has the shape of the
-    field's rows a model noted in it, else None."""
-    if _ACTIVE is not None and tuple(x.shape) in _ACTIVE.rows:
+    field's rows a model noted in it (with ``grid_shape``: where ``x`` is
+    those rows of a field on that grid, raveled), else None."""
+    if _ACTIVE is None:
+        return None
+    if grid_shape is None:
+        return _ACTIVE if tuple(x.shape) in _ACTIVE.rows else None
+    p = dist.get_world_size(_ACTIVE.group)
+    rows = (grid_shape[0] // p,) + tuple(grid_shape[1:])
+    if rows[0] * p == grid_shape[0] and rows in _ACTIVE.rows and tuple(x.shape) == (math.prod(rows),):
         return _ACTIVE
     return None
 

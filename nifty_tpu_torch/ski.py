@@ -30,7 +30,7 @@ import torch
 from . import device as _device
 from .models.correlated_field import get_fourier_mode_distributor
 from .ops.fft import hartley
-from .ops.gather_reduce import PaddedSparse, rows_block, transpose_tables
+from .ops.gather_reduce import PaddedSparse, RowBlocks, transpose_tables
 from .parallel import collectives
 
 __all__ = ["matmul_toeplitz", "interp_mat", "HarmonicSKI", "ToeplitzSKI"]
@@ -96,12 +96,12 @@ class GridInterpolation(PaddedSparse):
     """:func:`interp_mat`'s matrix: a :class:`~.ops.gather_reduce.PaddedSparse`
     from the cells of a regular grid of ``grid_shape`` that knows its grid.
     Inside a field context, ``W @ v`` of the rank's rows of a row-sharded
-    field on that grid (raveled; the field noted their shape) applies the
-    block of the rank's cells (:func:`~.ops.gather_reduce.column_block` of
-    the tables, cut once per row range in numpy and kept in
-    ``row_tables``) and reduce-scatters the partial product: the rank's
-    share of the points, whose pull-back all-gathers the cotangent and
-    gathers it along the block's cell-major table."""
+    field on that grid (raveled; the field noted their shape,
+    :func:`~.parallel.collectives.row_shard`) applies the block of the
+    rank's cells (``row_tables``, a :class:`~.ops.gather_reduce.RowBlocks`)
+    and reduce-scatters the partial product: the rank's share of the
+    points, whose pull-back all-gathers the cotangent and gathers it along
+    the block's cell-major table."""
 
     def __init__(self, idx, wgt, grid_shape, *, device=None, dtype=None):
         idx, wgt = np.asarray(idx, np.int64), np.asarray(wgt)
@@ -109,8 +109,7 @@ class GridInterpolation(PaddedSparse):
         self.grid_shape = tuple(int(n) for n in grid_shape)
         super().__init__(idx, wgt, int(np.prod(self.grid_shape)), device=device, dtype=dtype,
                          transpose=t_tables)
-        self._tables = (idx, wgt) + t_tables  # numpy, cut for a rank's rows
-        self.row_tables = torch.nn.ModuleDict()
+        self.row_tables = RowBlocks(idx, wgt, t_tables, self.grid_shape)
 
     def field_share(self, p: int):
         """The shape of a rank's share of the points over ``p`` ranks."""
@@ -121,26 +120,18 @@ class GridInterpolation(PaddedSparse):
         return (self.shape[0] // p,)
 
     def rows_table(self, lo: int, n: int) -> PaddedSparse:
-        """The matrix of the grid's rows ``[lo, lo + n)``, cut at the first call
-        and kept on the device and in the dtype of the weights."""
-        key = f"{lo}_{n}"
-        if key not in self.row_tables:
-            self.row_tables[key] = rows_block(self._tables, int(np.prod(self.grid_shape[1:])), lo, n,
-                                              self.wgt)
-        return self.row_tables[key]
+        """The matrix of the grid's rows ``[lo, lo + n)``; itself for every row."""
+        return self if n == self.grid_shape[0] else self.row_tables(lo, n, self.wgt)
 
     def __matmul__(self, x):
-        ctx = collectives.field()
-        if ctx is not None and x.ndim == 1:
-            p = torch.distributed.get_world_size(ctx.group)
-            b = self.grid_shape[0] // p
-            rows = (b,) + self.grid_shape[1:]
-            if b * p == self.grid_shape[0] and rows in ctx.rows and x.numel() == int(np.prod(rows)):
-                self.field_share(p)
-                lo = torch.distributed.get_rank(ctx.group) * b
-                out = collectives.reduce_scatter(self.rows_table(lo, b) @ x, ctx.group)
-                return collectives.note_split(out)
-        return super().__matmul__(x)
+        ctx = collectives.row_shard(x, self.grid_shape)
+        if ctx is None:
+            return super().__matmul__(x)
+        self.field_share(torch.distributed.get_world_size(ctx.group))
+        lo, b = collectives.rank_rows(ctx.group, x.numel() // int(np.prod(self.grid_shape[1:])),
+                                      self.grid_shape[0])
+        out = collectives.reduce_scatter(PaddedSparse.__matmul__(self.rows_table(lo, b), x), ctx.group)
+        return collectives.note_split(out)
 
 
 def _parse_jitter(jitter, dtype):

@@ -185,6 +185,44 @@ def test_white_noise_complex_leaves_and_replay():
     assert not torch.equal(white_noise(lh, pos, 6).prior["a"], w.prior["a"])
 
 
+def test_row_blocks_are_cut_once_and_sum_to_the_whole():
+    """``RowBlocks``, the row ranges of a grid's sparse matrix that the LOS
+    and SKI's interpolation share: the blocks' partial products add up to
+    the whole matrix's, their transposes are the whole's cut to the rows,
+    and each block is cut once."""
+    from nifty_tpu_torch.ops.gather_reduce import PaddedSparse, RowBlocks, transpose_tables
+
+    rng = np.random.default_rng(3)
+    grid = (8, 6)
+    idx = rng.integers(0, 48, (10, 4))
+    wgt = rng.standard_normal((10, 4))
+    t_tables = transpose_tables(idx, wgt)
+    whole = PaddedSparse(idx, wgt, 48, transpose=t_tables, **CPU)
+    blocks = RowBlocks(idx, wgt, t_tables, grid)
+    x, y = torch.from_numpy(rng.standard_normal(48)), torch.from_numpy(rng.standard_normal(10))
+    parts = sum(blocks(lo, 2, whole.wgt) @ x[lo * 6:(lo + 2) * 6] for lo in range(0, 8, 2))
+    np.testing.assert_allclose(parts.numpy(), (whole @ x).numpy(), rtol=1e-12, atol=1e-12)
+    pulled = torch.cat([blocks(lo, 2, whole.wgt).T @ y for lo in range(0, 8, 2)])
+    np.testing.assert_allclose(pulled.numpy(), (whole.T @ y).numpy(), rtol=1e-12, atol=1e-12)
+    assert blocks(2, 2, whole.wgt) is blocks(2, 2, whole.wgt) and len(blocks) == 4
+
+
+def test_row_shard_knows_the_raveled_rows(monkeypatch):
+    """``collectives.row_shard``: the field's noted rows, or with a grid
+    shape those rows raveled (SKI's ``W @ cf(x).reshape(-1)``); nothing
+    else, and nothing outside a field context."""
+    monkeypatch.setattr(collectives.dist, "get_world_size", lambda group=None: 2)
+    assert collectives.row_shard(torch.zeros(24), (8, 6)) is None
+    with collectives.field_sharded(object(), ["cfxi"]):
+        collectives.note_split(torch.zeros(4, 6), rows=True)
+        assert collectives.row_shard(torch.zeros(4, 6)) is not None
+        assert collectives.row_shard(torch.zeros(24), (8, 6)) is not None
+        assert collectives.row_shard(torch.zeros(24)) is None
+        assert collectives.row_shard(torch.zeros(48), (8, 6)) is None  # the whole grid
+        assert collectives.row_shard(torch.zeros(24), (8, 3, 2)) is None  # rows never noted
+        assert collectives.row_shard(torch.zeros(24), (7, 6)) is None  # rows that do not split
+
+
 # --- (e) the refusals that stay --------------------------------------------------------------------
 
 
