@@ -193,10 +193,15 @@ JAX.  Phases, each printing one JSON line to stdout:
 17. parallel (``PARALLEL``, the multi-GPU slice): (a) at 4096² over 8, 4
    and 2 virtual ranks (each rank's block launched in turn in this
    process): the pencil Hartley's per-rank stages (K3 on a rank's rows, the
-   exchanges as transposes, K4r on its column block) against ``hartley2d``
-   (1e-6 of max|H|), K4r on every rank's block against its plain version,
-   K1r against K1's rows (bit-exact) and the K2r parts summed against K2 in
-   float64 (1e-6); times of rank 0's block as in phase 3, the library
+   exchanges as transposes of the ranks' packed buffers, K4r reading each
+   rank's receive buffer in place and writing its send buffer) against
+   ``hartley2d`` (1e-6 of max|H|), K4r on every rank's receive buffer
+   against its plain version (also at 10240² over 4 ranks and at 4096²
+   with B = 2, the draws' batch), K1r against K1's rows (bit-exact) and the
+   K2r parts summed against K2 in float64 (1e-6); times of rank 0's block
+   as in phase 3, stage 2's device time from the receive buffer to the
+   send buffer beside the same kernel with the former join and cut copies
+   around it, the library
    yardsticks ``rfft`` of the rows, ``fft(dim=0)`` of the column block,
    ``index_select`` / ``index_add_`` over the rows' full-grid index; (b) a
    one-rank NCCL group: ``sharded_hartley2`` at 4096² through a real
@@ -230,7 +235,9 @@ JAX.  Phases, each printing one JSON line to stdout:
    (1e-5), and K7 against its plain version at 10^8 entries (the words the
    same bits, the f32 normals 1e-6 of the maximum, f64 1e-12), a rank's
    rows of a draw against the whole draw's, bit for bit, and K7's time
-   beside ``torch.randn``'s.
+   beside ``torch.randn``'s, its byte bound and its issue bound (the SASS
+   instructions of its main loop a group, ``cuobjdump``, over 4
+   schedulers on each SM at the maximum SM clock).
 
 The launch counters are set to 0 just before each of phases 4-6, 9, 10b
 and 11, and before each VI run of phases 7 and 8 (``vi_mgvi_vmap``,
@@ -333,7 +340,8 @@ AUX = dict(shape=1280, probes=8, eigenvalues=8, bins=128, low_shells=8, seed=71)
 # over 8, 4 and 2 virtual ranks (the kernel summary keeps the last: 4096², the largest
 # block a rank), then a one-rank NCCL group:
 # the pencil Hartley and the metric at 4096², an MGVI iteration at phase 8's 1280²
-PARALLEL = dict(shapes=(1280, 4096), ranks=(8, 4, 2), metric_knots=(None, 64), vi=1280, seed=81)
+PARALLEL = dict(shapes=(1280, 4096), ranks=(8, 4, 2), metric_knots=(None, 64), vi=1280, seed=81,
+                k4r_more=((10240, 1, (4,)), (4096, 2, (8, 4, 2))))  # 17a: (n, B, ranks)
 # phase 17f-g: phase 13c's NUFFT image grown to 4096² (a complex64 oversampled frame of
 # 8192², 512 MB) at 2^20 points, its stages over 2, 4 and 8 virtual ranks, and radio
 # imaging through it on the one-rank group; phase 13's SKI (grid 1024, 2^18 points) on a
@@ -578,6 +586,57 @@ def parallel_phase(dev, read_launches, timing, built=None, tomo=None, nuts=None)
     from nifty_tpu_torch.ops import cuda_fft as cfft
     from nifty_tpu_torch.parallel.fft import pencil_stages, uses_kernels
 
+    def k4r_times(n, p, recv, cols_):
+        """K4r on rank 0's receive buffer ``recv`` (``(p, B, n/p, w + 8)``):
+        its times, bound and yardsticks (``timing``: the plain version,
+        ``fft(dim=0)`` of the joined block), and stage 2's device time from
+        the receive buffer to the send buffer, beside the same kernel with
+        stage 2's former copies (the chunks joined, the output cut and
+        packed for ``all_to_all``)."""
+        B, b, w = recv.shape[1], recv.shape[2], n // (2 * p)
+        blk = torch.cat(list(recv), dim=1)
+        k4r = timing(device_ms(lambda: cfft.hartley_cols_range(recv, w, n1=n)),
+                     device_ms(lambda: cfft.hartley_cols_range_plain(recv, w)),
+                     B * (8 * n * (w + 1) + 4 * n * 2 * w), B * fft_flops(n, w + 1),
+                     library_ms=device_ms(lambda: torch.fft.fft(blk[..., :w + 1], dim=-2)))
+        copies_ms = device_ms(lambda: torch.cat([c.contiguous().reshape(-1) for c in cfft.hartley_cols_range(
+            blk, w, n1=n).split(b, dim=1)]))
+        return k4r, {"batch": B, "launch": list(cfft.range_launch(n, w, B)),
+                     "stage2_ms": device_ms(lambda: cols_(recv, 0)), "stage2_with_copies_ms": copies_ms}
+
+    def ranges_17a_more(g):
+        """17a at 10240² over 4 virtual ranks and at 4096² with B = 2 (the
+        draws' batch) over 2, 4 and 8: K4r on every rank's receive buffer
+        against its plain version, rank 0's times."""
+        for n, B, ranks in PARALLEL["k4r_more"]:
+            x = torch.randn((B, n, n), generator=g, device=dev)
+            G = cfft.hartley_rows(x)
+            if G.stride(-2) != cfft.half_spectrum_pitch(n):  # the plain version's (the CPU)
+                G = cfft.padded_half_spectrum(G)
+            del x
+            Gp = torch.as_strided(G, (B, n, cfft.half_spectrum_pitch(n)), G.stride(), G.storage_offset())
+            for p in ranks:
+                b, w = n // p, n // (2 * p)
+                _, cols_, _ = pencil_stages((n, n), p, f32)
+                e4, scale = 0.0, 0.0
+                for r in range(p):
+                    recv = torch.stack([Gp[:, s * b:(s + 1) * b, r * w:r * w + w + 8] for s in range(p)])
+                    ref = cfft.hartley_cols_range_plain(recv, w)
+                    e4 = max(e4, float((cfft.hartley_cols_range(recv, w, n1=n) - ref).abs().max()))
+                    scale = max(scale, float(ref.abs().max()))
+                    if r:
+                        del recv
+                if not e4 / scale <= TOL["hartley"]:
+                    fail(f"parallel: K4r {e4 / scale} > {TOL['hartley']} off its plain version at "
+                         f"{n}², B = {B}, p = {p}")
+                recv = torch.stack([Gp[:, s * b:(s + 1) * b, :w + 8] for s in range(p)])
+                k4r, stage2 = k4r_times(n, p, recv, cols_)
+                emit({"phase": "kernels", "kernel": "K4r", "shape": [n, n], "ranks": p, "rows": b,
+                      "columns": w, "k4r_rel_err": e4 / scale, **stage2,
+                      **{f"k4r_{k}": v for k, v in k4r.items()}})
+                del recv
+            del G, Gp
+
     def ranges_17a(n, g, summary, timing):
         """17a at ``n``²: the pencil Hartley and K4r, K1r and K2r over the
         virtual ranks; returns the input, its Hartley and max|H|."""
@@ -586,44 +645,37 @@ def parallel_phase(dev, read_launches, timing, built=None, tomo=None, nuts=None)
         x = torch.randn(full, generator=g, device=dev)
         H = cfft.hartley2d(x)
         scale = float(H.abs().max())
-        G = cfft.hartley_rows(x)
-        if G.stride(0) != cfft.half_spectrum_pitch(n):  # the plain version's (the CPU)
-            G = cfft.padded_half_spectrum(G)
-        Gpad = torch.as_strided(G, (n, cfft.half_spectrum_pitch(n)), G.stride(), G.storage_offset())
         for p in PARALLEL["ranks"]:
             if not uses_kernels(full, p, f32):
                 fail(f"parallel: {n}² over {p} ranks is outside K3 + K4r's domain")
             rows_, cols_, place_ = pencil_stages(full, p, f32)
             b, w = n // p, n // (2 * p)
-            sent = [rows_(x[None, r * b:(r + 1) * b]) for r in range(p)]
-            packed = [cols_([sent[r][s] for r in range(p)], s) for s in range(p)]
-            got = torch.cat([place_([packed[s][r] for s in range(p)], r) for r in range(p)], dim=1)[0]
+            sent = [rows_(x[None, r * b:(r + 1) * b]) for r in range(p)]  # (p, 1, b, w + 8) each
+            # rank s's receive buffer, sender-major, as the exchange leaves it
+            recv = [torch.stack([sent[r][s] for r in range(p)]) for s in range(p)]
+            del sent
+            packed = [cols_(recv[s], s) for s in range(p)]  # K4r in place: the send buffers
+            got = torch.cat([place_(torch.stack([packed[s][r] for s in range(p)]), r)
+                             for r in range(p)], dim=1)[0]
             e_pencil = float((got - H).abs().max()) / scale
-            del sent, packed, got
-            e4 = 0.0
-            for r in range(p):
-                P = cfft.hartley_cols_range(G, w, r * w, n1=n)
-                e4 = max(e4, float((P - cfft.hartley_cols_range_plain(G[:, r * w:], w)).abs().max()))
+            e4 = max(float((packed[s] - cfft.hartley_cols_range_plain(recv[s], w)).abs().max())
+                     for s in range(p))
+            del packed, got
             if not e_pencil <= TOL["pencil"]:
                 fail(f"parallel: the pencil Hartley over {p} ranks is {e_pencil} > {TOL['pencil']} off")
             if not e4 / scale <= TOL["hartley"]:
                 fail(f"parallel: K4r {e4 / scale} > {TOL['hartley']} off its plain version at p={p}")
             xr = x[:b]
-            blk = Gpad[:, :w + 8].contiguous()  # rank 0's block as the exchange hands it over
             rfft_ms = device_ms(lambda: cfft.hartley_rows_plain(xr))
             k3 = timing(device_ms(lambda: cfft.hartley_rows(xr)), rfft_ms,
                         4 * b * n + 8 * b * (n // 2 + 1), fft_flops(n, b // 2), library_ms=rfft_ms)
-            k4r = timing(device_ms(lambda: cfft.hartley_cols_range(blk, w, n1=n)),
-                         device_ms(lambda: cfft.hartley_cols_range_plain(blk, w)),
-                         8 * n * (w + 1) + 4 * n * 2 * w, fft_flops(n, w + 1),
-                         library_ms=device_ms(lambda: torch.fft.fft(blk[:, :w + 1], dim=0)))
+            k4r, stage2 = k4r_times(n, p, recv[0], cols_)
             emit({"phase": "kernels", "kernel": "K3+K4r", "shape": [n, n], "ranks": p,
-                  "rows": b, "columns": w, "pencil_rel_err": e_pencil, "k4r_abs_err": e4,
+                  "rows": b, "columns": w, "pencil_rel_err": e_pencil, "k4r_abs_err": e4, **stage2,
                   **{f"k3_{k}": v for k, v in k3.items()}, **{f"k4r_{k}": v for k, v in k4r.items()}})
             summary["K4r"] = dict(max_abs_err=max(e4, summary.get("K4r", {}).get("max_abs_err", 0.0)),
                                   ranks=p, **k4r)
-            del blk
-        del G, Gpad
+            del recv
 
         # 17a. K1r and K2r on the exact field's index
         index = grid_index(full)
@@ -811,6 +863,7 @@ def parallel_phase(dev, read_launches, timing, built=None, tomo=None, nuts=None)
 
     for n in PARALLEL["shapes"]:
         x, H, scale = ranges_17a(n, g, summary, timing)
+    ranges_17a_more(g)
     n = PARALLEL["shapes"][-1]
 
     # 17b. a one-rank group: NCCL on the card (gloo on the CPU)
@@ -1146,9 +1199,14 @@ def large_phase(dev, read_launches, timing, mesh, vi, rel_pos, sync, g):
     # 4 bytes written an entry; per pair of entries a log, a sqrt and a sincospi (~40 f32
     # operations each as the accurate functions evaluate them) and the Philox rounds
     k7 = timing(k7_ms, plain_ms, 4 * N, flops=60.0 * N, library_ms=randn_ms)
+    issue = {}
+    if dev.type == "cuda":  # the issue bound beside the byte bound: SASS of the built library
+        from nifty_tpu_torch.bench.sharded_kernels_bench import k7_issue_bound
+
+        issue = k7_issue_bound(native.build(), N)
     emit({"phase": "kernels", "kernel": "K7", "entries": N, "words_same_bits": words_same,
           "normals_rel_err": err, "f64_rel_err": err64, "rank_rows_same_bits": rows_same,
-          "mean_var": moments, "seconds": time.perf_counter() - t17g, **k7})
+          "mean_var": moments, "seconds": time.perf_counter() - t17g, **k7, **issue})
     if not (words_same and rows_same and err <= TOL["k7"] and err64 <= TOL["k7_f64"]):
         fail(f"K7: words the same bits {words_same}, rank rows the same bits {rows_same}, "
              f"normals {err} (> {TOL['k7']}?), f64 {err64} (> {TOL['k7_f64']}?)")

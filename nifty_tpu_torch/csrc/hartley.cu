@@ -72,6 +72,35 @@
 //    with w = n1 / 2p, writes H's columns [r w, r w + w) and
 //    [n1 - r w - w, n1 - r w): every column of H once over the ranks (the
 //    last rank's halo is the Nyquist column, its mirror itself).
+// 7. K4r on the exchange's buffers (the 2-D pencil transform's stage 2).
+//    The block's n0 rows arrive as p chunks of n0/p rows, one from each
+//    rank, where the receive buffer of all_to_all_single holds them:
+//    sender-major (p, B, n0/p, w + 8) complex.  Its output goes to the
+//    return exchange's send buffer, destination-major (p, B, n0/p, 2w)
+//    f32.  The kernels find row i of a block through `Rows` (its chunk
+//    i / rows by a multiply-high, corrected once, then its place in the
+//    chunk), a template flag so that K4 and the unchunked K4r keep their
+//    arithmetic; no copy joins the chunks before the kernel or cuts its
+//    output after it.  The launch shape follows the block's tiles, not n0
+//    alone (cuda_fft.range_launch, from a sweep on the card): w / 8 tiles
+//    a slice fall from 128 to 32 between 2 and 8 ranks at 4096^2.  A tile's
+//    loads, passes and stores follow each other, and the passes wait on
+//    shared memory, so what pays is many threads a column on the SMs the
+//    tiles fill: up to 132 tiles, clusters of 2 blocks of 576 threads (64 a
+//    column); at 32 tiles or fewer, clusters of 16 (past the portable
+//    size), whose rows split 16 ways, the cross pass of radix 16 over
+//    distributed shared memory; else clusters of 8.  The blocks of the
+//    clusters of 8 and 16 take <= 288 threads, a launch bound of their own.
+//    These clusters also take columns of up to 24576 rows (an 8th or a
+//    16th of them fits in shared memory), where K4 falls back to the tiles
+//    of 1 or 2 columns.  The bound: the block read once and its packed
+//    columns written once, 8 n0 (w + 1) + 8 n0 w bytes a slice (0.020 ms at
+//    4096^2 over 2 ranks).  The target at 4096^2, B = 1, was 0.040 ms over
+//    2 ranks and 0.020 over 4; the card gave ~0.068 and ~0.031 against the
+//    former launch's ~0.077 and ~0.045 (NVIDIA H100 80GB HBM3, 700 W;
+//    PERF.md): a tile's loads, passes and stores follow each other, and a
+//    pipelined kernel that overlapped them across tiles lost more to the
+//    warps it took from the passes than it won.
 // A launch raises the kernel's dynamic shared-memory limit once per size
 // and reports any refusal through the returned error code.
 
@@ -95,6 +124,32 @@ struct Plan {
   int n, n_passes;
   Pass p[kMaxPasses];
 };
+
+// Where row i of a column block lies (note 7): in chunks of `rows` rows,
+// `chunk` apart, rows `pitch` apart within a chunk, batch slices `batch`
+// apart (elements of the array).  Unchunked: rows = n0, one chunk.
+struct Rows {
+  long long batch, chunk;
+  int pitch, rows;
+  unsigned magic;  // floor((2^32 - 1) / rows): i / rows is umulhi(i, magic) or one more
+};
+
+// (by value: a reference to a __grid_constant__ parameter makes its fields
+// generic loads where a copy reads them from the constant bank)
+template <bool kChunk>
+__device__ __forceinline__ long long row_at(const Rows L, int i) {
+  if constexpr (!kChunk) {
+    return (long long)i * L.pitch;
+  } else {
+    int c = (int)__umulhi((unsigned)i, L.magic);
+    int rem = i - c * L.rows;
+    if (rem >= L.rows) {
+      c += 1;
+      rem -= L.rows;
+    }
+    return c * L.chunk + (long long)rem * L.pitch;
+  }
+}
 
 // exp(-2 pi i e / R)
 __constant__ float2 kW16[16] = {
@@ -273,12 +328,12 @@ __device__ __forceinline__ void fft(float2* buf, int S1, int ofs, int j0, int T,
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+  asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16;\n" ::"r"(s), "l"(src));
 }
 
 __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
+  asm volatile("cp.async.ca.shared.global.L2::128B [%0], [%1], 8;\n" ::"r"(s), "l"(src));
 }
 
 // The twiddle tables lo (kTwLo entries) and hi (n / kTwLo) into smem[0..).
@@ -288,6 +343,7 @@ __device__ __forceinline__ void load_tables(float2* smem, const float2* __restri
 }
 
 constexpr int kMaxThreads = 640;  // the kernels' launch bound (<= 102 registers a thread)
+constexpr int kMaxThreadsWide = 288;  // that of the clusters of 8 and 16 blocks (9 x 32 threads)
 
 // K3: row pairs (2p, 2p+1) -> half spectra G[2p, :], G[2p+1, :] with row
 // pitch `pitch`; a block of T threads for pair p = blockIdx.x.
@@ -341,21 +397,26 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
+// One 16-byte store as written: left to the compiler, the clusters' guarded
+// vector stores became four predicated scalar ones (K4 13 % slower)
 __device__ __forceinline__ void store4(float* dst, const float (&w)[4]) {
-  *reinterpret_cast<float4*>(dst) = make_float4(w[0], w[1], w[2], w[3]);
+  asm volatile("st.global.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"l"(dst), "f"(w[0]), "f"(w[1]),
+               "f"(w[2]), "f"(w[3])
+               : "memory");
 }
 
 // K4 for long columns (the clusters below do not fit): a block takes the tile
 // of TC = 1 or 2 half-spectrum columns c0 .. c0 + TC - 1 (interleaved) and
-// stores H[i, c0 .. c0 + TC - 1] and the mirror H[-i, n1 - c0 - TC + 1 ..
-// n1 - c0] of each row.  Block of T * TC threads: T for each column; the
-// grid's y index is the batch slice (half spectra `batch_pitch` apart).
-template <int TC>
+// stores H[i, c0 .. c0 + TC - 1] and the mirror H[-i, nw - c0 - TC + 1 ..
+// nw - c0] of each row (nw = 2 half, the output's width).  Block of T * TC
+// threads: T for each column; the grid's y index is the batch slice.  Rows
+// of the input and the output are found through `in` and `out` (note 7).
+template <int TC, bool kChunk>
 __global__ void __launch_bounds__(kMaxThreads)
-    hartley_cols_kernel(const float2* __restrict__ G, float* __restrict__ H, int n1,
-                        int pitch, long long batch_pitch, int T,
+    hartley_cols_kernel(const float2* __restrict__ G, float* __restrict__ H, int half, int T,
                         const float2* __restrict__ tables, const short* __restrict__ rev,
-                        int src_col, int ranged, const __grid_constant__ Plan plan) {
+                        int src_col, int ranged, const __grid_constant__ Rows in,
+                        const __grid_constant__ Rows out, const __grid_constant__ Plan plan) {
   extern __shared__ __align__(16) float2 smem[];
   const int n0 = plan.n;
   const int tid = threadIdx.x, nthreads = blockDim.x;
@@ -363,16 +424,16 @@ __global__ void __launch_bounds__(kMaxThreads)
   float2* thi = smem + kTwLo;
   float2* tile = smem + kTwLo + n0 / kTwLo;
   const int c0 = blockIdx.x * TC;
-  const int half = n1 / 2;
-  // the batch slice folds into the source pointer and H's row index, so the
-  // parameters stay in the constant bank instead of taking registers
-  const long long hb = (long long)blockIdx.y * n0;
-  const float2* src = G + blockIdx.y * batch_pitch + src_col + c0;
+  const int nw = 2 * half;
+  // the batch slice folds into the indices, so the pointer parameters stay
+  // in the constant bank instead of taking registers
+  const long long gb = blockIdx.y * in.batch + src_col + c0;
+  const long long ob = blockIdx.y * out.batch;
   for (int i = tid; i < n0; i += nthreads) {
     if constexpr (TC == 1)
-      cp_async8(tile + pad(i), src + (long long)i * pitch);
+      cp_async8(tile + pad(i), G + gb + row_at<kChunk>(in, i));
     else
-      cp_async16(tile + pad(i) * TC, src + (long long)i * pitch);
+      cp_async16(tile + pad(i) * TC, G + gb + row_at<kChunk>(in, i));
   }
   asm volatile("cp.async.commit_group;\n" ::);
   load_tables(smem, tables, n0, tid, nthreads);
@@ -382,8 +443,8 @@ __global__ void __launch_bounds__(kMaxThreads)
 
   for (int i = tid; i < n0; i += nthreads) {  // a thread a row
     const int p = pad(__ldg(rev + i));
-    float* hl = H + (hb + i) * n1 + c0;
-    float* hm = H + (hb + (i == 0 ? 0 : n0 - i)) * n1 + n1 - c0;
+    float* hl = H + ob + row_at<kChunk>(out, i) + c0;
+    float* hm = H + ob + row_at<kChunk>(out, i == 0 ? 0 : n0 - i) + nw - c0;
     float2 v[TC];
 #pragma unroll
     for (int c = 0; c < TC; ++c) v[c] = tile[p * TC + c];
@@ -402,50 +463,52 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-// K4 by clusters: C = 2 or 4 blocks on C SMs take the 8 columns c0 .. c0 + 7
-// and the extra column c0 + 8, block r the rows r n0/C .. (r + 1) n0/C - 1
-// of all nine (row pieces of 64 + 8 bytes, a part of each column).  The
-// first decimation-in-frequency pass, radix C between rows k, k + n0/C, ...,
-// runs across the cluster through distributed shared memory: block r takes
-// a C-th of the k, transforms the C elements in registers and writes
-// output q, times w^{q k}, to block q, so every element is read and written
-// by one thread.  Then each block holds the length-n0/C transform of its
-// rows' residue: frequency C f + r lies in block r at rev[f] (rev and plan
-// of length n0/C, twiddles from the n0 tables).  A row takes two aligned
-// 32-byte runs, H[i, c0 .. c0 + 7] and the mirror
-// H[-i, n1 - c0 - 8 .. n1 - c0 - 1], two lanes a run, so a warp's stores
-// are whole sectors.  Block of 9 T threads: T for each column.  The grid's
-// y index is the batch slice (half spectra `batch_pitch` apart); a cluster
-// lies within one slice.
-template <int C>
-__global__ void __launch_bounds__(kMaxThreads)
-    hartley_cols_cluster_kernel(const float2* __restrict__ G, float* __restrict__ H, int n1,
-                                int pitch, long long batch_pitch, int T,
-                                const float2* __restrict__ tables, const short* __restrict__ rev,
-                                int src_col, int ranged, const __grid_constant__ Plan plan) {
+// K4 by clusters: C = 2, 4, 8 or 16 blocks on C SMs take the 8 columns
+// c0 .. c0 + 7 and the extra column c0 + 8, block r the rows r n0/C ..
+// (r + 1) n0/C - 1 of all nine (row pieces of 64 + 8 bytes, a part of each
+// column).  The first decimation-in-frequency pass, radix C between rows
+// k, k + n0/C, ..., runs across the cluster through distributed shared
+// memory: block r takes a C-th of the k, transforms the C elements in
+// registers and writes output q, times w^{q k}, to block q, so every
+// element is read and written by one thread.  Then each block holds the
+// length-n0/C transform of its rows' residue: frequency C f + r lies in
+// block r at rev[f] (rev and plan of length n0/C, twiddles from the n0
+// tables).  A row takes two aligned 32-byte runs, H[i, c0 .. c0 + 7] and
+// the mirror H[-i, nw - c0 - 8 .. nw - c0 - 1], two lanes a run, so a
+// warp's stores are whole sectors.  Block of 9 T threads: T for each
+// column.  The grid's y index is the batch slice; a cluster lies within
+// one slice.  Rows of the input and the output through `in` and `out`.
+template <int C, bool kChunk>
+__global__ void __launch_bounds__(C >= 8 ? kMaxThreadsWide : kMaxThreads)
+    hartley_cols_cluster_kernel(const float2* __restrict__ G, float* __restrict__ H, int half,
+                                int T, const float2* __restrict__ tables,
+                                const short* __restrict__ rev, int src_col, int ranged,
+                                const __grid_constant__ Rows in, const __grid_constant__ Rows out,
+                                const __grid_constant__ Plan plan) {
   extern __shared__ __align__(16) float2 smem[];
   constexpr int TC = 8;
   cg::cluster_group cluster = cg::this_cluster();
   const int r = (int)cluster.block_rank();
   const int hn = plan.n;  // n0 / C rows a block
   const int n0 = C * hn;
-  const long long hb = (long long)blockIdx.y * n0;  // the slice's first row of H
   const int tid = threadIdx.x, nthreads = blockDim.x;
   float2* tlo = smem;
   float2* thi = smem + kTwLo;
   float2* tile = smem + kTwLo + n0 / kTwLo;
   float2* extra = tile + TC * (hn + hn / 16 + hn / 256);
   const int c0 = (blockIdx.x / C) * TC;
-  const int half = n1 / 2;
+  const int nw = 2 * half;
   // columns 1 .. 8 of the run all mirror (ranged: always, the halo included)
   const bool mirror_all = ranged || c0 + TC < half;
-  const float2* src = G + blockIdx.y * batch_pitch + (long long)r * hn * pitch + src_col + c0;
+  const long long gb = blockIdx.y * in.batch + src_col + c0;
+  const long long ob = blockIdx.y * out.batch;
   for (int e = tid; e < hn * (TC / 2); e += nthreads) {
     const int i = e >> 2, q = e & 3;
-    cp_async16(tile + pad(i) * TC + 2 * q, src + (long long)i * pitch + 2 * q);
+    cp_async16(tile + pad(i) * TC + 2 * q, G + gb + row_at<kChunk>(in, r * hn + i) + 2 * q);
   }
   if (mirror_all)
-    for (int i = tid; i < hn; i += nthreads) cp_async8(extra + pad(i), src + (long long)i * pitch + TC);
+    for (int i = tid; i < hn; i += nthreads)
+      cp_async8(extra + pad(i), G + gb + row_at<kChunk>(in, r * hn + i) + TC);
   asm volatile("cp.async.commit_group;\n" ::);
   load_tables(smem, tables, n0, tid, nthreads);
   asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -485,12 +548,12 @@ __global__ void __launch_bounds__(kMaxThreads)
     for (int c = 0; c < 4; ++c) {
       const float2 v = tile[p * TC + 4 * u + c];
       left[c] = v.x - v.y;
-      const int m = TC - 4 * u - c;  // mirror of column c0 + m lands at n1 - c0 - 8 + 4 u + c
+      const int m = TC - 4 * u - c;  // mirror of column c0 + m lands at nw - c0 - 8 + 4 u + c
       const float2 w = m == TC ? extra[p] : tile[p * TC + m];
       right[c] = w.x + w.y;
     }
-    float* hl = H + (hb + i) * n1 + c0 + 4 * u;
-    float* hm = H + (hb + (i == 0 ? 0 : n0 - i)) * n1 + (n1 - c0 - TC + 4 * u);
+    float* hl = H + ob + row_at<kChunk>(out, i) + c0 + 4 * u;
+    float* hm = H + ob + row_at<kChunk>(out, i == 0 ? 0 : n0 - i) + (nw - c0 - TC + 4 * u);
     if (c0 + TC <= h) {
       store4(hl, left);
     } else {
@@ -552,7 +615,73 @@ size_t tables_bytes(int n) { return (size_t)(kTwLo + n / kTwLo) * sizeof(float2)
 
 size_t buffer_bytes(int n) { return (size_t)(n + n / 16 + n / 256) * sizeof(float2); }
 
-int rows_smem_done, cols_smem_done[4];
+int rows_smem_done;
+
+template <int C, bool kChunk>
+int launch_cluster(const float2* g, float* H, int half, int T, int grid, int batch,
+                   const float2* tab, const short* rv, int src_col, int ranged, const Rows& in,
+                   const Rows& out, const Plan& plan, size_t smem, cudaStream_t s) {
+  const auto kernel = hartley_cols_cluster_kernel<C, kChunk>;
+  static int smem_done = 0, wide_done = 0;
+  int err = allow_smem(kernel, smem, &smem_done);
+  if (err) return err;
+  if (C > 8 && !wide_done) {  // 16 blocks: past the portable cluster size
+    err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err) return err;
+    wide_done = 1;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C * grid, batch);
+  cfg.blockDim = dim3(T * 9);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = (int)cudaLaunchKernelEx(&cfg, kernel, g, H, half, T, tab, rv, src_col, ranged, in, out,
+                                plan);
+  if (err) return err;
+  return (int)cudaGetLastError();
+}
+
+template <int TC, bool kChunk>
+int launch_tiles(const float2* g, float* H, int half, int T, int grid, int batch,
+                 const float2* tab, const short* rv, int src_col, int ranged, const Rows& in,
+                 const Rows& out, const Plan& plan, size_t smem, cudaStream_t s) {
+  static int smem_done = 0;
+  const int err = allow_smem(hartley_cols_kernel<TC, kChunk>, smem, &smem_done);
+  if (err) return err;
+  hartley_cols_kernel<TC, kChunk><<<dim3(grid, batch), T * TC, smem, s>>>(
+      g, H, half, T, tab, rv, src_col, ranged, in, out, plan);
+  return (int)cudaGetLastError();
+}
+
+template <bool kChunk>
+int launch_cols(int parts, int tc, const float2* g, float* H, int half, int T, int grid,
+                int batch, const float2* tab, const short* rv, int src_col, int ranged,
+                const Rows& in, const Rows& out, const Plan& plan, size_t smem, cudaStream_t s) {
+  switch (parts) {
+    case 2: return launch_cluster<2, kChunk>(g, H, half, T, grid, batch, tab, rv, src_col, ranged,
+                                             in, out, plan, smem, s);
+    case 4: return launch_cluster<4, kChunk>(g, H, half, T, grid, batch, tab, rv, src_col, ranged,
+                                             in, out, plan, smem, s);
+    case 8: return launch_cluster<8, kChunk>(g, H, half, T, grid, batch, tab, rv, src_col, ranged,
+                                             in, out, plan, smem, s);
+    case 16: return launch_cluster<16, kChunk>(g, H, half, T, grid, batch, tab, rv, src_col,
+                                               ranged, in, out, plan, smem, s);
+    default:
+      return tc == 2 ? launch_tiles<2, kChunk>(g, H, half, T, grid, batch, tab, rv, src_col,
+                                               ranged, in, out, plan, smem, s)
+                     : launch_tiles<1, kChunk>(g, H, half, T, grid, batch, tab, rv, src_col,
+                                               ranged, in, out, plan, smem, s);
+  }
+}
+
+unsigned row_magic(int rows) { return 0xFFFFFFFFu / (unsigned)rows; }
 
 }  // namespace
 
@@ -573,17 +702,23 @@ extern "C" int nt_hartley_rows(const void* x, void* G, int n0, int n1, int pitch
   return (int)cudaGetLastError();
 }
 
-// parts 0: blocks over tiles of tc = 1 or 2 columns; 2 or 4: clusters of
-// that many blocks over tc = 8 columns and the extra one (passes and rev of
-// length n0 / parts).  `batch` half spectra, `batch_pitch` complex apart,
-// into `batch` dense (n0, n1) arrays: the launch grid's y extent.  With
-// n_cols = w > 0 (K4r) the columns src_col .. src_col + w of the half
-// spectra of width n1 go to `batch` packed (n0, 2w) arrays (note 6).
+// parts 0: blocks over tiles of tc = 1 or 2 columns; 2, 4, 8 or 16:
+// clusters of that many blocks over tc = 8 columns and the extra one
+// (passes and rev of length n0 / parts).  `batch` half spectra,
+// `batch_pitch` complex apart, into `batch` dense (n0, n1) arrays: the
+// launch grid's y extent.  With n_cols = w > 0 (K4r) the columns src_col
+// .. src_col + w of the half spectra of width n1 go to `batch` packed
+// (n0, 2w) arrays (note 6); with chunks = p > 1 too, on the exchange's
+// buffers (note 7): the input (p, batch, n0/p, pitch), its chunks
+// `chunk_pitch` and its slices `batch_pitch` apart, the output (p, batch,
+// n0/p, 2w).
 extern "C" int nt_hartley_cols(const void* G, void* H, int n0, int n1, int pitch,
-                               long long batch_pitch, int batch, const void* tables,
-                               const void* rev, const int* passes, int n_passes, int T, int tc,
-                               int parts, int src_col, int n_cols, void* stream) {
-  if (parts != 0 && parts != 2 && parts != 4) return (int)cudaErrorInvalidValue;
+                               long long batch_pitch, long long chunk_pitch, int chunks,
+                               int batch, const void* tables, const void* rev, const int* passes,
+                               int n_passes, int T, int tc, int parts, int src_col, int n_cols,
+                               void* stream) {
+  if (parts != 0 && parts != 2 && parts != 4 && parts != 8 && parts != 16)
+    return (int)cudaErrorInvalidValue;
   Plan plan;
   int err = make_plan(&plan, parts ? n0 / parts : n0, n0, passes, n_passes);
   if (err) return err;
@@ -591,11 +726,19 @@ extern "C" int nt_hartley_cols(const void* G, void* H, int n0, int n1, int pitch
   const int cols = tc + (parts != 0);  // the tile and the extra column
   const int ranged = n_cols > 0;
   const int half = ranged ? n_cols : n1 / 2;  // the output's width is 2 half
-  if (!ok_tc || T < 1 || T * cols > kMaxThreads || n1 <= 0 || n1 % 256 || pitch % 8 ||
-      pitch < src_col + half + tc || (parts && (n0 / parts) % parts) || batch < 1 ||
-      batch > 65535 || batch_pitch % 8 || (batch > 1 && batch_pitch < (long long)n0 * pitch) ||
-      src_col < 0 || src_col % 8 || (ranged && (n_cols % 8 || src_col + n_cols > n1 / 2)) ||
-      (!ranged && src_col))
+  const int max_threads = parts >= 8 ? kMaxThreadsWide : kMaxThreads;
+  const int rows = chunks > 0 ? n0 / chunks : 0;  // rows a chunk
+  // a ranged cluster's last tile reads the halo column c0 + 8 = src_col + half, no further
+  const int reach = ranged && parts ? 1 : tc;
+  if (!ok_tc || T < 1 || T * cols > max_threads || n1 <= 0 || n1 % 256 || pitch % 8 ||
+      pitch < src_col + half + reach || (parts && (n0 / parts) % parts) || batch < 1 ||
+      batch > 65535 || batch_pitch % 8 || src_col < 0 || src_col % 8 ||
+      (ranged && (n_cols % 8 || src_col + n_cols > n1 / 2)) || (!ranged && src_col) ||
+      chunks < 1 || n0 % chunks || (chunks > 1 && !ranged))
+    return (int)cudaErrorInvalidValue;
+  if (chunks == 1 ? batch > 1 && batch_pitch < (long long)n0 * pitch
+                  : (batch > 1 && batch_pitch < (long long)rows * pitch) || chunk_pitch % 8 ||
+                        chunk_pitch < (batch - 1) * batch_pitch + (long long)rows * pitch)
     return (int)cudaErrorInvalidValue;
   const size_t smem = tables_bytes(n0) + (size_t)cols * buffer_bytes(parts ? n0 / parts : n0);
   if (smem > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
@@ -603,41 +746,17 @@ extern "C" int nt_hartley_cols(const void* G, void* H, int n0, int n1, int pitch
   // their last tile's extra column)
   const int grid = (half + 1 - (ranged && parts) + tc - 1) / tc;
   const int nw = 2 * half;
-  cudaStream_t s = (cudaStream_t)stream;
+  const Rows in{batch_pitch, chunk_pitch, pitch, rows, row_magic(rows)};
+  const Rows out = chunks == 1
+      ? Rows{(long long)n0 * nw, 0, nw, n0, row_magic(n0)}
+      : Rows{(long long)rows * nw, (long long)batch * rows * nw, nw, rows, row_magic(rows)};
   const float2* g = (const float2*)G;
   const float2* tab = (const float2*)tables;
   const short* rv = (const short*)rev;
-  if (parts) {
-    const auto kernel = parts == 2 ? hartley_cols_cluster_kernel<2> : hartley_cols_cluster_kernel<4>;
-    err = allow_smem(kernel, smem, &cols_smem_done[parts == 2 ? 2 : 3]);
-    if (err) return err;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(parts * grid, batch);
-    cfg.blockDim = dim3(T * cols);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = s;
-    cudaLaunchAttribute attr;
-    attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = parts;
-    attr.val.clusterDim.y = 1;
-    attr.val.clusterDim.z = 1;
-    cfg.attrs = &attr;
-    cfg.numAttrs = 1;
-    err = (int)cudaLaunchKernelEx(&cfg, kernel, g, (float*)H, nw, pitch, batch_pitch, T,
-                                  tab, rv, src_col, ranged, plan);
-    if (err) return err;
-    return (int)cudaGetLastError();
-  }
-  if (tc == 2) {
-    err = allow_smem(hartley_cols_kernel<2>, smem, &cols_smem_done[1]);
-    if (err) return err;
-    hartley_cols_kernel<2><<<dim3(grid, batch), T * cols, smem, s>>>(
-        g, (float*)H, nw, pitch, batch_pitch, T, tab, rv, src_col, ranged, plan);
-  } else {
-    err = allow_smem(hartley_cols_kernel<1>, smem, &cols_smem_done[0]);
-    if (err) return err;
-    hartley_cols_kernel<1><<<dim3(grid, batch), T * cols, smem, s>>>(
-        g, (float*)H, nw, pitch, batch_pitch, T, tab, rv, src_col, ranged, plan);
-  }
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (chunks == 1)
+    return launch_cols<false>(parts, tc, g, (float*)H, half, T, grid, batch, tab, rv, src_col,
+                              ranged, in, out, plan, smem, s);
+  return launch_cols<true>(parts, tc, g, (float*)H, half, T, grid, batch, tab, rv, src_col,
+                           ranged, in, out, plan, smem, s);
 }

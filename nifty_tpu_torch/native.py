@@ -57,8 +57,8 @@ _SIGNATURES = {
     "nt_collapse_from_grid": (_P, _P, _P, _P, _I, _I, _P, _I, _P, ctypes.POINTER(_I), _I, _P),
     "nt_hartley_rows": (_P, _P, _I, _I, _I, _P, _P, ctypes.POINTER(_I), _I, _I, _P),
     "nt_hartley_cols": (
-        _P, _P, _I, _I, _I, ctypes.c_longlong, _I, _P, _P, ctypes.POINTER(_I), _I, _I, _I, _I,
-        _I, _I, _P
+        _P, _P, _I, _I, _I, ctypes.c_longlong, ctypes.c_longlong, _I, _I, _P, _P,
+        ctypes.POINTER(_I), _I, _I, _I, _I, _I, _I, _P
     ),
     "nt_legendre_contract": (_P,) * 7 + (_I,) * 10 + (_P,),
     "nt_legendre_contract_t": (_P,) * 8 + (_I,) * 10 + (_P,),

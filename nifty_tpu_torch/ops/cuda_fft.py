@@ -33,6 +33,11 @@ K4r :func:`hartley_cols_range` is K4 on a block of half-spectrum columns
 transform of a row-sharded field (:mod:`..parallel.fft`): it writes the
 block's Hartley columns ``c .. c + w - 1`` and their mirrors packed as
 ``(n0, 2w)``, the last column of the block (the halo) only for its mirror.
+On the exchange's buffers it reads the block where the receive buffer
+holds it, ``(p, B, n0/p, w + 8)`` sender-major, and writes the return
+exchange's send buffer, ``(p, B, n0/p, 2w)`` destination-major, so the
+pencil transform joins and cuts nothing around it; its launch shape
+(:func:`range_launch`) follows the block's tiles.
 
 The kernels take f32 arrays whose axes are multiples of 256 (the domain of
 ``pallas_hartley_supported``), 7-smooth and at most ``MAX_AXIS`` long
@@ -67,6 +72,7 @@ __all__ = [
     "output_order",
     "padded_half_spectrum",
     "radix_plan",
+    "range_launch",
     "row_launch",
     "row_smem_bytes",
     "smem_pos",
@@ -77,6 +83,8 @@ MAX_AXIS = 24576  # one padded column of complex64 (209 KB) in a block's shared 
 SMEM_LIMIT = 232448  # shared memory a block may use on sm_90 (227 KB)
 TW_LO = 128  # entries of the low twiddle table: w^m = hi[m >> 7] * lo[m & 127]
 MAX_THREADS = 640  # the kernels' launch bound (kMaxThreads in csrc/hartley.cu)
+MAX_THREADS_WIDE = 288  # that of the clusters of 8 and 16 blocks (kMaxThreadsWide)
+CLUSTERS = (2, 4, 8, 16)  # the cluster kernel's sizes (16: past the portable size)
 # Launch shapes (row_launch, col_launch), from sweeps on an NVIDIA H100
 # 80GB HBM3 at 700 W (nifty_tpu_torch/bench/hartley_bench.py --sweep;
 # PERF.md): K3 fastest with n1/16 threads a row pair up to 2048 points,
@@ -211,6 +219,37 @@ def col_launch(n0: int):
     raise ValueError(f"no K4 launch shape for columns of {n0}")
 
 
+def _cluster_fits(n0: int, parts: int, T: int) -> bool:
+    hn = n0 // parts
+    return (n0 % parts == 0 and hn % parts == 0 and hn % 16 == 0 and radix_plan(hn) is not None
+            and 1 <= T <= hn // 16 and 9 * T <= (MAX_THREADS_WIDE if parts >= 8 else MAX_THREADS)
+            and col_smem_bytes(n0, 8, parts) <= SMEM_LIMIT)
+
+
+@functools.lru_cache(maxsize=None)
+def range_launch(n0: int, w: int, batch: int = 1):
+    """K4r launch shape ``(T, tc, parts)`` for a block of ``w`` columns (and
+    the halo) over ``n0`` rows, ``batch`` slices, chosen by the block's
+    tiles of 8 columns (not by ``n0`` alone; a sweep on an NVIDIA H100
+    80GB HBM3 at 700 W, ``bench/sharded_kernels_bench.py --sweep``, PERF.md).
+    Between 33 and 132 tiles of at least 2048 rows, clusters of 2 blocks with
+    64 threads a column (each block n0/2 rows, one wave of the card's SMs)
+    where they fit; at
+    most 32 tiles, or more than 8192 rows, clusters of 16; else of 8; each
+    with hn/32 threads a column (hn the rows of a block) rounded down to a
+    power of 2 in 8 .. 32; the first that fits, else :func:`col_launch`."""
+    tiles = w // 8 * batch
+    prefs = [(64, 2)] if 32 < tiles <= 132 and n0 >= 2048 else []
+    prefs += [(0, 16)] if tiles <= 32 or n0 > 8192 else []
+    prefs += [(0, 8), (0, 4), (0, 2)]
+    for T, parts in prefs:
+        hn = n0 // parts
+        T = min(T or min(32, max(8, 1 << max(hn // 32, 1).bit_length() - 1)), hn // 16)
+        if _cluster_fits(n0, parts, T):
+            return T, 8, parts
+    return col_launch(n0)
+
+
 @functools.lru_cache(maxsize=None)
 def _fft_tables(n: int, device: str, parts: int = 1):
     """(twiddle tables lo ‖ hi of length ``n`` as complex64 built in
@@ -261,7 +300,14 @@ def hartley_cols_range_plain(G, w: int):
     Hartley column ``c + t``, column ``2w - t`` (``1 <= t <= w``) the mirror
     column ``n1 - c - t``.  A slice of :func:`hartley_cols_plain`'s output;
     also the pencil Hartley's column stage for the shapes and dtypes
-    outside K3 + K4r's domain (``parallel.fft``)."""
+    outside K3 + K4r's domain (``parallel.fft``).  On the exchange's
+    layout, ``G`` of ``(p, B, n0/p, >= w + 1)`` (sender-major: rows ``s
+    n0/p ..`` of the block from rank ``s``), the result is ``(p, B, n0/p,
+    2w)``, destination-major: rows ``d n0/p ..`` for rank ``d``."""
+    if G.ndim == 4:
+        p, B, rows, width = G.shape
+        P = hartley_cols_range_plain(G.movedim(0, 1).reshape(B, p * rows, width), w)
+        return P.reshape(B, p, rows, 2 * w).movedim(1, 0).contiguous()
     C = torch.fft.fft(G[..., : w + 1], dim=-2)
     n0 = C.shape[-2]
     left = C.real - C.imag
@@ -301,17 +347,21 @@ def _launch_cols(G, H, T, tc, parts, n1=None, src_col=0, n_cols=0):
     ``H``, one batch index a row of the launch grid; counts nothing, as
     :func:`_launch_rows`.  With ``n_cols`` = w > 0 it is K4r: the columns
     ``src_col .. src_col + w`` of half spectra of width ``n1`` into the
-    packed ``(n0, 2w)`` arrays ``H``."""
-    n0, nw = H.shape[-2:]
+    packed ``(n0, 2w)`` arrays ``H``; on the exchange's layout, ``G`` of
+    ``(p, B, n0/p, pitch)`` into ``H`` of ``(p, B, n0/p, 2w)``."""
+    if G.ndim == 4:
+        chunks, batch, rows, nw = H.shape
+        n0, chunk_pitch, batch_pitch = chunks * rows, G.stride(0), G.stride(1)
+    else:
+        n0, nw = H.shape[-2:]
+        chunks, chunk_pitch, batch = 1, 0, H.numel() // (n0 * nw)
+        batch_pitch = G.stride(0) if G.ndim == 3 else n0 * G.stride(-2)
     n1 = nw if n1 is None else n1
-    batch = H.numel() // (n0 * nw)
-    pitch = G.stride(-2)
-    batch_pitch = G.stride(0) if G.ndim == 3 else n0 * pitch
     tab, rev, plan = _fft_tables(n0, str(G.device), max(parts, 1))
     err = native.lib().nt_hartley_cols(
-        G.data_ptr(), H.data_ptr(), n0, n1, pitch, batch_pitch, batch, tab.data_ptr(),
-        rev.data_ptr(), native.int_array(plan), len(plan) // 4, T, tc, parts, src_col, n_cols,
-        native.stream_of(G),
+        G.data_ptr(), H.data_ptr(), n0, n1, G.stride(-2), batch_pitch, chunk_pitch, chunks, batch,
+        tab.data_ptr(), rev.data_ptr(), native.int_array(plan), len(plan) // 4, T, tc, parts,
+        src_col, n_cols, native.stream_of(G),
     )
     native.check(err, "hartley_cols_range" if n_cols else "hartley_cols")
 
@@ -391,48 +441,64 @@ def hartley_cols_range(G, w: int, src_col: int = 0, n1=None):
     """K4r: the half-spectrum columns ``src_col .. src_col + w`` of ``G``
     (``(n0, h)`` or ``(B, n0, h)``, half spectra of width ``n1``, by
     default ``2 (h - 1)``) -> the packed ``(n0, 2w)`` (``(B, n0, 2w)``)
-    of :func:`hartley_cols_range_plain`, one launch.  On the card ``w`` and
-    ``src_col`` are multiples of 8 and ``G`` has K4's layout (unit column
-    stride, a row pitch a multiple of 8 complex with room for the tiles
-    past ``src_col + w``, 16-byte aligned), as :func:`hartley_rows` gives
-    it; any other layout raises."""
+    of :func:`hartley_cols_range_plain`, one launch.  On the exchange's
+    layout, ``G`` of ``(p, B, n0/p, h)`` as the receive buffer holds the
+    ranks' chunks (``src_col`` 0, ``n1`` given), the result is the return
+    exchange's ``(p, B, n0/p, 2w)``, read and written in place.  On the
+    card ``w`` and ``src_col`` are multiples of 8 and ``G`` has K4's layout
+    (unit column stride, a row pitch a multiple of 8 complex with room for
+    the tiles past ``src_col + w``, 16-byte aligned), as :func:`hartley_rows`
+    or the exchange gives it; any other layout raises."""
     if G.device.type == "cpu":
         return hartley_cols_range_plain(G[..., src_col:], w)
-    n0 = G.shape[-2]
+    exchange = G.ndim == 4
+    n0 = G.shape[0] * G.shape[2] if exchange else G.shape[-2]
     n1 = 2 * (G.shape[-1] - 1) if n1 is None else n1
     if G.device.type != "cuda":
         raise ValueError(f"hartley_cols_range: tensor on {G.device}; CPU or CUDA expected")
     if G.dtype != torch.complex64:
         raise TypeError(f"hartley_cols_range: dtype {G.dtype}; torch.complex64 expected")
     ok = (
-        G.ndim in (2, 3)
+        G.ndim in (2, 3, 4)
         and cuda_hartley_supported((n0, 256), torch.float32)
         and n1 % 256 == 0
         and w > 0 and w % 8 == 0 and src_col % 8 == 0 and src_col >= 0
         and src_col + w <= n1 // 2
         and G.shape[-1] >= src_col + w + 1
+        and not (exchange and src_col)
     )
     if not ok:
         raise ValueError(
             f"hartley_cols_range: shape {tuple(G.shape)}, columns {src_col} + {w} of {n1} "
             "outside the kernel's domain")
-    T, tc, parts = col_launch(n0)
+    batch = G.shape[1] if exchange else G.shape[0] if G.ndim == 3 else 1
+    T, tc, parts = range_launch(n0, w, batch)
     pitch = G.stride(-2)
-    batch = G.shape[0] if G.ndim == 3 else 1
-    batch_pitch = G.stride(0) if G.ndim == 3 else n0 * pitch
+    if exchange:
+        p, rows = G.shape[0], G.shape[2]
+        batch_pitch, span = G.stride(1), (p - 1) * G.stride(0) + (batch - 1) * G.stride(1)
+        # one chunk (one rank): its pitch is never used, whatever the view says
+        layout_ok = p == 1 or (G.stride(0) % 8 == 0
+                               and G.stride(0) >= (batch - 1) * batch_pitch + rows * pitch)
+        layout_ok = layout_ok and (batch == 1 or batch_pitch >= rows * pitch)
+        span += rows * pitch
+    else:
+        batch_pitch = G.stride(0) if G.ndim == 3 else n0 * pitch
+        layout_ok = batch == 1 or batch_pitch >= n0 * pitch
+        span = (batch - 1) * batch_pitch + n0 * pitch
     room = G.untyped_storage().nbytes() // 8 - G.storage_offset()
     if (
-        G.stride(-1) != 1
+        not layout_ok
+        or G.stride(-1) != 1
         or pitch % 8
-        or pitch < src_col + w + tc
+        or pitch < src_col + w + (1 if parts else tc)  # a cluster's last tile reads the halo
         or batch_pitch % 8
-        or (batch > 1 and batch_pitch < n0 * pitch)
-        or room < (batch - 1) * batch_pitch + n0 * pitch
+        or room < span
         or G.data_ptr() % 16
     ):
         raise ValueError(
             f"hartley_cols_range: strides {G.stride()}: K4r reads rows of pitch a multiple of 8 "
-            f"complex, at least {src_col + w + tc}, from a 16-byte boundary")
+            f"complex, at least {src_col + w + (1 if parts else tc)}, from a 16-byte boundary")
     H = torch.empty(tuple(G.shape[:-1]) + (2 * w,), dtype=torch.float32, device=G.device)
     _launch_cols(G, H, T, tc, parts, n1=n1, src_col=src_col, n_cols=w)
     native.launches["hartley_cols_range"] += 1

@@ -56,6 +56,7 @@ __all__ = [
     "FieldShards",
     "all_gather",
     "all_to_all",
+    "exchange",
     "field",
     "field_sharded",
     "note_split",
@@ -232,26 +233,38 @@ def replicate(x, group):
     return _Replicate.apply(x, group)
 
 
+def exchange(send, group, send_splits=None, recv_splits=None):
+    """One ``all_to_all_single`` of the packed buffer ``send``.  Without
+    split sizes ``send`` is ``(p, ...)``, chunk ``s`` for rank ``s``, and
+    the result has its shape, chunk ``s`` from rank ``s``; with them
+    ``send`` is flat, cut by ``send_splits`` (elements), and the result
+    flat, ``sum(recv_splits)`` long.  Complex buffers travel as their real
+    views; no chunk is copied on either side but to the group's device."""
+    dev = backend_device()
+    buf = send.to(dev).contiguous()
+    real = torch.view_as_real(buf) if buf.is_complex() else buf
+    if send_splits is None:
+        out = real.new_empty(real.shape)  # dense in order, whatever the strides of a size-1 axis
+        dist.all_to_all_single(out, real, group=group)
+    else:
+        per = 2 if buf.is_complex() else 1
+        out = real.new_empty((per * sum(recv_splits),))
+        dist.all_to_all_single(out, real.reshape(-1), output_split_sizes=[per * n for n in recv_splits],
+                               input_split_sizes=[per * n for n in send_splits], group=group)
+        if buf.is_complex():
+            out = out.view(-1, 2)
+    out = torch.view_as_complex(out) if buf.is_complex() else out
+    return out.to(send.device)
+
+
 def all_to_all(chunks, recv_shapes, group):
     """Send ``chunks[s]`` to rank ``s`` of ``group`` and return the chunks
-    received, ``recv[s]`` from rank ``s`` shaped ``recv_shapes[s]``: one
-    ``all_to_all_single`` (complex chunks travel as their real views)."""
-    cplx = chunks[0].is_complex()
-    dt = chunks[0].dtype
-    real = lambda c: torch.view_as_real(c) if cplx else c  # noqa: E731
-    dev = backend_device()
-    send = torch.cat([real(c.contiguous()).reshape(-1) for c in chunks]).to(dev)
-    per = 2 if cplx else 1
-    sizes_out = [per * int(torch.Size(s).numel()) for s in recv_shapes]
-    recv = send.new_empty(sum(sizes_out))
-    dist.all_to_all_single(recv, send, output_split_sizes=sizes_out,
-                           input_split_sizes=[per * c.numel() for c in chunks], group=group)
-    recv = recv.to(chunks[0].device)
-    out = []
-    for part, shape in zip(recv.split(sizes_out), recv_shapes):
-        out.append(torch.view_as_complex(part.reshape(tuple(shape) + (2,))) if cplx
-                   else part.reshape(shape))
-    return [o.to(dt) for o in out]
+    received, ``recv[s]`` from rank ``s`` shaped ``recv_shapes[s]``: the
+    chunks packed into one buffer, one :func:`exchange`."""
+    send = torch.cat([c.contiguous().reshape(-1) for c in chunks])
+    sizes = [int(torch.Size(s).numel()) for s in recv_shapes]
+    recv = exchange(send, group, [c.numel() for c in chunks], sizes)
+    return [part.reshape(shape) for part, shape in zip(recv.split(sizes), recv_shapes)]
 
 
 class FieldShards(NamedTuple):

@@ -19,13 +19,20 @@ host-local slice of ``n1/2``) and one column more, ``c_{r+1}``, the halo
 (the last rank's is the Nyquist column); (2) the column FFT over all n0
 rows and the hermitian fold, packed ``(n0, 2 k)``: Hartley columns ``c_r
 .. c_{r+1} - 1`` and the mirrors ``n1 - c`` of ``c_r < c <= c_{r+1}``;
-(3) the rows back and their columns in place.  A float32 grid in the
-kernels' domain (``cuda_fft.cuda_hartley_supported``) runs K3 on the
-rank's rows and K4r (``cuda_fft.hartley_cols_range``) on its column
-block, exchanging K3's padded rows (``w + 8`` columns, ``w = n1 / 2p``) so
-K4r reads its layout; it needs ``n1 % 16 p == 0`` and an even row count a
-rank, and any other ``p`` is refused (:func:`uses_kernels`).  Every other
-shape and dtype takes the same stages through ``torch.fft``.
+(3) the rows back and their columns in place.  Where ``n1 / 2`` splits
+evenly, ``w = n1 / 2p`` columns a rank, each exchange moves one packed
+buffer (:func:`~.collectives.exchange`): stage 1 writes ``(p, B, rows,
+w + pad)`` (chunk ``s`` for rank ``s``: its columns and the halo), stage 2
+takes the receive buffer as it is, sender-major, and gives ``(p, B,
+rows, 2w)``, destination-major, the return exchange's send buffer.  A
+float32 grid in the kernels' domain (``cuda_fft.cuda_hartley_supported``)
+runs K3 on the rank's rows and K4r (``cuda_fft.hartley_cols_range``) on
+the receive buffer in place (pad 8: K4r's tiles), writing the send
+buffer; it needs ``n1 % 16 p == 0`` and an even row count a rank, and any
+other ``p`` is refused (:func:`uses_kernels`).  Every other shape and
+dtype takes the same stages through ``torch.fft`` (pad 1; uneven splits
+as lists of chunks).  The stages also take lists of chunks (the virtual
+ranks of the tests), which they stack into the buffer.
 More axes: the trailing FFTs (the last one real), the exchange splitting
 axis 1 (its blocks of ``n1 / p``), the FFT over axis 0, and a fold in
 which each rank writes the columns it transformed and the mirror
@@ -39,13 +46,13 @@ and K4r's launch grid (one exchange per batch).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..ops import cuda_fft
 from ..ops.fft import hartley
-from .collectives import all_to_all
+from .collectives import all_to_all, exchange
 from .mesh import gather_axis
 from .multihost import host_local_slice
 
@@ -100,6 +107,7 @@ class _Plan2(NamedTuple):
     p: int
     bounds: tuple  # c_0 .. c_p: the ranks' half-spectrum columns
     kernels: bool
+    w: Optional[int]  # columns a rank where they split evenly: the buffers' layout
 
 
 class _PlanN(NamedTuple):
@@ -116,7 +124,8 @@ def _plan(full_shape, p, dtype):
         if n1 // 2 < p:
             raise ValueError(f"{n1 // 2} half-spectrum columns cannot split over {p} ranks")
         bounds = tuple(host_local_slice(n1 // 2, count=p, index=s)[0] for s in range(p)) + (n1 // 2,)
-        return _Plan2(n0, n1, p, bounds, uses_kernels(full_shape, p, dtype))
+        even = n1 % (2 * p) == 0
+        return _Plan2(n0, n1, p, bounds, uses_kernels(full_shape, p, dtype), n1 // (2 * p) if even else None)
     if full_shape[1] % p:
         raise ValueError(f"axis 1 of {full_shape} does not split over {p} ranks")
     return _PlanN(full_shape, p)
@@ -126,38 +135,46 @@ def _plan(full_shape, p, dtype):
 
 
 def _rows2(x, pl: _Plan2):
-    """Stage 1: the rows' half spectra, cut into each rank's columns and halo."""
+    """Stage 1: the rows' half spectra, cut into each rank's columns and
+    halo: the send buffer ``(p, B, rows, w + pad)``, or (uneven) a list."""
     B, rows, n1 = x.shape
     c = pl.bounds
     if pl.kernels:
-        w = n1 // (2 * pl.p)
-        pitch = cuda_fft.half_spectrum_pitch(n1)
         G = cuda_fft.hartley_rows(x.contiguous())  # (B, rows, n1/2 + 1) in padded rows
-        if G.stride(-2) != pitch:  # the plain version's (a CPU tensor)
+        if G.stride(-2) != cuda_fft.half_spectrum_pitch(n1):  # the plain version's (a CPU tensor)
             G = cuda_fft.padded_half_spectrum(G)
-        Gpad = torch.as_strided(G, (B, rows, pitch), G.stride(), G.storage_offset())
-        return [Gpad[..., s * w : s * w + w + 8] for s in range(pl.p)]
-    G = torch.fft.rfft(x, dim=-1)
-    return [G[..., c[s] : c[s + 1] + 1] for s in range(pl.p)]
+    else:
+        G = torch.fft.rfft(x, dim=-1)
+    if pl.w is None:
+        return [G[..., c[s] : c[s + 1] + 1] for s in range(pl.p)]
+    width = pl.w + (8 if pl.kernels else 1)
+    st = G.stride()
+    # chunk s: columns s w .. s w + width - 1, overlapping the next by the halo
+    return torch.as_strided(G, (pl.p, B, rows, width), (pl.w,) + st, G.storage_offset()).contiguous()
 
 
 def _cols2(blocks, pl: _Plan2, rank: int):
     """Stage 2 on rank ``rank``: its column block over all rows, folded and
-    cut into the ranks' rows."""
-    blk = torch.cat(blocks, dim=1)  # (B, n0, k + 1 [+ 7])
+    cut into the ranks' rows: from the receive buffer ``(p, B, rows, w +
+    pad)`` (a list of chunks is stacked into it) to the send buffer ``(p,
+    B, rows, 2w)``, or (uneven) between lists."""
+    if pl.w is not None:
+        buf = blocks if torch.is_tensor(blocks) else torch.stack(list(blocks))
+        if pl.kernels:  # K4r in place
+            return cuda_fft.hartley_cols_range(buf, pl.w, n1=pl.n1)
+        return cuda_fft.hartley_cols_range_plain(buf, pl.w)
+    blk = torch.cat(list(blocks), dim=1)  # (B, n0, k + 1)
     k = pl.bounds[rank + 1] - pl.bounds[rank]
-    if pl.kernels:
-        P = cuda_fft.hartley_cols_range(blk, k, n1=pl.n1)
-    else:
-        P = cuda_fft.hartley_cols_range_plain(blk, k)
-        if rank == pl.p - 1 and pl.n1 % 2:  # odd n1: the last column is no column's mirror
-            C = torch.fft.fft(blk[..., k : k + 1], dim=-2)
-            P = torch.cat([P[..., :k], C.real - C.imag, P[..., k:]], dim=-1)
+    P = cuda_fft.hartley_cols_range_plain(blk, k)
+    if rank == pl.p - 1 and pl.n1 % 2:  # odd n1: the last column is no column's mirror
+        C = torch.fft.fft(blk[..., k : k + 1], dim=-2)
+        P = torch.cat([P[..., :k], C.real - C.imag, P[..., k:]], dim=-1)
     return list(P.split(pl.n0 // pl.p, dim=1))
 
 
 def _place2(packed, pl: _Plan2, rank: int):
-    """Stage 3: the rank's rows of every block, their columns in place."""
+    """Stage 3: the rank's rows of every block (the receive buffer ``(p, B,
+    rows, 2w)``, or a list), their columns in place."""
     B, rows = packed[0].shape[:2]
     out = packed[0].new_empty((B, rows, pl.n1))
     c = pl.bounds
@@ -214,7 +231,10 @@ def pencil_stages(full_shape, p: int, dtype):
     rows ``x`` (a leading batch axis, then the field's) gives the chunk for
     each rank; ``cols(chunks, rank)`` of the chunks a rank received (in
     the senders' order) gives the chunk for each rank; ``place(chunks,
-    rank)`` of those received gives the rank's rows of the transform."""
+    rank)`` of those received gives the rank's rows of the transform.
+    Where the 2-D columns split evenly the chunks are one packed buffer,
+    chunk ``s`` along its leading axis (stages 2 and 3 take the exchange's
+    buffer, or a list of chunks)."""
     pl = _plan(full_shape, p, dtype)
     if isinstance(pl, _Plan2):
         return (lambda x: _rows2(x, pl)), (lambda b, r: _cols2(b, pl, r)), (lambda b, r: _place2(b, pl, r))
@@ -235,6 +255,9 @@ def _pencil_hartley(x, ax: MeshAxis, nd: int):
     rows, cols, place = pencil_stages(full, ax.size, x.dtype)
     xb = x.reshape((-1,) + field)
     sent = rows(xb)
+    if torch.is_tensor(sent):  # the buffers' layout: one packed buffer each way
+        back = exchange(cols(exchange(sent, ax.group), ax.rank), ax.group)
+        return place(back, ax.rank).reshape(batch + field)
     # every sender holds as many rows, so this rank receives its own chunk's shape p times
     got = all_to_all(sent, [tuple(sent[ax.rank].shape)] * ax.size, ax.group)
     packed = cols(got, ax.rank)
@@ -251,7 +274,7 @@ def _back_shapes(packed, ax, full, dtype, B):
         widths = []
         for s in range(ax.size):
             k = pl.bounds[s + 1] - pl.bounds[s]
-            widths.append(2 * k + int(not pl.kernels and s == ax.size - 1 and pl.n1 % 2))
+            widths.append(2 * k + int(s == ax.size - 1 and pl.n1 % 2))
         return [(B, rows, wd) for wd in widths]
     return [tuple(packed[0].shape)] * ax.size
 

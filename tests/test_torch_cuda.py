@@ -858,6 +858,81 @@ def test_column_range_kernel_matches_plain(cuda_device, shape, p):
     assert native.launches["hartley_cols_range"] >= 2 * p
 
 
+def _exchange_buffer(G, p, r, w):
+    """Rank r's receive buffer of the pencil Hartley's first exchange: from
+    each of the p senders its rows of the half spectra ``G`` (``(B, n0,
+    h)``), columns r w .. r w + w + 7, sender-major ``(p, B, n0/p, w + 8)``."""
+    rows = G.shape[-2] // p
+    pitch = G.stride(-2)
+    Gp = torch.as_strided(G, tuple(G.shape[:-1]) + (pitch,), G.stride(), G.storage_offset())
+    return torch.stack([Gp[:, s * rows:(s + 1) * rows, r * w:r * w + w + 8] for s in range(p)])
+
+
+@pytest.mark.parametrize("B", [1, 2, 3])
+@pytest.mark.parametrize("shape", [(1280, 1280), (4096, 4096), (12288, 256)])
+@pytest.mark.parametrize("p", [2, 4, 8])
+def test_column_range_kernel_on_the_exchange_layout(cuda_device, shape, p, B):
+    """K4r reading each rank's block where the receive buffer holds it,
+    sender-major ``(p, B, n0/p, w + 8)``, and writing the return exchange's
+    send buffer ``(p, B, n0/p, 2w)``: within 1e-5 of its plain version on
+    the same layout, and the same bits as K4r on the joined block (the
+    same launch shape, so the same arithmetic), rows cut destination-major."""
+    n0, n1 = shape
+    w, rows = n1 // (2 * p), n0 // p
+    G = cfft.hartley_rows(torch.randn((B, n0, n1), device=cuda_device))
+    native.reset_launches()
+    for r in range(p):
+        buf = _exchange_buffer(G, p, r, w)
+        P = cfft.hartley_cols_range(buf, w, n1=n1)
+        Pp = cfft.hartley_cols_range_plain(buf, w)
+        assert P.shape == Pp.shape == (p, B, rows, 2 * w) and _rel(P, Pp) <= 1e-5
+        joined = cfft.hartley_cols_range(G, w, r * w)  # (B, n0, 2w)
+        assert torch.equal(P, joined.reshape(B, p, rows, 2 * w).movedim(1, 0))
+    assert native.launches["hartley_cols_range"] == 2 * p
+    assert native.batched_launches["hartley_cols_range"] == (2 * p if B > 1 else 0)
+
+
+@pytest.mark.parametrize("p", [1, 2])
+def test_pencil_stages_on_card(cuda_device, p):
+    """The 2-D pencil stages with K3 + K4r on the card composed over p
+    virtual ranks against ``hartley2d``, at B = 1 and 2; one rank hands
+    stage 1's buffer to stage 2 as it is (an exchange with itself: the
+    buffer is a view of K3's padded rows)."""
+    from nifty_tpu_torch.parallel.fft import pencil_stages
+
+    n = 1024
+    rows, cols, place = pencil_stages((n, n), p, torch.float32)
+    b = n // p
+    for B in (1, 2):
+        x = torch.randn((B, n, n), device=cuda_device)
+        sent = [rows(x[:, r * b:(r + 1) * b]) for r in range(p)]
+        recv = [sent[0] if p == 1 else torch.stack([sent[r][s] for r in range(p)]) for s in range(p)]
+        packed = [cols(recv[s], s) for s in range(p)]
+        got = torch.cat([place(torch.stack([packed[s][r] for s in range(p)]), r) for r in range(p)], dim=1)
+        assert _rel(got, cfft.hartley2d(x)) <= 1e-5
+
+
+@pytest.mark.parametrize("case", [(4096, 2), (4096, 8), (1280, 4), (10240, 4)])
+def test_column_range_launch_shapes(cuda_device, case):
+    """Every K4r launch shape that fits (clusters of 2, 4, 8 and 16 blocks,
+    8 to 64 threads a column) on the exchange's layout against the plain
+    version; ``range_launch`` picks one of them."""
+    n, p = case
+    w, rows = n // (2 * p), n // p
+    buf = torch.randn((p, 1, rows, w + 8), dtype=torch.complex64, device=cuda_device)
+    ref = cfft.hartley_cols_range_plain(buf, w)
+    H = torch.empty_like(ref)
+    shapes = [(T, parts) for parts in cfft.CLUSTERS for T in (8, 16, 32, 64)
+              if cfft._cluster_fits(n, parts, T)]
+    assert max(parts for _, parts in shapes) >= 8
+    for T, parts in shapes:
+        H.fill_(float("nan"))
+        cfft._launch_cols(buf, H, T, 8, parts, n1=n, n_cols=w)
+        assert _rel(H, ref) <= 1e-5, (T, parts)
+    T, tc, parts = cfft.range_launch(n, w)
+    assert tc == 8 and cfft._cluster_fits(n, parts, T)
+
+
 def test_reduce_scatter_vmap_rule_on_one_rank(cuda_device, tmp_path):
     """The reduce-scatter Function on a one-rank NCCL group: under
     ``torch.func.vmap`` a batch is one collective along the mapped axis's
@@ -884,7 +959,9 @@ def test_reduce_scatter_vmap_rule_on_one_rank(cuda_device, tmp_path):
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("start, n", [(0, 1 << 20), (3, 100003), (4096 * 1024, 4096 * 256)])
+@pytest.mark.parametrize("start, n", [(0, 1 << 20), (3, 100003), (4096 * 1024, 4096 * 256),
+                                      (1, 2049), (4099, 12345), (2 * 256 * 4 - 2, 2 * 256 * 4 + 5),
+                                      (2**34 - 6, 20), (2**34 + 3, 100003), (2**40 + 8, 1 << 18)])
 def test_philox_normal_matches_plain(cuda_device, start, n):
     """K7 against its plain version on the card: the Philox words the same
     bits, the f32 normals within 1e-6 of the maximum (the kernel's f32
@@ -903,3 +980,23 @@ def test_philox_normal_matches_plain(cuda_device, start, n):
         longer = cn.philox_normal(2**50 + 9, 4, start - start % 4, n + 8, dt, cuda_device)
         assert torch.equal(longer[start % 4:start % 4 + n], z)
     assert native.launches["philox_normal"] == 4
+
+
+def test_philox_ranges_are_the_whole_draw_on_card(cuda_device):
+    """K7: every rank's rows of a 4096 x 64 leaf over 2, 4 and 8 ranks, an
+    unaligned range at 4099 and ranges into an output off a 16-byte
+    boundary's group (the unaligned instantiation) are the whole draw's
+    entries, bit for bit, in f32 and f64."""
+    from nifty_tpu_torch.ops import cuda_normal as cn
+
+    key, leaf, m = 2**61 + 12345, 3, 64
+    for dt in (torch.float32, torch.float64):
+        whole = cn.philox_normal(key, leaf, 0, 4096 * m, dt, cuda_device)
+        for p in (2, 4, 8):
+            b = 4096 // p
+            for r in range(p):
+                got = cn.philox_normal(key, leaf, r * b * m, b * m, dt, cuda_device)
+                assert torch.equal(got, whole[r * b * m:(r + 1) * b * m])
+        for start, n in ((4099, 12345), (1, 7), (2, 1026), (4093, 4 * 256 * 2 + 11)):
+            assert torch.equal(cn.philox_normal(key, leaf, start, n, dt, cuda_device),
+                               whole[start:start + n])

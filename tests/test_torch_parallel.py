@@ -176,6 +176,33 @@ def test_pencil_stages_odd_columns_match_jax_hartley(p):
     _close(got[0].numpy(), want)
 
 
+BUFFER_CASES = {"f64": ((32, 64), torch.float64, 1), "f32_kernels": ((256, 512), torch.float32, 8)}
+
+
+@pytest.mark.parametrize("case", sorted(BUFFER_CASES))
+@pytest.mark.parametrize("p", [1, 2, 4, 8])
+def test_pencil_buffers_compose_to_the_hartley(p, case):
+    """The 2-D stages on the exchanges' packed buffers over p virtual ranks
+    (the exchange a transpose of the ranks' buffers): stage 1 gives ``(p, B,
+    rows, w + pad)`` (pad 8 for K3 + K4r's layout, 1 otherwise), stage 2
+    takes that receive buffer and gives ``(p, B, rows, 2w)``, and stage 3
+    places it; composed, ``hartley_cols_plain`` of the rows' ``rfft`` (f64)."""
+    shape, dt, pad = BUFFER_CASES[case]
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal((2,) + shape)).to(dt)
+    rows, cols, place = pencil_stages(shape, p, dt)
+    b, w = shape[0] // p, shape[1] // (2 * p)
+    sent = [rows(x[:, r * b:(r + 1) * b]) for r in range(p)]
+    assert all(torch.is_tensor(t) and t.shape == (p, 2, b, w + pad) for t in sent)
+    recv = [torch.stack([sent[r][s] for r in range(p)]) for s in range(p)]
+    packed = [cols(recv[s], s) for s in range(p)]
+    assert all(t.shape == (p, 2, b, 2 * w) and t.is_contiguous() for t in packed)
+    back = [torch.stack([packed[s][r] for s in range(p)]) for r in range(p)]
+    got = torch.cat([place(back[r], r) for r in range(p)], dim=1).double()
+    want = cuda_fft.hartley_cols_plain(torch.fft.rfft(x.double(), dim=-1), shape[1])
+    tol = TOL if dt == torch.float64 else 1e-5
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
 @pytest.mark.parametrize("full, rows", [((16, 12), (0, 4)), ((16, 12), (8, 8)), ((16, 12), (6, 5)),
                                         ((9, 8, 6), (3, 3)), ((9, 8, 6), (6, 3))])
 def test_mirror_unfold_rows_is_a_slice(full, rows):
@@ -359,6 +386,17 @@ T = lambda a: torch.from_numpy(np.asarray(a))
 
 x = fx.shard(T(inp["x"]))
 out["fft2"] = parallel.sharded_fft2(x, mesh).numpy()
+for name in cfg["buffers"]:  # the packed exchanges' layout, K3 + K4r's plain versions for f32
+    out["buffers_" + name] = parallel.sharded_hartley2(fx.shard(T(inp["xb_" + name])), mesh).numpy()
+from nifty_tpu_torch.parallel import collectives
+fxg = mesh.get_group("fx")
+chunks = torch.arange(nproc * 12, dtype=f64).reshape(nproc, 3, 4) + 1000 * rank
+out["exchange"] = collectives.exchange(chunks, fxg).numpy()
+out["exchange_ref"] = torch.stack(collectives.all_to_all(list(chunks), [(3, 4)] * nproc, fxg)).numpy()
+out["exchange_complex"] = collectives.exchange(torch.complex(chunks, -chunks), fxg).numpy()
+sizes = [s + 1 for s in range(nproc)]  # rank s sends s + 1 entries to each; receives r + 1 from each
+flat = torch.cat([torch.full((rank + 1,), 100.0 * rank + s, dtype=f64) for s in range(nproc)])
+out["exchange_splits"] = collectives.exchange(flat, fxg, [rank + 1] * nproc, sizes).numpy()
 h = parallel.sharded_hartley2(x, mesh)
 out["hartley2"] = h.numpy()
 out["hartley_twice"] = parallel.sharded_hartley2(h, mesh).numpy()
@@ -482,6 +520,9 @@ def _inputs():
     inp["data"] = truth + 0.2 * rng.standard_normal(SHAPE)
     start = _draw(cf.domain, rng, 0.1)
     inp.update({f"start/{k}": v for k, v in start.items()})
+    rb = np.random.default_rng(12)
+    for name, (shape, dt, _) in sorted(BUFFER_CASES.items()):
+        inp["xb_" + name] = rb.standard_normal(shape).astype(np.float32 if dt == torch.float32 else np.float64)
     lhj = nj.Gaussian(jnp.asarray(inp["data"]), noise_std_inv=lambda x: 5.0 * x).amend(cf)
     _, sk = random.split(random.PRNGKey(42), 2)
     for i, k in enumerate(random.split(sk, 2)):  # the keys of the iteration's draws
@@ -500,6 +541,9 @@ def _wants(inp, cf, lhj, start):
     x = inp["x"]
     want = {"fft2": np.fft.fft2(x), "hartley2": np.asarray(jax_hartley(jnp.asarray(x))),
             "hartley_twice": x * x.size}
+    for name in BUFFER_CASES:
+        xb = jnp.asarray(inp["xb_" + name], jnp.float64)
+        want["buffers_" + name] = np.asarray(jax_sharded_hartley2(xb, _jax_mesh()))
     for name, shape, K in FIELDS:
         want["cf_" + name] = np.asarray(_jax_field(shape, K)(tree(f"pos_{name}/")))
     lh = nj.Poissonian(jnp.asarray(inp["counts"])).amend(nj.ChainModel(jnp.exp, cf))
@@ -533,6 +577,7 @@ def _start(d, nproc, inp):
     d = str(d)
     np.savez(os.path.join(d, "inputs.npz"), **inp)
     cfg = dict(fields=[[n, list(s), K] for n, s, K in FIELDS], shape=list(SHAPE), cg=CG, kl=KL,
+               buffers=sorted(BUFFER_CASES),
                short_cg=SHORT_CG, short_kl=SHORT_KL, devices_samples=nproc)
     with open(os.path.join(d, "config.json"), "w") as f:
         json.dump(cfg, f)
@@ -584,6 +629,36 @@ def test_sharded_transforms_match_local(launches, nproc, check):
     (outs, _), want = launches[0][nproc], launches[1]
     for r, out in enumerate(outs):
         _close(out[check], _rows(want[check], r, nproc))
+
+
+@RANKS
+@pytest.mark.parametrize("name", sorted(BUFFER_CASES))
+def test_sharded_hartley_buffers_match_jax(launches, nproc, name):
+    """``sharded_hartley2`` through the packed exchanges (stage 2 reading
+    the receive buffer in place and writing the send buffer) on 2 and 4
+    gloo ranks: each rank's rows of the JAX package's sharded Hartley on its
+    8-device mesh (float64; a float32 field in K3 + K4r's domain, their
+    plain versions, within 1e-5 of the maximum)."""
+    (outs, _), want = launches[0][nproc], launches[1]
+    tol = TOL if BUFFER_CASES[name][1] == torch.float64 else 1e-5
+    scale = np.abs(want["buffers_" + name]).max()
+    for r, out in enumerate(outs):
+        _close(out["buffers_" + name] / scale, _rows(want["buffers_" + name], r, nproc) / scale, atol=tol)
+
+
+@RANKS
+def test_exchange_matches_all_to_all(launches, nproc):
+    """``collectives.exchange`` of one packed buffer, chunk s for rank s:
+    what ``all_to_all`` of the chunks gives, complex as real views, and
+    with split sizes (rank s sends s + 1 entries to each rank)."""
+    outs = launches[0][nproc][0]
+    for r, out in enumerate(outs):
+        np.testing.assert_array_equal(out["exchange"], out["exchange_ref"])
+        want = np.stack([np.arange(nproc * 12.0).reshape(nproc, 3, 4)[r] + 1000 * s for s in range(nproc)])
+        np.testing.assert_array_equal(out["exchange"], want)
+        np.testing.assert_array_equal(out["exchange_complex"], want - 1j * want)
+        np.testing.assert_array_equal(out["exchange_splits"],
+                                      np.concatenate([np.full(s + 1, 100.0 * s + r) for s in range(nproc)]))
 
 
 @RANKS

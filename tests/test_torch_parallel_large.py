@@ -172,6 +172,59 @@ def test_philox_normals_moments_and_ks():
         assert abs(np.corrcoef(z, other.numpy())[0, 1]) < 5 * se
 
 
+def _k7_f32_model(a, b):
+    """A numpy model of K7's float32 Box-Muller (``csrc/normal.cu`` notes 2
+    and 3) of the word pairs ``(a, b)`` (uint32 arrays): every f32 operation
+    rounded as the kernel rounds it (an FMA as one rounding of the exact
+    result), MUFU's reciprocal square root as the correctly rounded one."""
+    f32, f64 = np.float32, np.float64
+    fma = lambda x, y, z: (np.asarray(x, f64) * np.asarray(y, f64) + np.asarray(z, f64)).astype(f32)  # noqa: E731
+    upper = a >= 0x80000000
+    u = fma(a.astype(f32), 2.0**-32, 2.0**-33)
+    v = fma((~a).astype(f32), 2.0**-32, 2.0**-33)
+    y = np.where(upper, f32(1) - v, u)
+    e = (y.view(np.int32) - np.int32(0x3F2AAAAB)) & np.int32(-(1 << 23))
+    m = (y.view(np.int32) - e).view(f32)
+    t = np.where(upper & (e == 0), -v, m - f32(1))
+    q = np.full_like(t, f32(0.14037691056728363))
+    for c in (-0.1542675793170929, 0.13994595408439636, -0.16408851742744446, 0.20011146366596222,
+              -0.2500821053981781, 0.33333200216293335, -0.4999993145465851):
+        q = fma(q, t, f32(c))
+    r2 = f32(-2) * fma((e >> 23).astype(f32), f32(0.693147182), fma(t * q, t, t))
+    ry = (1.0 / np.sqrt(r2.astype(f64))).astype(f32)
+    r0 = r2 * ry
+    r = fma(fma(-r0, r0, r2), f32(0.5) * ry, r0)
+    q = ((b.astype(np.int64) + 0x20000000) % 2**32) >> 30
+    f = (b.astype(np.int64) - (q << 30)) % 2**32
+    f = np.where(f >= 2**31, f - 2**32, f)
+    x = fma(f.astype(f32), f32(float.fromhex("0x1.921fb6p-30")), f32(float.fromhex("0x1.921fb6p-31")))
+    z = x * x
+    sn = fma(z * fma(fma(f32(-1.9515295891e-4), z, f32(8.3321608736e-3)), z, f32(-1.6666654611e-1)), x, x)
+    pc = fma(fma(f32(2.443315711809948e-5), z, f32(-1.388731625493765e-3)), z, f32(4.166664568298827e-2))
+    cs = fma(pc * z, z, fma(f32(-0.5), z, f32(1)))
+    S, C = np.where(q & 1, cs, sn), np.where(q & 1, sn, cs)
+    return r * np.where((q + 1) & 2, -C, C), r * np.where(q & 2, -S, S)
+
+
+def test_philox_f32_arithmetic_model_holds_the_tolerance():
+    """K7's float32 design, modelled in numpy on 2^20 draws and on the words'
+    extremes (u at 2^-33, either side of 1/2 and at 1 - 2^-33; angles on the
+    quarter turns): within 1e-6 of the maximum of the plain float64
+    Box-Muller, the card's gate, with room (the design's error is ~2e-7)."""
+    n = 1 << 20
+    w = philox_words_plain(2**50 + 9, 4, 0, n).numpy().astype(np.uint32).reshape(-1, 4)
+    z = np.stack(_k7_f32_model(w[:, 0], w[:, 1]) + _k7_f32_model(w[:, 2], w[:, 3]), -1).reshape(-1)
+    ref = philox_normal(2**50 + 9, 4, 0, n, torch.float64).numpy()
+    assert np.abs(z - ref).max() <= 3e-7 * np.abs(ref).max()
+    a = np.array([0, 1, 2**31 - 1, 2**31, 2**32 - 2**20, 2**32 - 2, 2**32 - 1], np.uint32)
+    b = np.array([0, 2**29 - 1, 2**29, 2**30, 3 * 2**30, 2**32 - 2**29, 2**32 - 1], np.uint32)
+    ua, ub = (a + 0.5) * 2.0**-32, (b + 0.5) * 2.0**-32
+    r = np.sqrt(-2.0 * np.log(ua))
+    z0, z1 = _k7_f32_model(a, b)
+    assert np.abs(z0 - r * np.cos(2 * np.pi * ub)).max() <= 1e-6 * r.max()
+    assert np.abs(z1 - r * np.sin(2 * np.pi * ub)).max() <= 1e-6 * r.max()
+
+
 def test_white_noise_complex_leaves_and_replay():
     """A complex data leaf: real and imaginary parts of variance ½ each; the
     same key replays the same draws, another key others."""
