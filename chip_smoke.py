@@ -198,10 +198,12 @@ JAX.  Phases, each printing one JSON line to stdout:
    ``hartley2d`` (1e-6 of max|H|), K4r on every rank's receive buffer
    against its plain version (also at 10240² over 4 ranks and at 4096²
    with B = 2, the draws' batch), K1r against K1's rows (bit-exact) and the
-   K2r parts summed against K2 in float64 (1e-6); times of rank 0's block
-   as in phase 3, stage 2's device time from the receive buffer to the
-   send buffer beside the same kernel with the former join and cut copies
-   around it, the library
+   K2r parts, each the same bits twice, summed against K2 in float64
+   (1e-6), at B = 1 and 2; times of rank 0's block as in phase 3 (K1r and
+   K2r also rank p/2's, whose rows mirror rank 0's, at B = 1 and 2, beside
+   the least bytes the range needs), stage 2's device time from the receive
+   buffer to the send buffer beside the same kernel with the former join
+   and cut copies around it, the library
    yardsticks ``rfft`` of the rows, ``fft(dim=0)`` of the column block,
    ``index_select`` / ``index_add_`` over the rows' full-grid index; (b) a
    one-rank NCCL group: ``sharded_hartley2`` at 4096² through a real
@@ -578,7 +580,7 @@ def parallel_phase(dev, read_launches, timing, built=None, tomo=None, nuts=None)
 
     import nifty_tpu_torch as nt
     from nifty_tpu_torch import native, parallel
-    from nifty_tpu_torch.bench.timing import device_ms, fft_flops
+    from nifty_tpu_torch.bench.timing import bound, device_ms, fft_flops
     from nifty_tpu_torch import io
     from nifty_tpu_torch.bench.workload import (build_likelihood, build_vi_likelihood, grid_index,
                                                 sharded_tomography, short_vi_settings, vi_settings)
@@ -677,47 +679,59 @@ def parallel_phase(dev, read_launches, timing, built=None, tomo=None, nuts=None)
                                   ranks=p, **k4r)
             del recv
 
-        # 17a. K1r and K2r on the exact field's index
+        # 17a. K1r and K2r on the exact field's index, at B = 1 and 2 (the draws' batch):
+        # every rank's rows checked, rank 0's and rank p/2's (their mirror images) timed
         index = grid_index(full)
         index_d = copy.deepcopy(index).to(dev)
         U, Pk = index.n_unique, index.n_packed
-        tab = torch.randn(U, generator=g, device=dev)
-        cot = torch.randn(full, generator=g, device=dev)
-        k1 = ce.expand_to_grid(tab, index_d, full)
-        k2_ref = ce.collapse_from_grid_plain(cot.double().cpu(), index, full)
         full_idx = ce.expand_to_grid_plain(
             torch.arange(U, dtype=torch.float64), index, full).reshape(-1).to(dev, torch.int32)
-        for p in PARALLEL["ranks"]:
-            b = n // p
-            parts, k2_abs = 0, 0.0
-            for r in range(p):
-                rows = (r * b, b)
-                if not torch.equal(ce.expand_to_grid_rows(tab, index_d, full, rows), k1[r * b:(r + 1) * b]):
-                    fail(f"parallel: K1r differs from K1's rows {rows} at p={p}")
-                cot_r = cot[r * b:(r + 1) * b]
-                part = ce.collapse_from_grid_rows(cot_r, index_d, full, rows).double().cpu()
-                ref_r = ce.collapse_from_grid_rows_plain(cot_r.double().cpu(), index, full, rows)
-                k2_abs = max(k2_abs, float((part - ref_r).abs().max()))
-                parts = parts + part
-            k2_err = rel_max(parts, k2_ref)
-            if not k2_err <= TOL["k2"]:
-                fail(f"parallel: the K2r parts sum {k2_err} > {TOL['k2']} off K2 at p={p}")
-            rows, cot0, idx0 = (0, b), cot[:b], full_idx[: b * n]
-            n_bytes = 4 * U + 4 * Pk + 4 * b * n
-            k1r = timing(device_ms(lambda: ce.expand_to_grid_rows(tab, index_d, full, rows)),
-                         device_ms(lambda: ce.expand_to_grid_rows_plain(tab, index_d, full, rows)),
-                         n_bytes, library_ms=device_ms(lambda: tab.index_select(0, idx0)))
-            k2r = timing(device_ms(lambda: ce.collapse_from_grid_rows(cot0, index_d, full, rows)),
-                         device_ms(lambda: ce.collapse_from_grid_rows_plain(cot0, index_d, full, rows)),
-                         n_bytes, library_ms=device_ms(
-                             lambda: tab.new_zeros(U).index_add_(0, idx0, cot0.reshape(-1))))
-            emit({"phase": "kernels", "kernel": "K1r+K2r", "shape": [n, n], "ranks": p, "rows": b,
-                  "k1r_exact": True, "k2r_parts_rel_err": k2_err,
-                  **{f"k1r_{k}": v for k, v in k1r.items()}, **{f"k2r_{k}": v for k, v in k2r.items()}})
-            summary["K1r"] = dict(max_abs_err=0.0, ranks=p, **k1r)
-            summary["K2r"] = dict(max_abs_err=max(k2_abs, summary.get("K2r", {}).get("max_abs_err", 0.0)),
-                                  ranks=p, **k2r)
-        del index_d, tab, cot, k1, full_idx
+        for B in (1, 2):
+            batch = () if B == 1 else (B,)
+            tab = torch.randn((U,) + batch, generator=g, device=dev)
+            cot = torch.randn(full + batch, generator=g, device=dev)
+            k1 = ce.expand_to_grid(tab, index_d, full)
+            k2_ref = ce.collapse_from_grid_plain(cot.double().cpu(), index, full)
+            for p in PARALLEL["ranks"]:
+                b = n // p
+                parts, k2_abs = 0, 0.0
+                for r in range(p):
+                    rows = (r * b, b)
+                    if not torch.equal(ce.expand_to_grid_rows(tab, index_d, full, rows), k1[r * b:(r + 1) * b]):
+                        fail(f"parallel: K1r differs from K1's rows {rows} at p={p}, B={B}")
+                    cot_r = cot[r * b:(r + 1) * b]
+                    part = ce.collapse_from_grid_rows(cot_r, index_d, full, rows)
+                    if not torch.equal(part, ce.collapse_from_grid_rows(cot_r, index_d, full, rows)):
+                        fail(f"parallel: K2r on rows {rows} at p={p}, B={B} differs from itself")
+                    ref_r = ce.collapse_from_grid_rows_plain(cot_r.double(), index_d, full, rows)
+                    k2_abs = max(k2_abs, float((part.double() - ref_r).abs().max()))
+                    parts = parts + part.double().cpu()
+                k2_err = rel_max(parts, k2_ref)
+                if not k2_err <= TOL["k2"]:
+                    fail(f"parallel: the K2r parts sum {k2_err} > {TOL['k2']} off K2 at p={p}, B={B}")
+                for r in (0, p // 2):
+                    rows, cot_r, idx_r = (r * b, b), cot[r * b:(r + 1) * b], full_idx[r * b * n:(r + 1) * b * n]
+                    n_bytes = 4 * U * B + 4 * Pk + 4 * b * n * B
+                    needed = int(ce.needed_packed(index_d, full, rows).sum())
+                    k1r = timing(device_ms(lambda: ce.expand_to_grid_rows(tab, index_d, full, rows)),
+                                 device_ms(lambda: ce.expand_to_grid_rows_plain(tab, index_d, full, rows)),
+                                 n_bytes, library_ms=device_ms(lambda: tab.index_select(0, idx_r)))
+                    k2r = timing(device_ms(lambda: ce.collapse_from_grid_rows(cot_r, index_d, full, rows)),
+                                 device_ms(lambda: ce.collapse_from_grid_rows_plain(cot_r, index_d, full, rows)),
+                                 n_bytes, library_ms=device_ms(lambda: tab.new_zeros((U,) + batch).index_add_(
+                                     0, idx_r, cot_r.reshape((-1,) + batch))))
+                    emit({"phase": "kernels", "kernel": "K1r+K2r", "shape": [n, n], "ranks": p, "rank": r,
+                          "batch": B, "rows": b, "k1r_exact": True, "k2r_same_bits": True,
+                          "k2r_parts_rel_err": k2_err, "needed_packed": needed,
+                          "needed_bound_ms": bound(4 * U * B + 4 * needed + 4 * b * n * B)[0],
+                          "range_table_bytes": index_d.row_tables(full, rows).nbytes(),
+                          **{f"k1r_{k}": v for k, v in k1r.items()}, **{f"k2r_{k}": v for k, v in k2r.items()}})
+                    if B == 1 and r == 0:
+                        summary["K1r"] = dict(max_abs_err=0.0, ranks=p, **k1r)
+                        summary["K2r"] = dict(max_abs_err=max(k2_abs, summary.get("K2r", {}).get("max_abs_err", 0.0)),
+                                              ranks=p, **k2r)
+            del tab, cot, k1
+        del index_d, full_idx
 
         return x, H, scale
 

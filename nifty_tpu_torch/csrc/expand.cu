@@ -50,8 +50,9 @@
 //    point.  Shared-memory rows are padded to 33, so the transposed reads
 //    are free of bank conflicts.
 // 3. No runtime division: blocks map to tiles and rows through blockIdx,
-//    and B % 4 == 0 (one float4 per point) or not, and K1's runs of 4
-//    points or 1, are template parameters.
+//    and B % 4 == 0 (one float4 per point), B % 2 == 0 (one float2) or
+//    neither, K1's runs of 4 points or 1, and a row range's tile map are
+//    template parameters.
 // 4. Occupancy and stores.  Unbounded, the tile kernels took 64 registers a
 //    thread, 4 blocks an SM; bounded to 6 blocks (40 registers, no spills)
 //    the K2 fold took 0.058 against 0.074 ms at 4096^2, B = 1 (8 blocks
@@ -68,7 +69,8 @@
 //    launch 2 is the segment sum over the folded packed array (8.4 MB at
 //    4096^2, in L2) through the CSR form of the index that the host builds
 //    once (the index's stable argsort and the bins' offsets): a thread per
-//    bin of <= 32 members, a warp per larger bin, each in a fixed order.
+//    bin of <= 32 members, a warp per larger bin, each in a fixed order,
+//    BC sample columns a read.
 //    (Writing the fold in CSR order instead, so that the sum reads each bin
 //    contiguous, made the sum 3x faster and the fold's scattered writes
 //    slower by more: 0.074 against 0.070 ms at 4096^2, B = 1, and 0.36
@@ -76,13 +78,35 @@
 
 // 6. Row ranges (K1r, K2r: the amplitude of a row-sharded field).  The
 //    geometry names a range [r_lo, r_lo + r_n) of the full grid's leading
-//    field axis (axis 1 of a 2-D grid, axis 0 of a 3-D one).  K1r reads the
-//    whole table and packed index (small beside the grid: 4.8 and 8.4 MB at
-//    4096^2) and writes only the images whose row lies in the range, at
-//    row - r_lo; K2r folds only those rows, an absent image counting zero,
-//    so its segment sum is this range's part of the table cotangent (the
-//    caller sums the parts over the ranks).  The full grid is the range
-//    [0, n): the same kernels, the same stores.
+//    field axis (axis 1 of a 2-D grid, axis 0 of a 3-D one); only its
+//    images are written (K1r, at row - r_lo) or read (K2r).  The core rows
+//    whose images the range holds are one interval (a row y >= c is core
+//    row n - y, and a range's two halves meet: cuda_expand.core_rows), and
+//    the host passes it as the launch rows [k_lo, k_lo + k_n): rfp2 tile
+//    rows, flat core rows.  So the work follows the rows:
+//    - K1r launches T x k_n blocks, each the tile {K, X} of its launch row
+//      K and tile row X (tile_of; those with X a launch row below K return
+//      at once), and loads and stores as K1: at 4096^2 over 8 ranks 45 %
+//      of the tiles, over 4 74 %.
+//    - K2r folds the same tiles and sums, through the range's own CSR
+//      (cuda_expand.ExpandRows: the packed points with an image in the
+//      range, in the index's CSR order, and the bins they touch; built once
+//      a range from the index's CSR, kept on the index), only those points,
+//      after one memset of the table (every other bin 0; the caller sums
+//      the parts over the ranks).  A range with an image of >= 90 % of the
+//      packed points (2 ranks) takes K2's launches with the range in the
+//      geometry instead: every tile folded, every bin summed, no memset.
+//    What bounds them is not the bytes but the L2's 32-byte sectors: a
+//    table gather (K1r) or a folded gather (K2r's sum) costs a sector of
+//    its own, and the kernels' parts follow each other at ~90-110 G sectors
+//    a second (the phase cut: K1 at 4096^2, B = 1, 0.0236 ms of loads (2.6M
+//    sectors) and 0.0237 of stores (2.1M) add up to its 0.0423; K2r's
+//    segment sum takes ~11 ns a member).  Unrolling the loads (an index
+//    staged in shared memory, the mirror sums predicated) bought up to 10 %
+//    on the full grid and lost on ranges; a fold into CSR order moved the
+//    cost from the sum to the fold (note 5).  B = 2 (the draws' batch) takes
+//    8-byte vectors (BC = 2): the scalar path wrote each grid sector twice.
+//    (bench/sharded_kernels_bench.py; PERF.md section 6.)
 
 #include <cuda_runtime.h>
 
@@ -93,12 +117,65 @@ constexpr int kTile = 32;      // rfp2 tiles: 32 x 32 core points
 constexpr int kTileRows = 8;   // rfp2 tiles: a block is 32 x 8 threads
 constexpr int kMinBlocks = 6;  // K2's rfp2 fold: 6 blocks an SM, <= 40 registers a thread
 constexpr int kMinBlocksExpand = 5;  // K1's rfp2 tiles: 5 blocks an SM, <= 48 registers
+// K1r's at B = 1: 4 blocks (60 registers; at 5 the tile map spilled 12 bytes,
+// 4-5 % slower over 2-8 ranks; at B = 2 and 4, 5 blocks stay 2-5 % faster)
+constexpr int kMinBlocksRange = 4;
 
 // full grid (n0, n1, n2), core (c0, c1, c2), m = H // 2 for rfp2 (axes 1, 2);
-// the rows [r_lo, r_lo + r_n) of axis r_ax (0 or 1) that the grid side holds
+// the rows [r_lo, r_lo + r_n) of axis r_ax (0 or 1) that the grid side holds;
+// for a range (k_n > 0; note 6) its launch rows [k_lo, k_lo + k_n) on that
+// axis: rfp2 tile rows, flat core rows
 struct Geom {
-  int n0, n1, n2, c0, c1, c2, m, r_ax, r_lo, r_n;
+  int n0, n1, n2, c0, c1, c2, m, r_ax, r_lo, r_n, k_lo, k_n;
 };
+
+// The rfp2 tile (I, J), I <= J, of this block, or false for none.  The full
+// grid: (J, I) = (blockIdx.x, blockIdx.y), none below the diagonal.  A range:
+// blockIdx.y walks the tile rows K that meet the range's core rows,
+// blockIdx.x every tile row X; the block takes the tile {K, X} ordered, none
+// when X is a tile row of the range below K (launch row X takes it).
+template <bool kRange>
+__device__ __forceinline__ bool tile_of(const Geom& g, int& I, int& J) {
+  if constexpr (kRange) {
+    const int K = g.k_lo + blockIdx.y, X = blockIdx.x;
+    if (X < K && X >= g.k_lo) return false;
+    I = min(K, X);
+    J = max(K, X);
+  } else {
+    I = blockIdx.y;
+    J = blockIdx.x;
+  }
+  return I <= J;
+}
+
+// BC consecutive floats: read through the read-only cache, or written
+// (plainly, or streaming: evict first), as one vector when BC is 2 or 4.
+template <int BC>
+__device__ __forceinline__ void load_vec(const float* __restrict__ p, float* v) {
+  if constexpr (BC == 4) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else if constexpr (BC == 2) {
+    const float2 q = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = q.x; v[1] = q.y;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+template <int BC>
+__device__ __forceinline__ void store_vec(float* __restrict__ p, const float* v) {
+  if constexpr (BC == 4) *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else if constexpr (BC == 2) *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  else p[0] = v[0];
+}
+
+template <int BC>
+__device__ __forceinline__ void store_vec_cs(float* __restrict__ p, const float* v) {
+  if constexpr (BC == 4) __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  else if constexpr (BC == 2) __stcs(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+  else __stcs(p, v[0]);
+}
 
 // Row x of axis `ax` as a row of the range (its index less r_lo), or -1
 // when the range does not hold it.
@@ -136,9 +213,7 @@ __device__ __forceinline__ void store_point(float* __restrict__ out, const Geom&
                                             int i2, int B, int b0, const float* v) {
   // (i0, i1) are rows of the range; axis 1 holds r_n rows when it is the range's
   const int e1 = g.r_ax == 1 ? g.r_n : g.n1;
-  float* dst = out + (((long long)i0 * e1 + i1) * g.n2 + i2) * B + b0;
-  if constexpr (BC == 4) __stcs(reinterpret_cast<float4*>(dst), make_float4(v[0], v[1], v[2], v[3]));
-  else __stcs(dst, v[0]);
+  store_vec_cs<BC>(out + (((long long)i0 * e1 + i1) * g.n2 + i2) * B + b0, v);
 }
 
 // Stores points k in [lo, hi) of the run of V grid points that starts at
@@ -163,13 +238,7 @@ __device__ __forceinline__ void store_run(float* __restrict__ out, const Geom& g
 template <int BC>
 __device__ __forceinline__ void load_row(const float* __restrict__ tab, int p, int B, int b0,
                                          float* v) {
-  const float* src = tab + (long long)p * B + b0;
-  if constexpr (BC == 4) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(src));
-    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-  } else {
-    v[0] = __ldg(src);
-  }
+  load_vec<BC>(tab + (long long)p * B + b0, v);
 }
 
 constexpr int kEdge = kTile + 1;  // K1's shared tile: one row and one column more
@@ -220,13 +289,15 @@ __device__ __forceinline__ void expand_row(float* __restrict__ out, const Geom& 
 // block then writes the <= 4 mirror images of tile (I, J) and, for I < J,
 // of its transpose (J, I): each thread V consecutive points of one grid row
 // (V = 4 at B = 1 when n2 % 4 == 0: 16-byte stores, a warp four aligned
-// 128-byte rows; else V = 1, a warp one row).
-template <int BC, int V>
-__global__ void __launch_bounds__(kTile * kTileRows, kMinBlocksExpand)
+// 128-byte rows; else V = 1, a warp one row).  kRange: only the tiles that
+// meet a range's core rows (tile_of).
+template <int BC, int V, bool kRange>
+__global__ void __launch_bounds__(kTile * kTileRows,
+                                  kRange && V == 4 ? kMinBlocksRange : kMinBlocksExpand)
 expand_rfp2_kernel(const float* __restrict__ tab, const int* __restrict__ idx,
                    float* __restrict__ out, Geom g, int B) {
-  const int I = blockIdx.y, J = blockIdx.x;
-  if (I > J) return;
+  int I, J;
+  if (!tile_of<kRange>(g, I, J)) return;
   constexpr int kBlock = kTile * kTileRows, kRuns = kTile / V;
   __shared__ float S[BC][kEdge][kEdge];
   const int H = g.c2, m = g.m;
@@ -264,13 +335,26 @@ expand_rfp2_kernel(const float* __restrict__ tab, const int* __restrict__ idx,
   }
 }
 
+// The core rows (x0, x1) of a flat kernel's block; kRange: the range's
+// axis walks its launch rows only.
+template <bool kRange>
+__device__ __forceinline__ void flat_rows(const Geom& g, int& x0, int& x1) {
+  x0 = blockIdx.z;
+  x1 = blockIdx.y;
+  if constexpr (kRange) {
+    if (g.r_ax == 0) x0 += g.k_lo;
+    else x1 += g.k_lo;
+  }
+}
+
 // K1 for a flat layout: a thread per core point (x0, x1, x2), its index
 // read coalesced along x2, its value written to its <= 8 mirror images.
-template <int BC>
+template <int BC, bool kRange>
 __global__ void __launch_bounds__(kThreads)
 expand_flat_kernel(const float* __restrict__ tab, const int* __restrict__ idx,
                    float* __restrict__ out, Geom g, int B) {
-  const int x0 = blockIdx.z, x1 = blockIdx.y;
+  int x0, x1;
+  flat_rows<kRange>(g, x0, x1);
   const int x2 = blockIdx.x * kThreads + threadIdx.x;
   if (x2 >= g.c2) return;
   int s[2], r[2], c[2];
@@ -298,24 +382,21 @@ __device__ __forceinline__ void mirror_sum(const float* __restrict__ cot, const 
   for (int k = 0; k < BC; ++k) acc[k] = 0.f;
   for (int u = 0; u < nr; ++u)
     for (int v = 0; v < nc; ++v) {
-      const float* p = cot + ((long long)r[u] * g.n2 + c[v]) * B + b0;
-      if constexpr (BC == 4) {
-        const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-        acc[0] += q.x; acc[1] += q.y; acc[2] += q.z; acc[3] += q.w;
-      } else {
-        acc[0] += __ldg(p);
-      }
+      float q[BC];
+      load_vec<BC>(cot + ((long long)r[u] * g.n2 + c[v]) * B + b0, q);
+#pragma unroll
+      for (int k = 0; k < BC; ++k) acc[k] += q[k];
     }
 }
 
-// K2, launch 1 for rfp2: tile (I, J) = (blockIdx.y, blockIdx.x), I <= J, of
-// the (H, H) core; BC sample columns at a time (4 when B % 4 == 0, else 1).
-template <int BC>
+// K2, launch 1 for rfp2: tile (I, J), I <= J, of the (H, H) core (tile_of);
+// BC sample columns at a time (4 when B % 4 == 0, 2 when B % 2 == 0, else 1).
+template <int BC, bool kRange>
 __global__ void __launch_bounds__(kTile * kTileRows, kMinBlocks)
 collapse_fold_rfp2_kernel(const float* __restrict__ cot, float* __restrict__ folded, Geom g,
                           int B) {
-  const int I = blockIdx.y, J = blockIdx.x;
-  if (I > J) return;
+  int I, J;
+  if (!tile_of<kRange>(g, I, J)) return;
   __shared__ float A[BC][kTile][kTile + 1];   // A[r][c]  = C(32I + r, 32J + c)
   __shared__ float At[BC][kTile][kTile + 1];  // At[r][c] = C(32J + r, 32I + c)
   const int H = g.c2, m = g.m;
@@ -345,8 +426,7 @@ collapse_fold_rfp2_kernel(const float* __restrict__ cot, float* __restrict__ fol
         float v[BC];
 #pragma unroll
         for (int k = 0; k < BC; ++k) v[k] = A[k][r][tx] + (a < b ? At[k][tx][r] : 0.f);
-        if constexpr (BC == 4) *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-        else dst[0] = v[0];
+        store_vec<BC>(dst, v);
       }
     }
     // rows a > m: R[b - m, a - m - 1], lanes along a
@@ -357,8 +437,7 @@ collapse_fold_rfp2_kernel(const float* __restrict__ cot, float* __restrict__ fol
         float v[BC];
 #pragma unroll
         for (int k = 0; k < BC; ++k) v[k] = A[k][tx][c] + (a < b ? At[k][c][tx] : 0.f);
-        if constexpr (BC == 4) *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-        else dst[0] = v[0];
+        store_vec<BC>(dst, v);
       }
     }
     __syncthreads();
@@ -367,11 +446,12 @@ collapse_fold_rfp2_kernel(const float* __restrict__ cot, float* __restrict__ fol
 
 // K2, launch 1 for a flat layout: a thread per core point (x0, x1, x2) and
 // BC sample columns; its <= 8 images summed in a fixed order.
-template <int BC>
+template <int BC, bool kRange>
 __global__ void __launch_bounds__(kThreads)
 collapse_fold_flat_kernel(const float* __restrict__ cot, float* __restrict__ folded, Geom g,
                           int B) {
-  const int x0 = blockIdx.z, x1 = blockIdx.y;
+  int x0, x1;
+  flat_rows<kRange>(g, x0, x1);
   const int x2 = blockIdx.x * kThreads + threadIdx.x;
   if (x2 >= g.c2) return;
   int s[2], r[2], c[2];
@@ -386,94 +466,158 @@ collapse_fold_flat_kernel(const float* __restrict__ cot, float* __restrict__ fol
     for (int w = 0; w < ns; ++w)
       for (int u = 0; u < nr; ++u)
         for (int v = 0; v < nc; ++v) {
-          const float* p = cot + (((long long)s[w] * e1 + r[u]) * g.n2 + c[v]) * B + b0;
-          if constexpr (BC == 4) {
-            const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-            acc[0] += q.x; acc[1] += q.y; acc[2] += q.z; acc[3] += q.w;
-          } else {
-            acc[0] += __ldg(p);
-          }
+          float q[BC];
+          load_vec<BC>(cot + (((long long)s[w] * e1 + r[u]) * g.n2 + c[v]) * B + b0, q);
+#pragma unroll
+          for (int k = 0; k < BC; ++k) acc[k] += q[k];
         }
-    if constexpr (BC == 4) *reinterpret_cast<float4*>(dst + b0) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-    else dst[b0] = acc[0];
+    store_vec<BC>(dst + b0, acc);
   }
 }
 
-// K2, launch 2: one thread per bin of at most `large` members, summed in
-// CSR order (the host's stable sort of the index)
-__global__ void segsum_small_kernel(const float* __restrict__ folded,
-                                    const int* __restrict__ perm,
-                                    const int* __restrict__ offsets, int n_bins, int large,
-                                    float* __restrict__ out, int B) {
-  const int u = blockIdx.x * blockDim.x + threadIdx.x;
-  if (u >= n_bins) return;
-  const int lo = __ldg(offsets + u), hi = __ldg(offsets + u + 1);
+// K2, launch 2: one thread per bin of a CSR of at most `large` members, BC
+// sample columns at a time, the bin's members summed in CSR order.  Bin s
+// of the CSR is table row bins[s] (K2r: the bins a range touches), or s
+// when bins is null (K2: the whole index's CSR, every bin).
+template <int BC>
+__global__ void segsum_small_kernel(const float* __restrict__ folded, const int* __restrict__ perm,
+                                    const int* __restrict__ offsets, const int* __restrict__ bins,
+                                    int n_bins, int large, float* __restrict__ out, int B) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= n_bins) return;
+  const int lo = __ldg(offsets + s), hi = __ldg(offsets + s + 1);
   if (hi - lo > large) return;
-  for (int b = 0; b < B; ++b) {
-    float acc = 0.f;
-    for (int k = lo; k < hi; ++k) acc += __ldg(folded + (long long)__ldg(perm + k) * B + b);
-    out[(long long)u * B + b] = acc;
+  float* dst = out + (long long)(bins ? __ldg(bins + s) : s) * B;
+  for (int b0 = 0; b0 < B; b0 += BC) {
+    float acc[BC];
+#pragma unroll
+    for (int k = 0; k < BC; ++k) acc[k] = 0.f;
+    for (int e = lo; e < hi; ++e) {
+      float v[BC];
+      load_vec<BC>(folded + (long long)__ldg(perm + e) * B + b0, v);
+#pragma unroll
+      for (int k = 0; k < BC; ++k) acc[k] += v[k];
+    }
+    store_vec<BC>(dst + b0, acc);
   }
 }
 
-// one warp per large bin: lane l sums members l, l+32, ... in order, then a
-// fixed shuffle tree joins the 32 partial sums
-__global__ void segsum_large_kernel(const float* __restrict__ folded,
-                                    const int* __restrict__ perm,
-                                    const int* __restrict__ offsets,
-                                    const int* __restrict__ bins, int n_bins,
+// one warp per large bin of a CSR (`large_bins`: their places in it): lane
+// l sums members l, l+32, ... in order, then a fixed shuffle tree
+template <int BC>
+__global__ void segsum_large_kernel(const float* __restrict__ folded, const int* __restrict__ perm,
+                                    const int* __restrict__ offsets, const int* __restrict__ bins,
+                                    const int* __restrict__ large_bins, int n_large,
                                     float* __restrict__ out, int B) {
   const int lane = threadIdx.x & 31;
-  const int s = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  if (s >= n_bins) return;
-  const int u = __ldg(bins + s);
-  const int lo = __ldg(offsets + u), hi = __ldg(offsets + u + 1);
-  for (int b = 0; b < B; ++b) {
-    float acc = 0.f;
-    for (int k = lo + lane; k < hi; k += 32)
-      acc += __ldg(folded + (long long)__ldg(perm + k) * B + b);
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
-    if (lane == 0) out[(long long)u * B + b] = acc;
+  const int w = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (w >= n_large) return;
+  const int s = __ldg(large_bins + w);
+  const int lo = __ldg(offsets + s), hi = __ldg(offsets + s + 1);
+  float* dst = out + (long long)(bins ? __ldg(bins + s) : s) * B;
+  for (int b0 = 0; b0 < B; b0 += BC) {
+    float acc[BC], v[BC];
+#pragma unroll
+    for (int k = 0; k < BC; ++k) acc[k] = 0.f;
+    for (int e = lo + lane; e < hi; e += 32) {
+      load_vec<BC>(folded + (long long)__ldg(perm + e) * B + b0, v);
+#pragma unroll
+      for (int k = 0; k < BC; ++k) acc[k] += v[k];
+    }
+#pragma unroll
+    for (int k = 0; k < BC; ++k)
+      for (int off = 16; off > 0; off >>= 1) acc[k] += __shfl_down_sync(0xffffffffu, acc[k], off);
+    if (lane == 0) store_vec<BC>(dst + b0, acc);
   }
 }
 
 Geom geom_of(const int* g) {
-  return Geom{g[0], g[1], g[2], g[3], g[4], g[5], g[6], g[7], g[8], g[9]};
+  return Geom{g[0], g[1], g[2], g[3], g[4], g[5], g[6], g[7], g[8], g[9], g[10], g[11]};
 }
 
 int blocks_for(long long n, int per_block) { return (int)((n + per_block - 1) / per_block); }
 
+// The rfp2 tile kernels' launch: T x T blocks on the full grid, T x (the
+// range's tile rows) on a range.
+dim3 tile_grid(const Geom& g) {
+  const int T = blocks_for(g.c2, kTile);
+  return dim3(T, g.k_n > 0 ? g.k_n : T);
+}
+
+// The flat kernels' launch: a block per 128 points of a core row; on a
+// range, the range's axis over its launch rows only.
+dim3 flat_grid(const Geom& g) {
+  dim3 grid(blocks_for(g.c2, kThreads), g.c1, g.c0);
+  if (g.k_n > 0) (g.r_ax == 0 ? grid.z : grid.y) = g.k_n;
+  return grid;
+}
+
 template <int BC, int V>
 void launch_expand_rfp2(const float* tab, const int* idx, float* out, const Geom& g, int B,
                         cudaStream_t s) {
-  const int T = blocks_for(g.c2, kTile);
-  expand_rfp2_kernel<BC, V><<<dim3(T, T), dim3(kTile, kTileRows), 0, s>>>(tab, idx, out, g, B);
+  const dim3 block(kTile, kTileRows);
+  if (g.k_n > 0) expand_rfp2_kernel<BC, V, true><<<tile_grid(g), block, 0, s>>>(tab, idx, out, g, B);
+  else expand_rfp2_kernel<BC, V, false><<<tile_grid(g), block, 0, s>>>(tab, idx, out, g, B);
 }
 
 template <int BC>
 void launch_expand_flat(const float* tab, const int* idx, float* out, const Geom& g, int B,
                         cudaStream_t s) {
-  dim3 grid(blocks_for(g.c2, kThreads), g.c1, g.c0);
-  expand_flat_kernel<BC><<<grid, kThreads, 0, s>>>(tab, idx, out, g, B);
+  if (g.k_n > 0) expand_flat_kernel<BC, true><<<flat_grid(g), kThreads, 0, s>>>(tab, idx, out, g, B);
+  else expand_flat_kernel<BC, false><<<flat_grid(g), kThreads, 0, s>>>(tab, idx, out, g, B);
+}
+
+template <int BC, bool kRange>
+void launch_fold(const float* cot, float* folded, const Geom& g, int B, cudaStream_t s) {
+  if (g.m >= 0)
+    collapse_fold_rfp2_kernel<BC, kRange><<<tile_grid(g), dim3(kTile, kTileRows), 0, s>>>(
+        cot, folded, g, B);
+  else
+    collapse_fold_flat_kernel<BC, kRange><<<flat_grid(g), kThreads, 0, s>>>(cot, folded, g, B);
+}
+
+template <bool kRange>
+void launch_fold_any(const float* cot, float* folded, const Geom& g, int B, cudaStream_t s) {
+  if (B % 4 == 0) launch_fold<4, kRange>(cot, folded, g, B, s);
+  else if (B % 2 == 0) launch_fold<2, kRange>(cot, folded, g, B, s);
+  else launch_fold<1, kRange>(cot, folded, g, B, s);
 }
 
 template <int BC>
-void launch_fold(const float* cot, float* folded, const Geom& g, int B, cudaStream_t s) {
-  if (g.m >= 0) {
-    const int T = blocks_for(g.c2, kTile);
-    collapse_fold_rfp2_kernel<BC><<<dim3(T, T), dim3(kTile, kTileRows), 0, s>>>(
-        cot, folded, g, B);
-  } else {
-    dim3 grid(blocks_for(g.c2, kThreads), g.c1, g.c0);
-    collapse_fold_flat_kernel<BC><<<grid, kThreads, 0, s>>>(cot, folded, g, B);
-  }
+int launch_segsum(const float* folded, const int* perm, const int* offsets, const int* bins,
+                  int n_bins, int large, const int* large_bins, int n_large, float* out, int B,
+                  cudaStream_t s) {
+  const int threads = 256;
+  segsum_small_kernel<BC><<<blocks_for(n_bins, threads), threads, 0, s>>>(
+      folded, perm, offsets, bins, n_bins, large, out, B);
+  const int err = (int)cudaGetLastError();
+  if (err || n_large == 0) return err;
+  segsum_large_kernel<BC><<<blocks_for((long long)n_large * 32, threads), threads, 0, s>>>(
+      folded, perm, offsets, bins, large_bins, n_large, out, B);
+  return (int)cudaGetLastError();
+}
+
+// The fold, then the segment sum (bins null: the whole index's CSR).
+int fold_and_sum(const float* cot, float* folded, const int* perm, const int* offsets,
+                 const int* bins, int n_bins, int large, const int* large_bins, int n_large,
+                 float* out, const Geom& g, int B, cudaStream_t s) {
+  if (g.k_n > 0) launch_fold_any<true>(cot, folded, g, B, s);
+  else launch_fold_any<false>(cot, folded, g, B, s);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  if (B % 4 == 0)
+    return launch_segsum<4>(folded, perm, offsets, bins, n_bins, large, large_bins, n_large, out, B, s);
+  if (B % 2 == 0)
+    return launch_segsum<2>(folded, perm, offsets, bins, n_bins, large, large_bins, n_large, out, B, s);
+  return launch_segsum<1>(folded, perm, offsets, bins, n_bins, large, large_bins, n_large, out, B, s);
 }
 
 }  // namespace
 
 // geom: n0, n1, n2, c0, c1, c2, m (m < 0: flat layout), r_ax, r_lo, r_n (the
-// grid side's rows, note 6); the host checks that c1 and c0 fit a launch
-// grid's y and z extents
+// grid side's rows, note 6), k_lo, k_n (a range's launch rows; k_n = 0: every
+// tile or core row); the host checks that c1 and c0 fit a launch grid's y and
+// z extents
 extern "C" int nt_expand_to_grid(const void* tab, const void* idx, void* out, const int* geom,
                                  int B, void* stream) {
   const Geom g = geom_of(geom);
@@ -483,11 +627,14 @@ extern "C" int nt_expand_to_grid(const void* tab, const void* idx, void* out, co
   cudaStream_t s = (cudaStream_t)stream;
   if (g.m < 0) {
     if (B % 4 == 0) launch_expand_flat<4>(t, i, o, g, B, s);
+    else if (B % 2 == 0) launch_expand_flat<2>(t, i, o, g, B, s);
     else launch_expand_flat<1>(t, i, o, g, B, s);
   } else if (B == 1 && g.n2 % 4 == 0) {
     launch_expand_rfp2<1, 4>(t, i, o, g, B, s);
   } else if (B % 4 == 0) {
     launch_expand_rfp2<4, 1>(t, i, o, g, B, s);
+  } else if (B % 2 == 0) {
+    launch_expand_rfp2<2, 1>(t, i, o, g, B, s);
   } else {
     launch_expand_rfp2<1, 1>(t, i, o, g, B, s);
   }
@@ -501,25 +648,26 @@ extern "C" int nt_collapse_from_grid(const void* cot, void* folded, const void* 
                                      const void* offsets, int n_unique, int large,
                                      const void* large_bins, int n_large, void* out,
                                      const int* geom, int B, void* stream) {
-  const Geom g = geom_of(geom);
+  return fold_and_sum((const float*)cot, (float*)folded, (const int*)perm, (const int*)offsets,
+                      nullptr, n_unique, large, (const int*)large_bins, n_large, (float*)out,
+                      geom_of(geom), B, (cudaStream_t)stream);
+}
+
+// K2r: the range's CSR (note 6): perm the packed points with an image in the
+// range, sorted by bin; bins the bins they touch, offsets each one's first
+// place in perm (n_bins + 1 of them), large_bins the places in bins of those
+// with more than `large` members; every other bin of out (n_unique) is 0
+extern "C" int nt_collapse_from_grid_rows(const void* cot, void* folded, const void* perm,
+                                          const void* offsets, const void* bins, int n_bins,
+                                          int large, const void* large_bins, int n_large,
+                                          void* out, int n_unique, const int* geom, int B,
+                                          void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (B % 4 == 0)
-    launch_fold<4>((const float*)cot, (float*)folded, g, B, s);
-  else
-    launch_fold<1>((const float*)cot, (float*)folded, g, B, s);
-  int err = (int)cudaGetLastError();
+  const int err = (int)cudaMemsetAsync(out, 0, (size_t)n_unique * B * sizeof(float), s);
   if (err) return err;
-  const int threads = 256;
-  segsum_small_kernel<<<blocks_for(n_unique, threads), threads, 0, s>>>(
-      (const float*)folded, (const int*)perm, (const int*)offsets, n_unique, large,
-      (float*)out, B);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  if (n_large > 0)
-    segsum_large_kernel<<<blocks_for((long long)n_large * 32, threads), threads, 0, s>>>(
-        (const float*)folded, (const int*)perm, (const int*)offsets, (const int*)large_bins,
-        n_large, (float*)out, B);
-  return (int)cudaGetLastError();
+  return fold_and_sum((const float*)cot, (float*)folded, (const int*)perm, (const int*)offsets,
+                      (const int*)bins, n_bins, large, (const int*)large_bins, n_large,
+                      (float*)out, geom_of(geom), B, s);
 }
 
 extern "C" const char* nt_error_string(int err) {

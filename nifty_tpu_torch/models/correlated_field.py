@@ -650,6 +650,10 @@ class CorrelatedField(Model):
         self.harmonic_volumes = tuple(dvol for dvol, _ in harmonic_transforms)
         self.harmonic_transforms = torch.nn.ModuleList(ht for _, ht in harmonic_transforms)
         self.field_mesh, self.field_axis, self.axis = field_mesh, field_axis, axis
+        if axis is not None:  # K2r's CSR of the rank's rows, built once; it follows the index
+            shapes = [f for a, f in zip(self.amplitudes, self.full_shapes) if not a.per_pixel]
+            for index, fshape in zip(self.indexes, shapes):
+                index.row_tables(fshape, self.rows)
 
     @property
     def rows(self):

@@ -55,6 +55,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "nt_expand_to_grid": (_P, _P, _P, ctypes.POINTER(_I), _I, _P),
     "nt_collapse_from_grid": (_P, _P, _P, _P, _I, _I, _P, _I, _P, ctypes.POINTER(_I), _I, _P),
+    "nt_collapse_from_grid_rows": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I, ctypes.POINTER(_I),
+                                   _I, _P),
     "nt_hartley_rows": (_P, _P, _I, _I, _I, _P, _P, ctypes.POINTER(_I), _I, _I, _P),
     "nt_hartley_cols": (
         _P, _P, _I, _I, _I, ctypes.c_longlong, ctypes.c_longlong, _I, _I, _P, _P,

@@ -21,10 +21,14 @@ index that :class:`ExpandIndex` builds once on the host, in a fixed order
 without atomics, so its sums are deterministic.
 
 K1r :func:`expand_to_grid_rows` and K2r :func:`collapse_from_grid_rows`
-are the same kernels on a range of the grid's leading axis, for a
-row-sharded field: K1r writes only the rows ``lo .. lo + n - 1`` of the
-full grid, K2r folds only those rows (a cotangent of the range), its table
-this range's part of the table cotangent.
+are K1 and K2 on a range ``lo .. lo + n - 1`` of the grid's leading axis,
+for a row-sharded field, with work that follows the range: the core rows
+whose images the range holds are one interval (:func:`core_rows`),
+and the kernels launch only the tiles (rfp2) or core rows (flat) that meet
+them.  K1r writes the range's rows; K2r folds them and sums, through the
+range's own CSR (:class:`ExpandRows`, built once a range and kept on the
+index), only the packed points with an image in the range: its table is
+this range's part of the table cotangent, every other bin 0.
 
 Each wrapper runs its plain PyTorch version (the composition of
 ``index_select``, the rfp2 unpack and the mirror unfold, and its adjoint
@@ -33,6 +37,8 @@ tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -43,23 +49,29 @@ __all__ = [
     "LARGE_BIN",
     "MAX_GRID_YZ",
     "ExpandIndex",
+    "ExpandRows",
     "collapse_from_grid",
     "collapse_from_grid_plain",
     "collapse_from_grid_rows",
     "collapse_from_grid_rows_plain",
+    "core_rows",
     "expand_to_grid",
     "expand_to_grid_plain",
     "expand_to_grid_rows",
     "expand_to_grid_rows_plain",
     "grid_geometry",
+    "launch_rows",
     "mirror_fold",
     "mirror_unfold",
+    "needed_packed",
     "row_range",
     "segment_csr",
 ]
 
 LARGE_BIN = 32  # bins with more members than this are reduced by a warp
 MAX_GRID_YZ = 65535  # a launch grid's y and z extents
+TILE = 32  # the rfp2 kernels' tiles: 32 x 32 core points
+DENSE = 0.9  # K2r takes the whole index's CSR when a range has this share of the packed points
 
 
 def segment_csr(idx: np.ndarray, n_unique: int):
@@ -92,6 +104,7 @@ class ExpandIndex(torch.nn.Module):
         self.register_buffer("perm", perm)
         self.register_buffer("offsets", offsets)
         self.register_buffer("large_bins", large)
+        self.ranges = torch.nn.ModuleDict()  # row_tables' CSRs, by range
 
     @property
     def n_packed(self) -> int:
@@ -100,6 +113,95 @@ class ExpandIndex(torch.nn.Module):
     @property
     def n_unique(self) -> int:
         return self.layout.n_unique
+
+    def row_tables(self, full_shape, rows) -> "ExpandRows":
+        """The CSR of the rows ``rows = (lo, n)`` of the ``full_shape`` grid
+        (:class:`ExpandRows`), built on the index's device at first use and
+        kept as a submodule, so it follows the index to its device."""
+        key = "_".join(str(int(v)) for v in tuple(full_shape) + tuple(rows))
+        if key not in self.ranges:
+            self.ranges[key] = ExpandRows(self, full_shape, rows)
+        return self.ranges[key]
+
+
+def core_rows(n, c, lo, b):
+    """The core rows ``(start, length)`` whose images on an axis of ``n``
+    points with core ``c`` (``n``, or ``n//2 + 1`` when mirrored) are among
+    the rows ``lo .. lo + b - 1``: rows below ``c`` are their own, a row ``y
+    >= c`` is core row ``n - y``.  One interval: the rows below ``c`` map to
+    ``[lo, c)``, those from ``c`` on to ``[n - hi + 1, n - c]`` with ``n - c
+    >= c - 2``, so when a range holds both, the two meet."""
+    hi = lo + b
+    if c == n or hi <= c:
+        return lo, b
+    start, end = n - hi + 1, n - max(lo, c) + 1  # the mirrored rows
+    if lo < c:
+        start, end = min(start, lo), c
+    return start, end - start
+
+
+@functools.lru_cache(maxsize=256)
+def launch_rows(layout, full_shape, rows):
+    """The kernels' launch rows ``(k_lo, k_n)`` of the range ``rows = (lo,
+    n)`` on the grid's leading axis: :func:`core_rows` in units of the rfp2
+    tiles' 32 rows, or in core rows for a flat layout."""
+    s, n = core_rows(int(full_shape[0]), int(layout.core_shape[0]), int(rows[0]), int(rows[1]))
+    step = TILE if layout.kind == "rfp2" else 1
+    return s // step, -(-(s + n) // step) - s // step
+
+
+def needed_packed(index, full_shape, rows):
+    """A boolean per packed point: whether one of its full-grid images lies
+    in the rows ``rows = (lo, n)`` of the leading axis, i.e. whether its
+    core point, or for rfp2 its transpose, has its leading coordinate among
+    :func:`core_rows`."""
+    layout, dev = index.layout, index.idx.device
+    c = int(layout.core_shape[0])
+    mask = torch.zeros(c, dtype=torch.bool, device=dev)
+    s, n = core_rows(int(full_shape[0]), c, int(rows[0]), int(rows[1]))
+    mask[s:s + n] = True
+    pos = torch.arange(index.n_packed, device=dev)
+    if layout.kind == "rfp2":  # packed (r, q): core (r, q) if q >= r, else (m+1+q, m+r)
+        H, m = c, c // 2
+        r, q = pos // H, pos % H
+        direct = q >= r
+        return mask[torch.where(direct, r, m + 1 + q)] | mask[torch.where(direct, q, m + r)]
+    return mask[pos // int(np.prod(layout.core_shape[1:], dtype=np.int64))]
+
+
+class ExpandRows(torch.nn.Module):
+    """K2r's CSR of one row range (buffers that follow the index): ``perm``,
+    the packed points with an image in the range in the order of the
+    index's own CSR (by bin, stable); ``bins``, the bins they touch, in
+    order; ``offsets``, each touched bin's first place in ``perm`` (and the
+    end); ``large_bins``, the places in ``bins`` of those with more than
+    :data:`LARGE_BIN` members.  Built from the index's CSR by a mask, no
+    sort.  ``dense``: the range has an image of at least :data:`DENSE` of
+    the packed points, and K2r folds every tile and sums every bin through
+    the index's own CSR (no zero fill: faster when few points drop out);
+    its tables are then empty."""
+
+    def __init__(self, index, full_shape, rows):
+        super().__init__()
+        with torch.no_grad():
+            perm = index.perm[needed_packed(index, full_shape, rows)[index.perm.long()]]
+            self.dense = perm.numel() >= DENSE * index.n_packed
+            if self.dense:
+                perm = perm[:0]
+            counts = torch.bincount(index.idx[perm.long()], minlength=index.n_unique)
+            bins = torch.nonzero(counts).reshape(-1)
+            counts = counts[bins]
+            offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+            large = torch.nonzero(counts > LARGE_BIN).reshape(-1)
+        for name, t in (("perm", perm), ("bins", bins), ("offsets", offsets), ("large_bins", large)):
+            self.register_buffer(name, t.to(torch.int32), persistent=False)
+
+    @property
+    def n_bins(self) -> int:
+        return self.bins.numel()
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.buffers())
 
 
 def grid_geometry(layout, full_shape):
@@ -261,18 +363,26 @@ def _check_cuda(t, index, shape, what):
                         and tuple(t.shape[: len(shape)]) == tuple(shape))
     if index.idx.device != t.device:
         raise ValueError(f"{what}: index on {index.idx.device}, values on {t.device}")
-    if t.ndim > len(shape) and t.shape[-1] % 4 == 0 and t.data_ptr() % 16:
+    B = t.shape[-1] if t.ndim > len(shape) else 1
+    vec = 16 if B % 4 == 0 else 8 if B % 2 == 0 else 4
+    if t.data_ptr() % vec:
         raise ValueError(
-            f"{what}: a batch of a multiple of 4 is read in 16-byte vectors; "
-            "the tensor must start on a 16-byte boundary"
+            f"{what}: a batch of {B} is read in {vec}-byte vectors; "
+            f"the tensor must start on a {vec}-byte boundary"
         )
 
 
-def _launch_geometry(index, full_shape, what, rows=None):
+def _launch_geometry(index, full_shape, what, rows=None, skip=True):
+    """The kernels' geometry; for a range with ``skip`` its launch rows,
+    else ``k_n = 0``: every tile or core row."""
     geom = grid_geometry(index.layout, full_shape) + row_range(full_shape, rows)
     if max(geom[3:5]) > MAX_GRID_YZ:  # the core's rows and slabs are grid extents
         raise ValueError(f"{what}: core {index.layout.core_shape} is too large for a launch grid")
-    return native.int_array(geom)
+    if rows is not None and len(full_shape) < 2:
+        raise ValueError(f"{what}: a row range needs a grid of 2 or 3 axes, not {tuple(full_shape)}")
+    if rows is None or not skip:
+        return native.int_array(geom + (0, 0))
+    return native.int_array(geom + launch_rows(index.layout, tuple(full_shape), tuple(rows)))
 
 
 def _expand(tab, index, full_shape, rows, what):
@@ -326,16 +436,24 @@ def _collapse(cot, index, full_shape, rows, what):
     """Launch K2 (K2r with ``rows``) on the card; count it as ``what``."""
     shape = full_shape if rows is None else _local_shape(full_shape, rows)
     _check_cuda(cot, index, shape, what)
-    geom = _launch_geometry(index, full_shape, what, rows)
+    t = None if rows is None else index.row_tables(full_shape, rows)
+    geom = _launch_geometry(index, full_shape, what, rows, skip=t is not None and not t.dense)
     batch = tuple(cot.shape[len(full_shape) :])
     B = batch[0] if batch else 1
     folded = torch.empty((index.n_packed,) + batch, dtype=cot.dtype, device=cot.device)
     out = torch.empty((index.n_unique,) + batch, dtype=cot.dtype, device=cot.device)
-    err = native.lib().nt_collapse_from_grid(
-        cot.data_ptr(), folded.data_ptr(), index.perm.data_ptr(), index.offsets.data_ptr(),
-        index.n_unique, LARGE_BIN, index.large_bins.data_ptr(), index.large_bins.numel(),
-        out.data_ptr(), geom, B, native.stream_of(cot),
-    )
+    if t is None or t.dense:
+        err = native.lib().nt_collapse_from_grid(
+            cot.data_ptr(), folded.data_ptr(), index.perm.data_ptr(), index.offsets.data_ptr(),
+            index.n_unique, LARGE_BIN, index.large_bins.data_ptr(), index.large_bins.numel(),
+            out.data_ptr(), geom, B, native.stream_of(cot),
+        )
+    else:
+        err = native.lib().nt_collapse_from_grid_rows(
+            cot.data_ptr(), folded.data_ptr(), t.perm.data_ptr(), t.offsets.data_ptr(),
+            t.bins.data_ptr(), t.n_bins, LARGE_BIN, t.large_bins.data_ptr(), t.large_bins.numel(),
+            out.data_ptr(), index.n_unique, geom, B, native.stream_of(cot),
+        )
     native.check(err, what)
     native.launches[what] += 1
     native.batched_launches[what] += B > 1

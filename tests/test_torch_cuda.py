@@ -805,29 +805,78 @@ def test_check_model_device_times(cuda_device):
 # --- the range forms of the multi-GPU slice: K1r, K2r, K4r ------------------------------
 
 
+def _check_row_range(index_d, full, rows, tab, cot, grid):
+    """K1r on ``rows`` bit-exact against K1's rows ``grid``; K2r of those
+    rows of ``cot`` the same bits twice and within 1e-6 of float64 (its
+    plain version on the card); returns K2r's part in float64."""
+    lo, n = rows
+    assert torch.equal(ce.expand_to_grid_rows(tab, index_d, full, rows), grid[lo:lo + n])
+    cot_r = cot[lo:lo + n].clone()  # a fresh, aligned buffer
+    part = ce.collapse_from_grid_rows(cot_r, index_d, full, rows)
+    assert torch.equal(part, ce.collapse_from_grid_rows(cot_r, index_d, full, rows))
+    assert _rel(part.double(), ce.collapse_from_grid_rows_plain(cot_r.double(), index_d, full, rows)) <= 1e-6
+    return part.double()
+
+
+def _tab_and_cot(index, full, B, dev):
+    batch = () if B == 1 else (B,)
+    g = torch.Generator(device=dev).manual_seed(B)
+    return (torch.randn((index.n_unique,) + batch, device=dev, generator=g),
+            torch.randn(tuple(full) + batch, device=dev, generator=g))
+
+
 @pytest.mark.parametrize("n", [1280, 4096])
 @pytest.mark.parametrize("p", [2, 4, 8])
 def test_row_range_kernels_match_plain(cuda_device, n, p):
     """K1r on each of p ranks' rows is K1's rows (bit-exact), K2r's partial
-    tables sum to K2's (relative 1e-6 of float64), at B = 1 and 4."""
+    tables are the same bits twice and sum to K2's (relative 1e-6 of
+    float64), at B = 1, 2, 3 and 4; K1 and K2 on the full grid match their
+    plain versions."""
     full = (n, n)
-    index = grid_index(full)
-    index_d = copy.deepcopy(index).to(cuda_device)
+    index_d = copy.deepcopy(grid_index(full)).to(cuda_device)
     b = n // p
-    for B in (1, 4):
-        batch = () if B == 1 else (B,)
-        tab = torch.randn((index.n_unique,) + batch, device=cuda_device)
-        cot = torch.randn(full + batch, device=cuda_device)
+    for B in (1, 2, 3, 4):
+        tab, cot = _tab_and_cot(index_d, full, B, cuda_device)
         grid = ce.expand_to_grid(tab, index_d, full)
-        parts = 0
-        for r in range(p):
-            rows = (r * b, b)
-            assert torch.equal(ce.expand_to_grid_rows(tab, index_d, full, rows), grid[r * b:(r + 1) * b])
-            part = ce.collapse_from_grid_rows(cot[r * b:(r + 1) * b].contiguous(), index_d, full, rows)
-            ref = ce.collapse_from_grid_rows_plain(cot[r * b:(r + 1) * b].double().cpu(), index, full, rows)
-            assert _rel(part.double().cpu(), ref) <= 1e-6
-            parts = parts + part.double().cpu()
-        assert _rel(parts, ce.collapse_from_grid_plain(cot.double().cpu(), index, full)) <= 1e-6
+        assert torch.equal(grid, ce.expand_to_grid_plain(tab, index_d, full))
+        k2 = ce.collapse_from_grid_plain(cot.double(), index_d, full)
+        assert _rel(ce.collapse_from_grid(cot, index_d, full).double(), k2) <= 1e-6
+        parts = sum(_check_row_range(index_d, full, (r * b, b), tab, cot, grid) for r in range(p))
+        assert _rel(parts, k2) <= 1e-6
+
+
+ROW_RANGE_CASES = {  # grid: the ranges of its leading axis
+    (4096, 4096): [(2048, 2), (2047, 2), (5, 1), (4095, 1), (3000, 700), (2049, 2047)],  # rfp2
+    (1280, 1280): [(640, 2), (640, 1), (1000, 280), (600, 100), (0, 1280)],  # H = 641
+    (1281, 1281): [(640, 2), (641, 640), (7, 300)],  # odd n: runs of one point
+    (1282, 1282): [(641, 2), (0, 1), (700, 582)],  # flat 2-D: H even
+    (64, 48, 40): [(32, 2), (20, 24), (40, 24), (63, 1), (0, 64)],  # flat 3-D, the range on axis 0
+}
+
+
+@pytest.mark.parametrize("full", sorted(ROW_RANGE_CASES))
+def test_row_range_kernels_on_edge_ranges(cuda_device, full):
+    """K1r and K2r on ranges at the mirror's edge (rows n/2 and n/2 + 1),
+    of one row, only in the mirrored half, on 1280² (H = 641, no multiple
+    of 32), an odd grid, the flat layouts (2-D, and 3-D with the range on
+    axis 0), at B = 1, 2, 3 and 4: as ``_check_row_range``."""
+    index_d = copy.deepcopy(grid_index(full)).to(cuda_device)
+    for B in (1, 2, 3, 4):
+        tab, cot = _tab_and_cot(index_d, full, B, cuda_device)
+        grid = ce.expand_to_grid(tab, index_d, full)
+        assert torch.equal(grid, ce.expand_to_grid_plain(tab, index_d, full))
+        for rows in ROW_RANGE_CASES[full]:
+            _check_row_range(index_d, full, rows, tab, cot, grid)
+
+
+def test_row_range_wrappers_refuse_a_1d_grid(cuda_device):
+    """K1r and K2r take a row range on a grid of 2 or 3 axes only."""
+    index, full = _index(1000, 100, 1)
+    index_d = copy.deepcopy(index).to(cuda_device)
+    with pytest.raises(ValueError, match="2 or 3 axes"):
+        ce.expand_to_grid_rows(torch.zeros(100, device=cuda_device), index_d, full, (0, 10))
+    with pytest.raises(ValueError, match="2 or 3 axes"):
+        ce.collapse_from_grid_rows(torch.zeros(10, device=cuda_device), index_d, full, (0, 10))
 
 
 @pytest.mark.parametrize("rows", [320, 2, 1030])

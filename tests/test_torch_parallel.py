@@ -44,7 +44,7 @@ from nifty_tpu.utils.tree import random_like as jax_random_like
 from nifty_tpu_torch import parallel
 from nifty_tpu_torch.ops import cuda_expand as ce
 from nifty_tpu_torch.ops import cuda_fft
-from nifty_tpu_torch.ops.mode_expand import ExpandIndex, build_expand_layout
+from nifty_tpu_torch.ops.mode_expand import ExpandIndex, _rfp_index_table, build_expand_layout
 from nifty_tpu_torch.parallel.fft import fft_stages, pencil_stages, uses_kernels
 
 torch.set_num_threads(1)
@@ -99,6 +99,117 @@ def test_row_range_plain_versions_are_slices(full, p):
     _close(parts.numpy(), ce.collapse_from_grid_plain(cot, index, full).numpy())
     with pytest.raises(ValueError, match="outside"):
         ce.row_range(full, (full[0] - 1, 2))
+
+
+def _core_points(index):
+    """The numpy model of the packed layout: each packed point's core
+    coordinates ``(x0, x1, x2)`` (rfp2: its upper-triangle point, through
+    the layout's own packing of a symmetric table of point ids)."""
+    core = tuple(index.layout.core_shape)
+    if index.layout.kind == "rfp2":
+        H = core[0]
+        a, b = np.meshgrid(np.arange(H), np.arange(H), indexing="ij")
+        ids = _rfp_index_table(np.minimum(a, b) * H + np.maximum(a, b)).ravel()
+        return np.zeros_like(ids), ids // H, ids % H
+    pts = np.unravel_index(np.arange(int(np.prod(core))), core)
+    return ((np.zeros_like(pts[0]),) * (3 - len(core))) + pts
+
+
+def _needed_model(index, full, lo, n):
+    """Per packed point: whether a full-grid image lies in rows [lo, lo + n)."""
+    c = index.layout.core_shape[0]
+    y = np.arange(lo, lo + n)
+    R = np.zeros(c, bool)
+    R[y if c == full[0] else np.where(y < c, y, full[0] - y)] = True
+    x = _core_points(index)
+    if index.layout.kind == "rfp2":
+        return R[x[1]] | R[x[2]]
+    return R[x[3 - len(full)]]
+
+
+@pytest.mark.parametrize("full", [(16, 16), (12, 12), (12, 8, 6)])
+def test_row_range_launch_covers_the_needed_core_rows(full):
+    """For every range of rows: ``core_rows`` is the one interval of core
+    rows the range's images come from; the launch rows cover it and each
+    meets it; the rfp2 kernels' tiles (the kernel's block-to-tile map,
+    modelled here) are each launched once, I <= J, exactly those that meet
+    the launch rows, and they hold every packed point with an image in the
+    range."""
+    index, _ = _index(full)
+    n0, c = full[0], index.layout.core_shape[0]
+    step = ce.TILE if index.layout.kind == "rfp2" else 1
+    T = -(-index.layout.core_shape[-1] // ce.TILE)
+    x = _core_points(index)
+    for lo in range(n0):
+        for n in range(1, n0 - lo + 1):
+            y = np.arange(lo, lo + n)
+            R = set((y if c == n0 else np.where(y < c, y, n0 - y)).tolist())
+            s, m = ce.core_rows(n0, c, lo, n)
+            assert set(range(s, s + m)) == R
+            k_lo, k_n = ce.launch_rows(index.layout, full, (lo, n))
+            K = set(range(k_lo, k_lo + k_n))
+            assert R <= {r for k in K for r in range(k * step, (k + 1) * step)}
+            assert all(R & set(range(k * step, (k + 1) * step)) for k in K)
+            if index.layout.kind != "rfp2":
+                continue
+            tiles = []
+            for by in range(k_n):  # tile_of<true>: block (blockIdx.x = X, blockIdx.y = by)
+                for X in range(T):
+                    K_ = k_lo + by
+                    if not (X < K_ and X >= k_lo):
+                        tiles.append((min(K_, X), max(K_, X)))
+            assert len(tiles) == len(set(tiles))
+            assert set(tiles) == {(i, j) for i in range(T) for j in range(i, T) if i in K or j in K}
+            need = _needed_model(index, full, lo, n)
+            assert {(int(a) // ce.TILE, int(b) // ce.TILE) for a, b in zip(x[1][need], x[2][need])} <= set(tiles)
+
+
+@pytest.mark.parametrize("full", [(16, 16), (12, 12), (12, 8, 6)])
+def test_row_range_csr_sums_match_index_add(full):
+    """K2r's range CSR (``ExpandRows``) against a numpy model: the packed
+    points with an image in the range, by bin in the index's stable order,
+    the bins they touch, their offsets and the large bins; its sums of the
+    range's folded cotangent (the plain fold of the rows' cotangent padded
+    with zeros) equal ``index_add_`` over every packed point, each other
+    point's folded value is 0.  A range with an image of ``DENSE`` of the
+    points or more is ``dense`` and keeps no tables.  The tables follow the
+    index through ``.to`` (here one that keeps the device) and are kept."""
+    index, U = _index(full)
+    idx = index.idx.numpy()
+    rng = np.random.default_rng(5)
+    n0 = full[0]
+    ranges = [(0, n0 // 2), (n0 // 2, n0 // 4), (n0 // 2 - 1, 2), (n0 - 1, 1), (3, 1), (0, n0)]
+    for lo, n in ranges:
+        t = index.row_tables(full, (lo, n))
+        assert index.row_tables(full, (lo, n)) is t
+        need = _needed_model(index, full, lo, n)
+        perm = np.argsort(idx, kind="stable")
+        perm = perm[need[perm]]
+        assert t.dense == (perm.size >= ce.DENSE * index.n_packed)
+        if t.dense:  # K2r takes the index's own CSR: the range keeps none
+            assert t.perm.numel() == t.n_bins == t.large_bins.numel() == 0
+            continue
+        counts = np.bincount(idx[perm], minlength=U)
+        bins = np.flatnonzero(counts)
+        np.testing.assert_array_equal(t.perm.numpy(), perm)
+        np.testing.assert_array_equal(t.bins.numpy(), bins)
+        np.testing.assert_array_equal(t.offsets.numpy(), np.concatenate([[0], np.cumsum(counts[bins])]))
+        np.testing.assert_array_equal(t.large_bins.numpy(), np.flatnonzero(counts[bins] > ce.LARGE_BIN))
+        cot = np.zeros(full + (2,))
+        cot[lo:lo + n] = rng.standard_normal((n,) + full[1:] + (2,))
+        core = ce.mirror_fold(torch.from_numpy(cot), index.layout.core_shape)
+        if index.layout.kind == "rfp2":
+            core = torch.movedim(ce._fold_rfp2(torch.movedim(core, -1, 0), index.layout), 0, -1)
+        folded = core.reshape(-1, 2).numpy()
+        assert not folded[~need].any()
+        got = np.zeros((U, 2))
+        off = t.offsets.numpy()
+        for k, u in enumerate(bins):
+            got[u] = folded[perm[off[k]:off[k + 1]]].sum(0)
+        want = torch.zeros(U, 2, dtype=torch.float64).index_add_(0, index.idx.long(), torch.from_numpy(folded))
+        _close(got, want.numpy())
+    index.to(torch.float32)
+    assert len(index.ranges) == len(ranges) and index.ranges[next(iter(index.ranges))].perm.dtype == torch.int32
 
 
 @pytest.mark.parametrize("p", [1, 2, 4, 8])
