@@ -261,8 +261,9 @@ each sub-phase of 12 (``matern_table``, ``matern_pixel``, ``vmodel``,
 ``parallel_vi_devices``), 17c (``parallel_tomography_metric``,
 ``parallel_tomography_vi``), 17d (``parallel_odir``), 17e
 (``parallel_nuts_pmap``), 17f (``parallel_nufft_metric``,
-``parallel_nufft_vi``) and 17g (``parallel_ski_metric``), and read just
-after it:
+``parallel_nufft_vi``), 17g (``parallel_ski_metric``) and 17h
+(``parallel_learned_metric``, ``parallel_learned_vi``,
+``parallel_dynamics``), and read just after it:
 K1-K4 must launch in phases 4, 5, 8-11, 12 (but for the Matérn pixel
 form and the 32² full-covariance VI) and 13a, K3/K4 (and not K1/K2) in 6,
 7, the pixel form and 13d, none in 10b, the 32² VI and 13b, c and e, and
@@ -273,9 +274,9 @@ K3 and K4r (not K4) in 17b's Hartley and knot metric, K1r, K2r, K3 and K4r
 (not K1, K2, K4) in its exact metric and its position-sharded MGVI, K1-K4
 (not the range forms) in its MGVI by ``devices=``; K1r, K2r, K3 and K4r (not
 K1, K2, K4) in each run of 17c and 17d, K1-K4 on a batch in 17e, K1r,
-K2r, K3 and K4r (not K1, K2, K4) in 17f-g's runs; K7 in 17b's MGVI
-iterations and 17f's (every sampler draws its noise by K7, so no phase
-that samples refuses it);
+K2r, K3 and K4r (not K1, K2, K4) in 17f-h's runs, none in 17h's light
+cone; K7 in 17b's MGVI iterations, 17f's and 17h's (every sampler draws
+its noise by K7, so no phase that samples refuses it);
 under ``vmap`` (and in the ``VModel``, density, NDVCG and mean-field runs) each must have launched on a batch of samples,
 chains or channels (``native.batched_launches``), under ``lmap`` none.
 Then it prints the whole run's seconds, the card line, the kernel summary
@@ -350,6 +351,12 @@ PARALLEL = dict(shapes=(1280, 4096), ranks=(8, 4, 2), metric_knots=(None, 64), v
 # sharded 1024² field; K7 at 10^8 entries, its row ranges on a 4096² leaf
 LARGE = dict(nufft_shape=4096, nufft_points=2**20, ranks=(2, 4, 8), ski_grid=1024,
              ski_points=2**18, k7_entries=10**8, k7_f64_entries=10**7, k7_rows=4096, seed=91)
+# phase 17h: radio imaging with learned coordinates (17f's exact 4096² field through exp and
+# VariablePositionNufft at 2^20 points, the coordinates base + 1e-4 uv with uv a latent),
+# 17f's stages at 2^20 + 3 points (shares that differ by one over 2, 4 and 8 virtual ranks),
+# and phase 13e's light cone, (512, 1024) padded by (64, 64), on a row-split latent
+LEARNED = dict(nufft_shape=4096, nufft_points=2**20, uneven_points=2**20 + 3, ranks=(2, 4, 8),
+               taps_cuts=3, dynamics=(512, 1024), dynamics_padding=(64, 64), seed=97)
 CG_ITERS = 20
 NAMES = {"K1": "expand_to_grid", "K2": "collapse_from_grid",
          "K3": "hartley_rows", "K4": "hartley_cols",
@@ -410,7 +417,13 @@ TOL = {"k2": 1e-6, "hartley": 1e-5, "metric": 1e-4, "kl_maps": 1e-5,  # K1 must 
        # 17g: SKI's row blocks against the whole matrix (f32 sums of 4 corners regrouped
        # by rank), of the maximum; K7's f32 normals (logf, sincospif in f32) against the
        # plain version's float64 Box-Muller rounded once, of the maximum; its f64 ones
-       "ski_rows": 1e-6, "k7": 1e-6, "k7_f64": 1e-12}
+       "ski_rows": 1e-6, "k7": 1e-6, "k7_f64": 1e-12,
+       # 17h: the learned coordinates' one-rank metric against the unsharded (relative
+       # L2; f32 taps and their derivatives, weighted in float64 then rounded, against
+       # the unsharded's f32 autograd of the window) and its MGVI iteration at CG 3, of
+       # the unsharded step, as 17f's; the light cone's rows on a row-split latent
+       # against the unsharded (the same FFTs of the gathered latent), of the maximum
+       "learned_metric": 1e-4, "learned_vi_step": 1e-3, "cone_rows": 1e-6}
 
 
 def emit(obj):
@@ -985,6 +998,7 @@ def parallel_phase(dev, read_launches, timing, built=None, tomo=None, nuts=None)
             if nuts is not None:
                 nuts_17e()
             summary.update(large_phase(dev, read_launches, timing, mesh, vi, rel_pos, sync, g))
+            learned_phase(dev, read_launches, mesh, vi, rel_pos, sync)
         finally:
             dist.destroy_process_group()
     emit({"phase": "parallel_total", "seconds": time.perf_counter() - t17})
@@ -1226,6 +1240,188 @@ def large_phase(dev, read_launches, timing, mesh, vi, rel_pos, sync, g):
              f"normals {err} (> {TOL['k7']}?), f64 {err64} (> {TOL['k7_f64']}?)")
     torch.cuda.empty_cache()
     return {"K7": dict(max_abs_err=abs_err, entries=N, **k7)}
+
+
+def learned_phase(dev, read_launches, mesh, vi, rel_pos, sync):
+    """Phase 17h (``LEARNED``), inside 17b's one-rank group ``mesh``: radio
+    imaging with learned coordinates, ``VariablePositionNufft`` of the exact
+    field's exp at ``base + 1e-4 uv`` (``uv`` a replicated latent): its
+    metric and energy on the group against the unsharded (K1r, K2r, K3,
+    K4r), the ms of cutting a position's taps (weights and derivatives) on
+    the card, and one MGVI iteration at CG 3 (K7 drawing its noise) against
+    the unsharded one's step; 17f's stages at points whose shares differ by
+    one (the ranks' partial outputs against ``nufft2``, the joined
+    pull-backs against ``nufft_adjoint``, the reduce-scatter's padded
+    blocks against ``np.array_split``'s shares); the light cone on a
+    row-split latent, cut to 2, 4 and 8 virtual ranks' rows (the ranks'
+    gather stood in by the whole latent) and on the group (value and
+    pull-back), against the unsharded, with its time and its peak memory
+    on the card.  ``vi``, ``rel_pos`` and ``sync`` are 17b's."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    import nifty_tpu_torch as nt
+    from nifty_tpu_torch import native, parallel
+    from nifty_tpu_torch.bench.workload import latent_draw, learned_nufft_likelihood
+    from nifty_tpu_torch.bench.workload import learned_position, short_vi_settings
+    from nifty_tpu_torch.parallel import NamedSharding, collectives
+    from nifty_tpu_torch.parallel.nufft import NufftPlan, clear_plans, nufft_stages
+
+    L, f32 = LEARNED, torch.float32
+    rng = np.random.default_rng(L["seed"])
+    g = torch.Generator(device=dev).manual_seed(L["seed"])
+    t17h = time.perf_counter()
+    n, m = L["nufft_shape"], L["nufft_points"]
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    # 17h. the learned coordinates: metric and energy on the group against the unsharded
+    lh, cf, base, start_np, tan_np = learned_nufft_likelihood(n, m, dev, f32)
+    lh_s, cf_s, _, _, _ = learned_nufft_likelihood(n, m, dev, f32, field_mesh=mesh)
+    sh = {**cf_s.position_sharding(), "uv": NamedSharding(mesh, ())}
+    rows = [k for k, v in sh.items() if v.split_axes()]
+    ps, ts = (learned_position(cf_s, v, dev, f32, sh) for v in (start_np, tan_np))
+    pw, tw = (learned_position(cf, v, dev, f32) for v in (start_np, tan_np))
+    native.reset_launches()
+    with parallel.field_sharded(mesh.get_group("fx"), rows):
+        ms, first_ms = timed(lambda: lh_s.metric(ps, ts))
+        read_launches("parallel_learned_metric", SHARDED, refuse=("K1", "K2", "K4"))
+        times = [timed(lambda: lh_s.metric(ps, ts))[1] for _ in range(3)]
+        e_s = float(lh_s(ps))
+    mf, unsharded_ms = timed(lambda: lh.metric(pw, tw))
+    e = float(lh(pw))
+    err, e_err = rel_pos(ms, mf), abs(e_s - e) / abs(e)
+    del ms, mf
+    # the taps of a new primal position (a plan cut once a position): weights, the CSR
+    # transpose and the derivative tables, sorted on the card
+    cuts, table_bytes = [], 0
+    for i in range(L["taps_cuts"]):
+        coords = base + 1e-4 * (ps["uv"] + 0.01 * (i + 1))
+        taps, cut_ms = timed(lambda: NufftPlan((n, n), coords, 1).taps(0, dev, f32, deriv=True))
+        cuts.append(cut_ms)
+        table_bytes = taps.nbytes()
+        del taps
+    line = {"metric_first_ms": first_ms, "metric_apply_ms_median": float(np.median(times)),
+            "metric_apply_ms_all": times, "unsharded_metric_ms": unsharded_ms,
+            "rel_l2_vs_unsharded": err, "energy_rel_err": e_err,
+            "taps_cut_ms_median": float(np.median(cuts)), "taps_cut_ms_all": cuts,
+            "taps_bytes": table_bytes}
+    if not (err <= TOL["learned_metric"] and e_err <= TOL["learned_metric"]):
+        fail(f"learned coordinates: the sharded metric {err} / energy {e_err} > "
+             f"{TOL['learned_metric']} off the unsharded")
+
+    # 17h. one MGVI iteration at CG 3 on the group against the unsharded
+    short = short_vi_settings()
+    ref, _, ref_s = vi(lh, pw, short)
+    native.reset_launches()
+    got, st, secs = vi(lh_s, ps, short, position_sharding=sh)
+    read_launches("parallel_learned_vi", SHARDED + ("K7",), refuse=("K1", "K2", "K4"))
+    step = {k: ref.pos[k].double() - pw[k].double() for k in pw}
+    err_step = rel_pos({k: got.pos[k].double() - pw[k].double() for k in pw}, step)
+    emit({"phase": "parallel_learned", "shape": [n, n], "points": m, "ranks": 1, **line,
+          "vi_settings": "CG 3", "vi_seconds": secs, "unsharded_vi_seconds": ref_s,
+          "vi_err_over_step": err_step, "vi_step_rel_l2": rel_pos(ref.pos, pw),
+          "kl_after": float(st.minimization_state.fun), "seconds": time.perf_counter() - t17h})
+    if not (err_step <= TOL["learned_vi_step"]
+            and all(bool(torch.isfinite(v).all()) for v in got.pos.values())):
+        fail(f"learned coordinates: the sharded MGVI iteration is {err_step} of the unsharded "
+             f"one's step (> {TOL['learned_vi_step']}) off it, or non-finite")
+    del lh, cf, lh_s, cf_s, ps, ts, pw, tw, ref, got, base
+    clear_plans()
+    torch.cuda.empty_cache()
+
+    # 17h. 17f's stages at points whose shares differ by one
+    t0 = time.perf_counter()
+    mu = L["uneven_points"]
+    img = torch.complex(torch.randn((n, n), generator=g, device=dev),
+                        torch.randn((n, n), generator=g, device=dev))
+    coords = torch.as_tensor(rng.uniform(-0.5, 0.5, (2, mu)), device=dev, dtype=f32)
+    cot = torch.complex(torch.randn(mu, generator=g, device=dev), torch.randn(mu, generator=g, device=dev))
+    want, want_t = nt.nufft2(img, coords), nt.nufft_adjoint(cot, coords, (n, n))
+    scale, scale_t = float(want.abs().max()), float(want_t.abs().max())
+    uneven = {}
+    for p in L["ranks"]:
+        b = n // p
+        st_ = nufft_stages((n, n), coords, p)
+        sent = [st_.rows(img[None, r * b:(r + 1) * b], r) for r in range(p)]
+        total = sum(st_.cols([sent[r][s] for r in range(p)], s) for s in range(p))[0]
+        del sent
+        blocks = collectives._padded(total, p)  # the reduce-scatter's send buffer
+        shares = [blocks[r][: len(part)] for r, part in enumerate(np.array_split(np.arange(mu), p))]
+        exact = all(torch.equal(sh_, total[int(part[0]):int(part[-1]) + 1]) for sh_, part in
+                    zip(shares, np.array_split(np.arange(mu), p)))
+        exact = exact and torch.equal(collectives._unpadded(blocks, mu), total)
+        back = [st_.cols_t(cot[None], s) for s in range(p)]
+        pulled = torch.cat([st_.rows_t([back[s][r] for s in range(p)], r, False) for r in range(p)], dim=1)[0]
+        e_fwd = float((total - want).abs().max()) / scale
+        e_adj = float((pulled - want_t).abs().max()) / scale_t
+        uneven[p] = {"shares": sorted({len(x) for x in np.array_split(np.arange(mu), p)}),
+                     "forward_rel_err": e_fwd, "adjoint_rel_err": e_adj, "padded_shares_exact": exact}
+        del st_, total, blocks, shares, back, pulled
+        if not (e_fwd <= TOL["nufft_stages"] and e_adj <= TOL["nufft_stages"] and exact):
+            fail(f"nufft at {mu} points over {p} virtual ranks: forward {e_fwd}, adjoint {e_adj} "
+                 f"(> {TOL['nufft_stages']}?), the padded shares exact {exact}")
+    emit({"phase": "parallel_nufft_uneven", "shape": [n, n], "points": mu, "virtual_ranks": uneven,
+          "seconds": time.perf_counter() - t0})
+    del img, coords, cot, want, want_t
+    torch.cuda.empty_cache()
+
+    # 17h. the light cone on a row-split latent: virtual ranks, then the group
+    t0 = time.perf_counter()
+    shape = L["dynamics"]
+    dyn, _ = nt.dynamic_lightcone_operator(
+        shape=shape, distances=(1.0 / shape[0], 1.0 / shape[1]), key="dyn", lightcone_key="speed",
+        sm_s0=1.0, sm_x0=(8.0, 8.0), sigc=0.3, quant=2.0, harmonic_padding=L["dynamics_padding"])
+    lat = {k: torch.as_tensor(v, device=dev, dtype=f32) for k, v in latent_draw(dyn.domain, 4).items()}
+    ct = torch.as_tensor(rng.standard_normal(shape) + 1j * rng.standard_normal(shape), device=dev,
+                         dtype=torch.complex64)
+    whole, pull = torch.func.vjp(dyn, lat)
+    gw = pull(ct)[0]
+    top = float(whole.abs().max())
+    pshape, virtual = dyn.domain["dyn"].shape, {}
+    native.reset_launches()
+    for p in L["ranks"]:
+        errs = []
+        for r in range(p):  # rank r's rows of the latent; the gather stood in by the whole latent
+            part = {"dyn": lat["dyn"][r * pshape[0] // p:(r + 1) * pshape[0] // p], "speed": lat["speed"]}
+            with mock.patch.object(torch.distributed, "get_world_size", lambda group=None, p=p: p), \
+                    mock.patch.object(torch.distributed, "get_rank", lambda group=None, r=r: r), \
+                    mock.patch.object(collectives, "all_gather", lambda x, *a, **k: lat["dyn"]), \
+                    parallel.field_sharded(mesh.get_group("fx"), ["dyn"]):
+                y = dyn(part)
+            lo, hi = collectives.share(shape[0], p, r)
+            errs.append(float((y - whole[lo:hi]).abs().max()) / top if y.shape[0] == hi - lo else float("inf"))
+        virtual[p] = max(errs)
+    sync()
+    card = dev.type == "cuda"
+    mem0 = torch.cuda.memory_allocated() if card else 0
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    with parallel.field_sharded(mesh.get_group("fx"), ["dyn"]):
+        y, pull_s = torch.func.vjp(dyn, lat)  # the latent's rows gathered, the whole computed
+        gs = pull_s(ct)[0]
+        sync()
+        peak_mb = (torch.cuda.max_memory_allocated() - mem0) / 2**20 if card else None
+        cone_ms = [timed(lambda: dyn(lat))[1] for _ in range(5)]
+    read_launches("parallel_dynamics", (), refuse=tuple(NAMES))
+    plain_ms = [timed(lambda: dyn(lat))[1] for _ in range(5)]
+    group_err = {"value": float((y - whole).abs().max()) / top,
+                 "pull_back_dyn": float((gs["dyn"] - gw["dyn"]).abs().max()) / float(gw["dyn"].abs().max()),
+                 "pull_back_speed": float((gs["speed"] - gw["speed"]).abs().max()) / float(gw["speed"].abs().max())}
+    emit({"phase": "parallel_dynamics", "shape": list(shape), "padding": list(L["dynamics_padding"]),
+          "virtual_ranks_rel_err": virtual, "group_rel_err": group_err, "peak_mb": peak_mb,
+          "latent_mb": lat["dyn"].numel() * 4 / 2**20, "ms_median": float(np.median(cone_ms)),
+          "unsharded_ms_median": float(np.median(plain_ms)), "seconds": time.perf_counter() - t0})
+    bad = [e for e in list(virtual.values()) + list(group_err.values()) if not e <= TOL["cone_rows"]]
+    if bad:
+        fail(f"the light cone on a row-split latent: {virtual}, {group_err} beyond {TOL['cone_rows']}")
+    emit({"phase": "parallel_learned_total", "seconds": time.perf_counter() - t17h})
 
 
 def main() -> int:

@@ -8,6 +8,9 @@ Usage (from the root of a checkout)::
     python3 nifty_tpu_torch/bench/parallel_check.py --ranks 4 --large
     python3 nifty_tpu_torch/bench/parallel_check.py --ranks 2 --device cpu --large --nufft-shape 256 \
         --nufft-points 4096 --large-shapes 1024x512:16 128x64x16:8
+    python3 nifty_tpu_torch/bench/parallel_check.py --ranks 4 --learned
+    python3 nifty_tpu_torch/bench/parallel_check.py --ranks 4 --device cpu --learned --nufft-shape 256 \
+        --learned-points 4098 --vi 256
 
 It starts ``--ranks`` processes (NCCL, rank r on card r; gloo with
 ``--device cpu``), float32, and on every rank, against the same work done
@@ -43,9 +46,26 @@ unsharded on the rank's own card:
    card (with one chain a rank, the same arithmetic: batches of one), the
    same tree depths and relative L2 1e-2 (a whole run amplifies float32
    rounding: 4 gloo ranks at 64² part from the 4-chain batch by 1.7e-3,
-   another chain by O(1)), with the seconds of each and of ``"vmap"``.
+   another chain by O(1)), with the seconds of each and of ``"vmap"``;
+9. radio imaging with learned coordinates (``bench.workload.
+   learned_nufft_likelihood``: ``VariablePositionNufft`` of the exact
+   ``--nufft-shape``² field's exp at ``--learned-points`` points, the
+   coordinates ``base + 1e-4 uv`` with ``uv`` a replicated latent; 2^20 + 2
+   points share unevenly over 4 ranks): its metric inside the field
+   context against the unsharded one on the rank's own card (relative L2
+   1e-4) and one MGVI iteration by ``position_sharding=`` against the
+   unsharded at CG 3, of the unsharded step (1e-3), with the seconds of
+   each and of cutting a position's taps on the rank;
+10. two ``("samples", "fx")`` meshes of shape (1, 2), over ranks {0, 1}
+   and {2, 3} (every rank builds both), each running its own
+   ``optimize_kl`` of ``build_vi_likelihood``'s exact ``vi``² field with
+   ``odir=`` and a ``kl_reduce`` of its own (the 4 samples weighted),
+   side by side, against the same run on the rank's own card at CG 3
+   (1e-4), ``last.pkl`` (written by each mesh's first rank) against its
+   gathered samples, bit for bit, with the seconds of each mesh's run.
 
-With ``--large`` it runs instead the large-field surface:
+``--learned`` runs checks 9-10 alone.  With ``--large`` it runs instead
+the large-field surface:
 
 7. the sharded NUFFT's likelihood of radio imaging at full width
    (``bench.workload.nufft_likelihood``: the exact ``--nufft-shape``²
@@ -81,7 +101,11 @@ import time
 TOL = {"hartley": 1e-6, "metric": 1e-5, "vi": 1e-4, "chains": 1e-2,
        # check 7's MGVI iteration against the unsharded, of the unsharded step: 1.9e-5
        # on four H100s (4.6e-9 of the position over a step of 2.47e-4 of it)
-       "vi_step": 1e-3}
+       "vi_step": 1e-3,
+       # check 9: f32 taps and derivatives weighted in float64, against the unsharded's
+       # f32 autograd of the window (chip_smoke.py's 17h)
+       "learned_metric": 1e-4}
+KL_WEIGHTS = (0.4, 0.1, 0.3, 0.2)  # check 10's kl_reduce: the weights of the 4 samples
 LARGE = ("10240x10240:64", "8192x8192x16:64")  # _run_step's 1.05e8 and 1.07e9 dof
 FALLBACK = "8192x8192x8:64"  # tried after a size that does not fit
 NUTS = dict(n_chains=4, n_warmup=8, n_samples=4, max_tree_depth=5, step_size=1e-3)  # chip_smoke.py's MCMC
@@ -110,6 +134,9 @@ def _rank(args):
     parallel.initialize(args.store, args.ranks, args.rank, device=args.device)
     if args.large:
         return _large(args)
+    if args.learned:
+        results, failed = _learned(args)
+        return _finish(args, results, failed)
     dev = parallel.multihost.backend_device() if args.device != "cpu" else torch.device("cpu")
     rank, p, f32 = args.rank, args.ranks, torch.float32
     mesh = parallel.global_mesh(("fx",))
@@ -273,11 +300,139 @@ def _rank(args):
             "rel_l2_vs_vmap": _rel(got["chain_samples"], runs["vmap"]["chain_samples"])},
            _rel(got["chain_samples"], want["chain_samples"]) if depths else float("inf"),
            TOL["chains"])
+    del lh_m, start, runs
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    more, more_failed = _learned(args)
+    return _finish(args, results + more, failed + more_failed)
+
+
+def _finish(args, results, failed):
+    """Rank 0 prints a JSON line a check; 1 where a check failed."""
+    import torch.distributed as dist
+
     dist.destroy_process_group()
-    if rank == 0:
+    if args.rank == 0:
         for line in results:
             print(json.dumps(line), flush=True)
     return 1 if failed else 0
+
+
+def _learned(args):
+    """Checks 9 and 10 on this rank: ``(results, failed)``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.utils._pytree import tree_map
+
+    import nifty_tpu_torch as nt
+    from nifty_tpu_torch import io, parallel
+    from nifty_tpu_torch.bench.workload import (build_vi_likelihood, learned_nufft_likelihood,
+                                                learned_position, short_vi_settings)
+    from nifty_tpu_torch.parallel import NamedSharding
+    from nifty_tpu_torch.parallel.nufft import NufftPlan, clear_plans
+
+    dev = parallel.multihost.backend_device() if args.device != "cpu" else torch.device("cpu")
+    rank, p, f32 = args.rank, args.ranks, torch.float32
+    mesh = parallel.global_mesh(("fx",))
+    results, failed = [], []
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+        dist.barrier()
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    def report(line, err, tol):
+        got = [None] * p
+        dist.all_gather_object(got, float(err))
+        line.update(err=max(got), tol=tol, ok=max(got) <= tol)
+        results.append(line)
+        if not max(got) <= tol:
+            failed.append(line["check"])
+
+    # 9. radio imaging with learned coordinates
+    n, m = args.nufft_shape, args.learned_points
+    lh, cf, base, start_np, tan_np = learned_nufft_likelihood(n, m, dev, f32)
+    lh_s, cf_s, _, _, _ = learned_nufft_likelihood(n, m, dev, f32, field_mesh=mesh)
+    sh = {**cf_s.position_sharding(), "uv": NamedSharding(mesh, ())}
+    rows = [k for k, v in sh.items() if v.split_axes()]
+    ps, ts = (learned_position(cf_s, v, dev, f32, sh) for v in (start_np, tan_np))
+    pw, tw = (learned_position(cf, v, dev, f32) for v in (start_np, tan_np))
+    cut = lambda tree: {k: sh[k].shard(v) for k, v in tree.items()}  # noqa: E731
+    with parallel.field_sharded(mesh.get_group("fx"), rows):
+        ms, first_s = timed(lambda: lh_s.metric(ps, ts))
+        again = [timed(lambda: lh_s.metric(ps, ts))[1] for _ in range(args.reps)]
+        energy = float(lh_s(ps))
+    mf, whole_s = timed(lambda: lh.metric(pw, tw))
+    e_rel = abs(energy - float(lh(pw))) / abs(float(lh(pw)))
+    _, cut_s = timed(lambda: NufftPlan((n, n), base + 1e-4 * (ps["uv"] + 0.01), p).taps(
+        rank, dev, f32, deriv=True))
+    report({"check": "learned_nufft_metric", "shape": [n, n], "points": m, "ranks": p,
+            "first_s": first_s, "s_median": float(np.median(again)), "s_all": again,
+            "unsharded_s": whole_s, "energy_rel_err": e_rel, "taps_cut_s": cut_s},
+           max(_rel(ms, cut(mf)), e_rel), TOL["learned_metric"])
+    del ms, mf, ts, tw
+
+    def vi(lh_, pos, **kw):
+        return nt.optimize_kl(lh_, pos, key=torch.Generator(device=dev).manual_seed(81),
+                              n_total_iterations=1, sample_mode="linear_resample",
+                              **short_vi_settings(), **kw)[0]
+
+    ref, ref_s = timed(lambda: vi(lh, pw))
+    got, got_s = timed(lambda: vi(lh_s, ps, position_sharding=sh))
+    mine, start = cut(ref.pos), cut(pw)
+    step = {k: mine[k].double() - start[k].double() for k in mine}
+    report({"check": "learned_nufft_mgvi_iteration", "by": "position_sharding", "shape": [n, n],
+            "points": m, "ranks": p, "settings": "CG 3", "s": got_s, "unsharded_s": ref_s,
+            "step_rel_l2": _rel(ref.pos, pw), "rel_l2": _rel(got.pos, mine)},
+           _rel({k: got.pos[k].double() - start[k].double() for k in mine}, step), TOL["vi_step"])
+    del lh, lh_s, cf, cf_s, ps, pw, ref, got, base
+    clear_plans()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # 10. two (1, 2) meshes side by side, each its own optimize_kl with odir and a kl_reduce
+    halves = [DeviceMesh(dev.type, torch.tensor([[2 * h, 2 * h + 1]]), mesh_dim_names=("samples", "fx"))
+              for h in range(p // 2)]
+    half = halves[rank // 2]
+    weights = torch.tensor(KL_WEIGHTS, dtype=torch.float64)
+    reduce = lambda t: tree_map(lambda v: torch.tensordot(weights.to(v.device, v.dtype), v, dims=1), t)  # noqa: E731
+    nv = args.vi
+    lh_x, start_np = build_vi_likelihood(nv, dev, f32, None)
+    lh_h, _ = build_vi_likelihood(nv, dev, f32, None, field_mesh=half)
+    sh = lh_h.forward_model.inner.position_sharding()
+    whole = nt.position_from_numpy(lh_x.forward_model, start_np)
+    od = os.path.join(os.path.dirname(args.store), f"half{rank // 2}")
+    ref = vi(lh_x, whole, kl_reduce=reduce)
+    t0 = time.perf_counter()
+    got = vi(lh_h, nt.position_from_numpy(lh_h.forward_model, start_np, sharding=sh),
+             position_sharding=sh, kl_reduce=reduce, odir=od)
+    if cuda:
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    gathered = nt.OptimizeVI(lh_h, 1, position_sharding=sh).gather(got)
+    same = True
+    if rank % 2 == 0:  # each mesh's first rank wrote its checkpoint
+        saved = io.load_samples(os.path.join(od, "last.pkl"), "cpu")
+        same = all(torch.equal(saved.pos[k], v.cpu()) for k, v in gathered.pos.items())
+    report({"check": "half_meshes_optimize_kl", "by": "position_sharding", "mesh": [1, 2],
+            "meshes": [[2 * h, 2 * h + 1] for h in range(p // 2)], "shape": [nv, nv],
+            "kl_reduce": list(KL_WEIGHTS), "settings": "CG 3", "s_by_rank": None,
+            "last_pkl_equals_gathered": same},
+           _rel(gathered.pos, ref.pos) if same else float("inf"), TOL["vi"])
+    every = [None] * p
+    dist.all_gather_object(every, secs)
+    results[-1]["s_by_rank"] = every
+    return results, failed
 
 
 def _large(args):
@@ -390,11 +545,7 @@ def _large(args):
                         allocated_gib_at_end_by_rank=every(torch.cuda.memory_allocated() / 2**30))
         report(line, err, 0.0)
         i += 1
-    dist.destroy_process_group()
-    if rank == 0:
-        for line in results:
-            print(json.dumps(line), flush=True)
-    return 1 if failed else 0
+    return _finish(args, results, failed)
 
 
 def main(argv=None):
@@ -407,7 +558,10 @@ def main(argv=None):
     parser.add_argument("--tomography", type=int, default=1280, help="demo 1's grid (check 4)")
     parser.add_argument("--rays", type=int, default=16384, help="demo 1's rays (check 4)")
     parser.add_argument("--nuts", type=int, default=1280, help="the NUTS grid (check 6)")
-    parser.add_argument("--large", action="store_true", help="checks 7-8 in place of 1-6")
+    parser.add_argument("--large", action="store_true", help="checks 7-8 in place of 1-6 and 9-10")
+    parser.add_argument("--learned", action="store_true", help="checks 9-10 alone")
+    parser.add_argument("--learned-points", type=int, default=2**20 + 2,
+                        help="the learned coordinates' points (check 9)")
     parser.add_argument("--nufft-shape", type=int, default=4096, help="the NUFFT's image (check 7)")
     parser.add_argument("--nufft-points", type=int, default=2**22, help="its uv points (check 7)")
     parser.add_argument("--large-shapes", nargs="+", default=list(LARGE),
@@ -422,9 +576,10 @@ def main(argv=None):
            "--shape", str(args.shape), "--vi", str(args.vi), "--reps", str(args.reps),
            "--tomography", str(args.tomography), "--rays", str(args.rays), "--nuts", str(args.nuts),
            "--nufft-shape", str(args.nufft_shape), "--nufft-points", str(args.nufft_points),
-           "--large-shapes", *args.large_shapes]
+           "--learned-points", str(args.learned_points), "--large-shapes", *args.large_shapes]
     cmd += ["--device", args.device] if args.device else []
     cmd += ["--large"] if args.large else []
+    cmd += ["--learned"] if args.learned else []
     procs = [subprocess.Popen(cmd + ["--rank", str(r)]) for r in range(args.ranks)]
     codes = [pr.wait() for pr in procs]
     if args.device != "cpu":

@@ -482,6 +482,65 @@ def nufft_likelihood(n, n_points, device, dtype, field_mesh=None, noise=0.1, see
     return lh, cf, coords, latent_draw(cf.domain, 2), latent_draw(cf.domain, 3)
 
 
+def learned_nufft_likelihood(n, n_points, device, dtype, field_mesh=None, noise=0.1, seed=53,
+                             uv_scale=1e-4):
+    """Radio imaging with learned coordinates at full width:
+    ``VariablePositionNufft`` of ``exp(cf(x))``, the exact ``n``² field
+    (:func:`bench_field`), at the coordinates ``base + uv_scale · x["uv"]``:
+    ``base`` uniform in [-1/2, 1/2)² cycles a pixel (numpy ``seed``), the
+    latent ``uv`` ``(2, n_points)`` (``uv_scale`` 1e-4: about one bin of the
+    2× oversampled 4096² frame a unit).  The visibilities are the model's at
+    its own draw (:func:`latent_draw` seed 0, ``uv`` too) with complex noise
+    of ``noise`` times their rms modulus.  With ``field_mesh`` the field is
+    row-sharded and the data are the rank's share of the points
+    (``np.array_split``'s block).  Returns the likelihood, the field, the
+    base coordinates (a tensor on ``device``) and the start and a tangent
+    as numpy (latent seeds 2 and 3, ``uv`` among them); :func:`learned_position`
+    puts one on the card."""
+    import numpy as np
+    import torch
+
+    import nifty_tpu_torch as nt
+
+    rng = np.random.default_rng(seed)
+    base = torch.as_tensor(rng.uniform(-0.5, 0.5, (2, n_points)), device=device, dtype=dtype)
+    vp = nt.ops.nufft.VariablePositionNufft((n, n), n_points)
+
+    def model(cf):
+        return lambda x: vp({"nufftgrid": torch.exp(cf(x)), "nufftcoord": base + uv_scale * x["uv"]})
+
+    cf = bench_field(n, device, dtype)
+    domain = dict(cf.domain, uv=nt.ShapeWithDtype((2, n_points)))
+    with torch.no_grad():
+        vis = model(cf)(learned_position(cf, latent_draw(domain, 0), device, dtype)).cpu().numpy()
+    noise = noise * float(np.sqrt(np.mean(np.abs(vis) ** 2)))
+    vis = vis + noise * (rng.standard_normal(n_points) + 1j * rng.standard_normal(n_points))
+    if field_mesh is not None:
+        from nifty_tpu_torch.parallel.fft import mesh_axis
+
+        cf = bench_field(n, device, dtype, field_mesh=field_mesh)
+        ax = mesh_axis(field_mesh, "fx")
+        vis = np.array_split(vis, ax.size)[ax.rank]
+    cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
+    lh = nt.Gaussian(torch.as_tensor(vis, device=device, dtype=cdt),
+                     noise_cov_inv=lambda r: r / noise**2).amend(model(cf))
+    return lh, cf, base, latent_draw(domain, 2), latent_draw(domain, 3)
+
+
+def learned_position(cf, draw, device, dtype, sharding=None):
+    """A position of :func:`learned_nufft_likelihood` from numpy ``draw``:
+    the field's latents (the rank's rows of ξ under ``sharding``, the
+    field's ``position_sharding()``) and the whole ``uv``."""
+    import torch
+
+    import nifty_tpu_torch as nt
+
+    if sharding is not None:
+        sharding = {k: v for k, v in sharding.items() if k != "uv"}
+    pos = nt.position_from_numpy(cf, {k: v for k, v in draw.items() if k != "uv"}, sharding=sharding)
+    return {**pos, "uv": torch.as_tensor(draw["uv"], device=device, dtype=dtype)}
+
+
 def large_field_step(shape, knots, device, field_mesh=None, residual_map="vmap", kl_map="smap",
                      seed=0, key=1):
     """``tests/test_large_field.py:_run_step`` on the port: the float32

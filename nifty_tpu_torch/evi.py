@@ -93,27 +93,34 @@ def white_noise(likelihood: Likelihood, pos, key, point_estimates=()) -> WhiteNo
     (:func:`~.utils.tree.counter_normal`) from ``key`` and its index in
     draw order (the data leaves, then the prior's).  In a field-sharded run
     a split leaf (the data, the field's rows of ξ) draws only the rank's
-    block, its entries at their indices in the whole leaf: the rows of the
+    block, its entries at their indices in the whole leaf (a data leaf's
+    block starts after the lower ranks' shares, which may be a point
+    longer: one ``all_gather`` of the shares' lengths): the rows of the
     one-process draw, bit for bit, without making the rest."""
-    from .parallel.collectives import field
+    from .parallel.collectives import field, share_starts
 
     lh, p_liquid = likelihood.freeze(primals=pos, point_estimates=point_estimates)
     leaf = tree_leaves(p_liquid)[0]
     ctx = field()
     rank = 0 if ctx is None else torch.distributed.get_rank(ctx.group)
     order = itertools.count()
+    is_shape = lambda x: isinstance(x, ShapeWithDtype)  # noqa: E731
+    starts = iter(())
+    if ctx is not None:  # a response's shares may differ by a point: where each begins
+        starts = iter(share_starts([s.shape[0] if s.shape else 1 for s in
+                                    tree_leaves(lh.lsm_tangents_shape, is_leaf=is_shape)], ctx.group))
 
-    def draw(s, split):
-        n = math.prod(s.shape)
+    def draw(s, start):
         return counter_normal(int(key), next(order), s.shape, s.dtype or leaf.real.dtype,
-                              start=rank * n if split else 0, device=leaf.device)
+                              start=start, device=leaf.device)
 
-    data = tree_map(lambda s: draw(s, ctx is not None), lh.lsm_tangents_shape,
-                    is_leaf=lambda x: isinstance(x, ShapeWithDtype))
+    data = tree_map(lambda s: draw(s, next(starts, 0) * math.prod(s.shape[1:])),
+                    lh.lsm_tangents_shape, is_leaf=is_shape)
     if ctx is None:
-        prior = tree_map(lambda v: draw(ShapeWithDtype.from_leave(v), False), p_liquid)
+        prior = tree_map(lambda v: draw(ShapeWithDtype.from_leave(v), 0), p_liquid)
     else:
-        prior = {k: draw(ShapeWithDtype.from_leave(v), k in ctx.keys) for k, v in p_liquid.items()}
+        prior = {k: draw(ShapeWithDtype.from_leave(v), rank * v.numel() if k in ctx.keys else 0)
+                 for k, v in p_liquid.items()}
     return WhiteNoise(data, prior)
 
 

@@ -16,7 +16,8 @@ package's tables are int32); the weights are float32, as the reference's.
 
 Both are field-aware: inside :func:`~.parallel.collectives.field_sharded`
 their input is the rank's rows of a row-sharded field, and their output
-the rank's share of the rays (``field_share``), so the likelihood's data
+the rank's share of the rays (``field_share``: ``np.array_split``'s
+blocks, so any number of rays splits), so the likelihood's data
 are that share (see :mod:`.parallel.collectives`).  The exact response
 then applies the tables of the rank's cells, cut once per row range in
 numpy (:func:`~.ops.gather_reduce.column_block` of the per-ray tables, a
@@ -42,15 +43,12 @@ from .utils.tree import ShapeWithDtype
 __all__ = ["ExactGridLOS", "SamplingCartesianGridLOS"]
 
 
-def _share(target, p):
-    """The shape of a rank's share of an output of shape ``target`` split
-    over ``p`` ranks along its leading axis."""
-    if not target or target[0] % p:
-        raise NotImplementedError(
-            f"position_sharding= takes a line of sight whose rays split over the ranks, as it "
-            f"takes the NUFFT's and SKI's interpolation's points: {tuple(target)} rays over {p} "
-            f"ranks do not (ROADMAP.md)")
-    return (target[0] // p,) + tuple(target[1:])
+def _share(target, p, rank):
+    """The shape of rank ``rank``'s share of an output of shape ``target``
+    split over ``p`` ranks along its leading axis (``np.array_split``'s
+    blocks: the first ``target[0] mod p`` ranks one ray more)."""
+    lo, hi = collectives.share(target[0], p, rank)
+    return (hi - lo,) + tuple(target[1:])
 
 
 def _field_aware(response, x):
@@ -60,7 +58,6 @@ def _field_aware(response, x):
     ctx = collectives.field()
     if ctx is None:
         return response.rows_partial(x)
-    response.field_share(torch.distributed.get_world_size(ctx.group))
     lo, _ = collectives.rank_rows(ctx.group, x.shape[0], response.domain.shape[0])
     out = collectives.reduce_scatter(response.rows_partial(x, lo), ctx.group)
     return collectives.note_split(out)
@@ -89,9 +86,9 @@ class SamplingCartesianGridLOS(LazyModel):
         self.n_sampling_points = int(n_sampling_points)
         self.order = int(interpolation_order)
 
-    def field_share(self, p: int):
-        """The shape of a rank's share of the output over ``p`` ranks."""
-        return _share(tuple(self.target.shape), p)
+    def field_share(self, p: int, rank: int):
+        """The shape of rank ``rank``'s share of the output over ``p`` ranks."""
+        return _share(tuple(self.target.shape), p, rank)
 
     def rows_partial(self, x, lo=None):
         """Every ray's integral over the grid's rows ``[lo, lo + len(x))``,
@@ -270,9 +267,9 @@ class ExactGridLOS(LazyModel):
                                   transpose=t_tables)
         self.row_tables = RowBlocks(idx, wgt, t_tables, shape)
 
-    def field_share(self, p: int):
-        """The shape of a rank's share of the rays over ``p`` ranks."""
-        return _share(tuple(self.target.shape), p)
+    def field_share(self, p: int, rank: int):
+        """The shape of rank ``rank``'s share of the rays over ``p`` ranks."""
+        return _share(tuple(self.target.shape), p, rank)
 
     def rows_table(self, lo: int, n: int) -> PaddedSparse:
         """The response of the grid's rows ``[lo, lo + n)``: every ray's

@@ -15,6 +15,18 @@ differentiates the cone and the cepstrum.
 The models map real latents to complex fields: torch's vjp with a
 cotangent ``c`` equals ``jax.vjp``'s with ``conj(c)`` (the same gradient
 of a real loss).
+
+On a row-sharded latent (inside a field context whose split keys hold the
+dynamics latent: each rank its rows of the padded grid, as a caller's
+``position_sharding=`` cuts them) a model gathers the rows
+(:func:`~..parallel.collectives.all_gather`, whose adjoint sums the
+ranks' partial cotangents and keeps the rank's rows), computes the whole
+transfer field, and returns the rank's rows of it (``np.array_split``'s
+block of the output's rows, :meth:`field_share`); the lightspeeds' latent,
+replicated, passes through ``replicate``, so its cotangent is summed over
+the ranks.  A card holds the whole padded latent and the whole
+complex128 intermediates (the FFTs' arrays, a few of ``16 · prod(pshape)``
+bytes), which the transforms of a grid this size never make large.
 """
 
 from __future__ import annotations
@@ -97,6 +109,49 @@ def _central_crop(x, shape):
     return x
 
 
+class _Dynamics(Model):
+    """A dynamics model that knows its output's rows: on a row-sharded
+    latent it returns the rank's block of them (``field_share``)."""
+
+    def __init__(self, call, shape, **kw):
+        super().__init__(call, **kw)
+        self.out_shape = tuple(shape)
+
+    def field_share(self, p: int, rank: int):
+        """The shape of rank ``rank``'s rows of the output over ``p`` ranks."""
+        from ..parallel.collectives import share
+
+        lo, hi = share(self.out_shape[0], p, rank)
+        return (hi - lo,) + self.out_shape[1:]
+
+
+def _on_rows(fn, shape, pshape, key, replicated=()):
+    """``fn`` (of the whole latent, returning a field of ``shape``) on a
+    latent whose ``key`` may be the rank's rows of the padded grid
+    ``pshape``: inside a field context that splits ``key``, the rows
+    gathered, the ``replicated`` keys passed through ``replicate``, the
+    rank's rows of the output returned and noted; ``fn`` itself
+    elsewhere."""
+    from ..parallel import collectives
+
+    def run(x):
+        ctx = collectives.field()
+        if ctx is None or key not in ctx.keys:
+            return fn(x)
+        p, r = torch.distributed.get_world_size(ctx.group), torch.distributed.get_rank(ctx.group)
+        if x[key].shape[0] * p != pshape[0]:
+            raise ValueError(f"{tuple(x[key].shape)} is not a rank's rows of the {pshape} latent "
+                             f"over {p} ranks")
+        x = dict(x)
+        x[key] = collectives.all_gather(x[key], ctx.group, axis=0)
+        for k in replicated:
+            x[k] = collectives.replicate(x[k], ctx.group)
+        lo, hi = collectives.share(shape[0], p, r)
+        return collectives.note_split(fn(x)[lo:hi])
+
+    return run
+
+
 def _dynamics(shape, distances, key, sm_s0, sm_x0, harmonic_padding, causal, minimum_phase):
     """The transfer field and the smoothed dynamics in complex128, the
     padded shape and the numpy weights."""
@@ -162,10 +217,10 @@ def dynamic_operator(*, shape: Tuple[int, ...], distances, key: str, sm_s0: floa
         return lambda x: fn(x).to(_complex(x[key].dtype))
 
     domain = {key: ShapeWithDtype(pshape)}
-    model = Model(rounded(transfer), domain=domain,
-                  init={key: partial(random_like, primals=domain[key])})
+    model = _Dynamics(_on_rows(rounded(transfer), shape, pshape, key), shape, domain=domain,
+                      init={key: partial(random_like, primals=domain[key])})
     ops = {
-        "smoothed_dynamics": rounded(smoothed),
+        "smoothed_dynamics": _on_rows(rounded(smoothed), shape, pshape, key),
         "causal_mask": causal_mask,
         "smoothness_weight": sm_weight,
     }
@@ -207,9 +262,11 @@ def dynamic_lightcone_operator(*, shape, distances, key: str, lightcone_key: str
     domain = {key: ShapeWithDtype(pshape), lightcone_key: ShapeWithDtype((ndim - 1,))}
     domain = {k: domain[k] for k in sorted(domain)}  # JAX's order of dict keys
     init = {k: partial(random_like, primals=v) for k, v in domain.items()}
-    model = Model(model_fn, domain=domain, init=init)
+    model = _Dynamics(_on_rows(model_fn, shape, pshape, key, (lightcone_key,)), shape,
+                      domain=domain, init=init)
     ops = {
-        "smoothed_dynamics": lambda x: smoothed(x).to(_complex(x[key].dtype)),
+        "smoothed_dynamics": _on_rows(lambda x: smoothed(x).to(_complex(x[key].dtype)), shape, pshape,
+                                      key),
         "causal_mask": causal_mask,
         "smoothness_weight": sm_weight,
         "lightspeed": lightspeed,

@@ -13,11 +13,14 @@ type 2 is differentiable in them (:class:`VariablePositionNufft`,
 
 On a row-sharded field (inside a field context, the input the rank's rows
 the field noted) :func:`nufft2` is the sharded type 2 of
-:mod:`~..parallel.nufft` at fixed coordinates: an exchange of column
-blocks before the oversampled axis 0 is padded, the taps cut to the rank's
-block, and the rank's share of the points.  Coordinates as model inputs
-(:class:`VariablePositionNufft`, :class:`ShiftedPositionFFT`) are refused
-there (ROADMAP.md).
+:mod:`~..parallel.nufft`: an exchange of column blocks before the
+oversampled axis 0 is padded, the taps cut to the rank's block, and the
+rank's share of the points (``np.array_split``'s block).  Coordinates that
+carry a gradient (:class:`VariablePositionNufft`'s, a replicated model
+input) have their cotangent summed over the ranks;
+:class:`ShiftedPositionFFT` takes the rank's rows of its shifts (split
+with the field's), gathers them for the coordinates, and returns the
+rank's rows of its output.
 
 Conventions: ``coords`` holds frequencies in cycles per pixel, shape
 ``(ndim, M)``; the type 2 computes ``y_k = Σ_j x_j · exp(-2πi · coords_k
@@ -178,18 +181,6 @@ def _sorted_domain(domain):
     return {k: domain[k] for k in sorted(domain)}
 
 
-def _unsharded(model):
-    """Refuse ``model`` (a NUFFT whose coordinates are inputs) inside a
-    field-sharded run."""
-    from ..parallel import collectives
-
-    if collectives.field() is not None:
-        raise NotImplementedError(
-            f"position_sharding= takes the type-2 NUFFT of the row-sharded field at fixed "
-            f"coordinates; {type(model).__name__} (coordinates as model inputs) is not ported "
-            "(ROADMAP.md)")
-
-
 class VariablePositionNufft(Model):
     """Type-2 NUFFT with the sampling positions as inputs: the field's
     Fourier transform at arbitrary, possibly learned, positions,
@@ -215,7 +206,6 @@ class VariablePositionNufft(Model):
         super().__init__(domain=domain, init=init)
 
     def forward(self, x):
-        _unsharded(self)
         return nufft2(x[self._k_grid], x[self._k_coord], oversampling=self.oversampling,
                       kernel_width=self.kernel_width)
 
@@ -256,16 +246,29 @@ class ShiftedPositionFFT(Model):
         super().__init__(domain=domain, init=init)
 
     def forward(self, x):
-        _unsharded(self)
-        delta = x[self._k_delta].reshape(len(self.shift_directions), -1)
+        from ..parallel import collectives
+
+        grid, delta = x[self._k_grid], x[self._k_delta]
+        ctx = collectives.row_shard(grid)
+        split = ctx is not None and delta.shape[1] != self.grid_shape[0]
+        if split:  # the rank's rows of the shifts: every point's for the coordinates
+            delta = collectives.all_gather(delta, ctx.group, axis=1)
+        delta = delta.reshape(len(self.shift_directions), -1)
         rows = list(self._base.like(delta, delta.dtype))
         for i, d in enumerate(self.shift_directions):
             rows[d] = rows[d] + self._df[d] * delta[i]
         coords = torch.stack(rows)
-        vis = nufft2(x[self._k_grid], coords, oversampling=self.oversampling,
-                     kernel_width=self.kernel_width)
         # nufft2 uses centred pixel indices (j - n//2); re-phase so that
         # delta = 0 gives the standard (corner-origin) FFT exactly
         shift = sum(coords[d] * (self.grid_shape[d] // 2) for d in range(len(self.grid_shape)))
-        vis = vis * torch.exp(shift * (-2j * math.pi))
-        return vis.reshape(self.grid_shape)
+        if ctx is None:
+            vis = nufft2(grid, coords, oversampling=self.oversampling, kernel_width=self.kernel_width)
+            return (vis * torch.exp(shift * (-2j * math.pi))).reshape(self.grid_shape)
+        from ..parallel.nufft import sharded_nufft2
+
+        vis = sharded_nufft2(grid, coords, ctx, oversampling=self.oversampling,
+                             kernel_width=self.kernel_width, local_coords=split)
+        p, r = torch.distributed.get_world_size(ctx.group), torch.distributed.get_rank(ctx.group)
+        lo, hi = collectives.share(shift.shape[0], p, r)
+        out = (vis * torch.exp(shift[lo:hi] * (-2j * math.pi))).reshape((-1,) + self.grid_shape[1:])
+        return collectives.note_split(out)  # the rank's rows of the output

@@ -40,22 +40,28 @@ inside :func:`~.parallel.collectives.field_sharded`; a mesh with a
 ``"samples"`` axis beside the field's shares the samples over it too.
 Each data leaf is split along its leading axis: it is either the rank's
 rows of the field, or the rank's share of the output of a response of
-them (``ExactGridLOS``, ``SamplingCartesianGridLOS``, ``nufft2`` at fixed
-coordinates, SKI's ``interp_mat``), which sums or exchanges the ranks'
-partial outputs and keeps the rank's block of them.  Any other
-likelihood (a response that mixes rows otherwise: a sum or a cut of the
-field, ``ToeplitzSKI``, a NUFFT whose coordinates are inputs; replicated
-data) is refused at the first position the run sees (ROADMAP.md).  The
-samples and positions are the rank's shards (:meth:`OptimizeVI.gather`
-puts them together, :meth:`OptimizeVI.scatter` cuts them); the status
-message reads them gathered.  With
-``odir`` the run's first rank writes the files of the one-process run,
+them (``ExactGridLOS``, ``SamplingCartesianGridLOS``, the NUFFT with fixed
+or learned coordinates, ``ShiftedPositionFFT``, SKI's ``interp_mat``, the
+dynamics priors), which sums or exchanges the ranks' partial outputs and
+keeps the rank's block of them: ``np.array_split``'s blocks, so the first
+``M mod p`` ranks hold one point more.  Any other likelihood (a response
+that mixes rows otherwise: a sum or a cut of the field, ``ToeplitzSKI``;
+replicated data) is refused at the first position the run sees
+(ROADMAP.md).  The samples and positions are the rank's shards
+(:meth:`OptimizeVI.gather` puts them together, :meth:`OptimizeVI.scatter`
+cuts them); the status message reads them gathered.  With
+``odir`` the mesh's first rank writes the files of the one-process run,
 from the gathered samples, and a resume cuts the loaded ones again; each
 exported operator runs on the shards and its output is gathered along
-its leading axis where a field or a field-aware response returned it.
+its leading axis where a field or a field-aware response returned it.  A
+mesh may hold some of the ranks only (two fits side by side on disjoint
+cards; every rank builds every mesh, in one order): its collectives,
+barriers and files involve its own ranks alone.
 
 :class:`OptimizeVI` takes the JAX package's hooks: ``kl_reduce`` (the
-reduction over the sample axis, the mean by default), and functions in
+reduction over the sample axis, the mean by default; with samples across
+ranks the default sums over them, another gathers the per-sample values
+in the global sample order first), and functions in
 place of the KL's value and gradient, its metric, the two samplers and
 the status message.  A sampler given so draws one residual and is
 called once a sample (it reads the host and draws random numbers, which
@@ -176,16 +182,59 @@ def _sample_mean(forest, axis):
     return tree_map(lambda x: (_all_reduce(x.sum(dim=0), axis.group) / n).to(x.dtype), forest)
 
 
-def _mesh_group(mesh):
-    """The group of every rank of ``mesh``: its own for one axis, the
-    default group for a mesh over every rank."""
+class _SampleGather(torch.autograd.Function):
+    """Every rank's samples of ``x`` (this rank's on the leading axis, the
+    ranks' counts ``sizes``) joined in the global sample order; the adjoint
+    keeps this rank's slice of the cotangent (each sample lives on one
+    rank, so nothing is summed)."""
+
+    @staticmethod
+    def forward(x, group, sizes, rank):
+        from .parallel.mesh import gather_axis
+
+        return gather_axis(x, 0, group, sizes=sizes)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.group, ctx.sizes, ctx.rank = inputs
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(0, sum(ctx.sizes[: ctx.rank]), ctx.sizes[ctx.rank]), None, None, None
+
+    @staticmethod
+    def jvp(ctx, tangent, *_):
+        return _SampleGather.apply(tangent, ctx.group, ctx.sizes, ctx.rank)
+
+
+def _sample_reduce(forest, axis, reduce):
+    """The caller's ``reduce`` (a ``kl_reduce`` of its own) of every rank's
+    samples: the per-sample values gathered over the samples axis in the
+    global sample order (:class:`_SampleGather`), then reduced alike on
+    every rank."""
+    from .parallel.mesh import gather_axis
+
+    n = torch.utils._pytree.tree_leaves(forest)[0].shape[0]
+    sizes = gather_axis(torch.tensor([n]), 0, axis.group).tolist()
+    return reduce(tree_map(lambda x: _SampleGather.apply(x, axis.group, sizes, axis.rank), forest))
+
+
+def _mesh_ranks(mesh):
+    """``(first, barrier)`` of the ranks of ``mesh``: whether this rank is
+    the mesh's first (local rank 0 on every axis), and a barrier over the
+    mesh's ranks alone (one over each axis group in turn, which holds every
+    rank of the mesh once they all passed), so a mesh over some of the
+    ranks (two fits side by side on disjoint cards) needs no group of its
+    own and leaves the other ranks out."""
     import torch.distributed as dist
 
-    if mesh.ndim == 1:
-        return mesh.get_group()
-    if mesh.mesh.numel() != dist.get_world_size():
-        raise NotImplementedError("a mesh of several axes over some of the ranks")
-    return dist.group.WORLD
+    names = mesh.mesh_dim_names
+
+    def barrier():
+        for name in names:
+            dist.barrier(group=mesh.get_group(name))
+
+    return all(mesh.get_local_rank(name) == 0 for name in names), barrier
 
 
 def _gather(forest, field=None, samples=None, keys=None):
@@ -193,16 +242,17 @@ def _gather(forest, field=None, samples=None, keys=None):
     leaves under ``keys``; every leaf when ``keys`` is None) gathered over
     the field group ``field`` along the axis after the samples', the
     samples over ``samples`` (a ``parallel.fft.MeshAxis``) along the leading
-    axis."""
+    axis.  A response's shares and the ranks' sample counts may differ by
+    one (``np.array_split``'s blocks, ``host_local_slice``'s)."""
     from .parallel.mesh import gather_axis
 
     if field is not None:
         if keys is None:
-            forest = tree_map(lambda x: gather_axis(x, 1, field), forest)
+            forest = tree_map(lambda x: gather_axis(x, 1, field, uneven=True), forest)
         else:
             forest = {k: gather_axis(v, 1, field) if k in keys else v for k, v in forest.items()}
     if samples is not None:
-        forest = tree_map(lambda x: gather_axis(x, 0, samples.group), forest)
+        forest = tree_map(lambda x: gather_axis(x, 0, samples.group, uneven=True), forest)
     return forest
 
 
@@ -210,17 +260,18 @@ def _field_aware(root):
     """``(found, nufft)``: the field-aware responses (objects with a
     ``field_share`` method) that ``root`` can call, and whether it can call
     ``nufft2`` (whose share of a row-sharded field shows only when it
-    runs: the function itself, or code that names it, ``nt.nufft2`` too),
+    runs: the function itself, code that names it, ``nt.nufft2`` too, or a
+    ``VariablePositionNufft`` or ``ShiftedPositionFFT``),
     through modules, containers, partials, bound methods and functions'
     closures, defaults and the globals they name."""
     import types
 
-    from .ops.nufft import nufft2
+    from .ops.nufft import ShiftedPositionFFT, VariablePositionNufft, nufft2
 
     found, nufft, seen, todo = [], False, set(), [root]
     while todo:
         obj = todo.pop()
-        nufft = nufft or obj is nufft2
+        nufft = nufft or obj is nufft2 or isinstance(obj, (VariablePositionNufft, ShiftedPositionFFT))
         if id(obj) in seen or isinstance(obj, (torch.Tensor, np.ndarray, str, bytes, int, float,
                                                type, types.ModuleType)):
             continue
@@ -334,9 +385,10 @@ class OptimizeVI:
             self.samples_axis = mesh_axis(mesh, mesh.mesh_dim_names[0])
             self._mesh = mesh
         if self.samples_axis is not None:
-            if kl_reduce is not _mean:
-                raise NotImplementedError("a kl_reduce of its own with samples across ranks")
-            kl_reduce = partial(_sample_mean, axis=self.samples_axis)
+            if kl_reduce is _mean:
+                kl_reduce = partial(_sample_mean, axis=self.samples_axis)
+            else:
+                kl_reduce = partial(_sample_reduce, axis=self.samples_axis, reduce=kl_reduce)
         self.likelihood = likelihood
         self.residual_map = residual_map
         self.n_total_iterations = n_total_iterations
@@ -392,8 +444,8 @@ class OptimizeVI:
                 import torch.distributed as dist
 
                 found, nufft = _field_aware(self.likelihood)
-                p = dist.get_world_size(self.field) if found else 1
-                shares = {tuple(r.field_share(p)) for r in found}
+                p, r = (dist.get_world_size(self.field), dist.get_rank(self.field)) if found else (1, 0)
+                shares = {tuple(resp.field_share(p, r)) for resp in found}
             if tuple(d.shape) not in shares:
                 pending.append(tuple(d.shape))
         noted = set()
@@ -407,11 +459,11 @@ class OptimizeVI:
                 raise NotImplementedError(
                     f"position_sharding= takes a likelihood whose data are the field's rows or"
                     f" the rank's share of a response of them (ExactGridLOS,"
-                    f" SamplingCartesianGridLOS, nufft2 at fixed coordinates, SKI's interp_mat):"
-                    f" each data leaf's leading axis the rank's {sorted(rows)} rows of the"
-                    f" field, or a leaf of shape {sorted(shares | noted)}, not {bad[0]}; a"
-                    " response that mixes rows otherwise (a sum or a cut of the field,"
-                    " ToeplitzSKI, a NUFFT whose coordinates are inputs) is not ported"
+                    f" SamplingCartesianGridLOS, the NUFFT, SKI's interp_mat; np.array_split's"
+                    f" blocks of its points): each data leaf's leading axis the rank's"
+                    f" {sorted(rows)} rows of the field, or this rank's share, a leaf of shape"
+                    f" {sorted(shares | noted)}, not {bad[0]}; a response that mixes rows"
+                    " otherwise (a sum or a cut of the field, ToeplitzSKI) is not ported"
                     " (ROADMAP.md)")
         self._rows_checked = True
 
@@ -855,8 +907,8 @@ def optimize_kl(
         position_sharding=position_sharding,
     )
     across = opt_vi.field is not None or opt_vi.samples_axis is not None
-    group = _mesh_group(opt_vi._mesh) if across and odir is not None else None
-    writes = group is None or _first_rank(group)
+    mesh = opt_vi._mesh if across and odir is not None else None
+    writes, barrier = _mesh_ranks(mesh) if mesh is not None else (True, None)
     last_fn = os.path.join(odir, "last.pkl") if odir is not None else None
     resume_fn = resume if isinstance(resume, str) and os.path.isfile(resume) else last_fn
     sanity_fn = os.path.join(odir, "minisanity.txt") if odir is not None else None
@@ -865,8 +917,8 @@ def optimize_kl(
     if not isinstance(samples, Samples):
         samples = Samples(pos=position_or_samples)
     state = None
-    if group is not None and resume:
-        _barrier(group)  # the first rank's last write is whole before anyone reads
+    if barrier is not None and resume:
+        barrier()  # the first rank's last write is whole before anyone reads
     if resume and resume_fn is not None and os.path.isfile(resume_fn):
         samples, state = io.load(resume_fn, device_of(samples.pos))
         samples = opt_vi.scatter(samples)
@@ -908,19 +960,6 @@ def optimize_kl(
                 io.dump((whole, whole_state._replace(config={})), last_fn)
         if callback is not None:
             callback(samples, state)
-    if group is not None:
-        _barrier(group)
+    if barrier is not None:
+        barrier()
     return samples, state
-
-
-def _first_rank(group) -> bool:
-    """Whether this process is rank 0 of ``group``."""
-    import torch.distributed as dist
-
-    return dist.get_rank(group) == 0
-
-
-def _barrier(group):
-    import torch.distributed as dist
-
-    dist.barrier(group=group)

@@ -19,9 +19,11 @@ maps, each pair the other's adjoint, make the reductions exact under
   rank-local work (the amplitude's parameters before they colour the
   rank's rows): its adjoint is the sum of the ranks' partial cotangents;
 - :func:`reduce_scatter`, the sum over the ranks of a full-length partial
-  output, of which rank ``r`` keeps the ``r``-th of ``p`` equal blocks
-  along an axis: a field-aware response's output.  Its adjoint is
-  :func:`all_gather`, the blocks joined in rank order.  A share rather
+  output, of which rank ``r`` keeps the ``r``-th of ``p`` blocks along an
+  axis: a field-aware response's output.  The blocks follow
+  ``np.array_split``: of ``M`` entries the first ``M mod p`` ranks hold
+  one more (:func:`share`), so any number of points or rays splits.  Its
+  adjoint is :func:`all_gather`, the blocks joined in rank order.  A share rather
   than a replicated sum keeps every datum on one rank, so the energies,
   the noise draws and the χ² sum their data over the group as they do
   for field rows, with nothing counted twice.
@@ -65,6 +67,8 @@ __all__ = [
     "reduce_sum",
     "replicate",
     "row_shard",
+    "share",
+    "share_starts",
 ]
 
 
@@ -141,22 +145,72 @@ def _back(buf, like, axis):
     return out.to(like.device).movedim(0, axis)
 
 
+def share(n: int, p: int, r: int):
+    """``(lo, hi)``: rank ``r``'s block of ``n`` entries split over ``p``
+    ranks as ``np.array_split`` splits them (the first ``n mod p`` ranks
+    one more)."""
+    base, extra = divmod(int(n), int(p))
+    lo = r * base + min(r, extra)
+    return lo, lo + base + (1 if r < extra else 0)
+
+
+def _padded(src, p):
+    """The ``(p, ceil(n / p), ...)`` blocks of the leading axis of ``src``
+    (``n`` long), each rank's :func:`share` at the front of its row, zeros
+    after."""
+    n = src.shape[0]
+    c, extra = -(-n // p), n % p
+    if extra == 0:
+        return src.reshape((p, c) + tuple(src.shape[1:]))
+    out = src.new_zeros((p, c) + tuple(src.shape[1:]))
+    out[:extra] = src[: extra * c].reshape((extra, c) + tuple(src.shape[1:]))
+    out[extra:, : c - 1] = src[extra * c:].reshape((p - extra, c - 1) + tuple(src.shape[1:]))
+    return out
+
+
+def _unpadded(blocks, n):
+    """The inverse of :func:`_padded`: the ``n`` entries of the blocks."""
+    p, c = blocks.shape[:2]
+    extra = n % p
+    if extra == 0:
+        return blocks.reshape((n,) + tuple(blocks.shape[2:]))
+    rest = tuple(blocks.shape[2:])
+    return torch.cat([blocks[:extra].reshape((extra * c,) + rest),
+                      blocks[extra:, : c - 1].reshape(((p - extra) * (c - 1),) + rest)])
+
+
 def _reduce_scatter(x, axis, group):
-    p = dist.get_world_size(group)
-    if x.shape[axis] % p:
-        raise ValueError(f"axis {axis} of {tuple(x.shape)} does not split over {p} ranks")
-    src = _leading(x, axis).to(backend_device())
-    out = src.new_empty((src.shape[0] // p,) + tuple(src.shape[1:]))
-    dist.reduce_scatter_tensor(out, src, group=group)
-    return _back(out, x, axis)
+    """``x`` summed over ``group``, this rank's :func:`share` of ``axis``
+    kept: one ``reduce_scatter_tensor`` of blocks padded to ``ceil(M / p)``
+    where ``M`` does not split evenly, then cropped (the padding adds
+    zeros only, so the shares are exact)."""
+    p, r = dist.get_world_size(group), dist.get_rank(group)
+    n = x.shape[axis]
+    src = _padded(_leading(x, axis).to(backend_device()), p)
+    out = src.new_empty(tuple(src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src.reshape((-1,) + tuple(src.shape[2:])), group=group)
+    lo, hi = share(n, p, r)
+    return _back(out[: hi - lo], x, axis)
 
 
-def _all_gather(x, axis, group):
-    p = dist.get_world_size(group)
+def _all_gather(x, axis, group, total=None):
+    """The ranks' blocks of ``axis`` joined in rank order; ``total`` (the
+    joined length; ``p`` times this rank's by default) gives blocks of
+    :func:`share`'s sizes, padded to ``ceil(total / p)`` for one
+    ``all_gather_into_tensor`` and cropped."""
+    p, r = dist.get_world_size(group), dist.get_rank(group)
+    n = x.shape[axis] * p if total is None else int(total)
+    lo, hi = share(n, p, r)
+    if x.shape[axis] != hi - lo:
+        raise ValueError(f"rank {r}'s block of {n} over {p} ranks has {hi - lo} entries, not "
+                         f"{x.shape[axis]}")
     src = _leading(x, axis).to(backend_device())
-    out = src.new_empty((src.shape[0] * p,) + tuple(src.shape[1:]))
+    c = -(-n // p)
+    if src.shape[0] < c:
+        src = torch.cat([src, src.new_zeros((c - src.shape[0],) + tuple(src.shape[1:]))])
+    out = src.new_empty((p * c,) + tuple(src.shape[1:]))
     dist.all_gather_into_tensor(out, src, group=group)
-    return _back(out, x, axis)
+    return _back(_unpadded(out.reshape((p, c) + tuple(src.shape[1:])), n), x, axis)
 
 
 class _ReduceScatter(torch.autograd.Function):
@@ -170,10 +224,11 @@ class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.group, ctx.axis = inputs[1], inputs[2]
+        ctx.total = inputs[0].shape[inputs[2]]
 
     @staticmethod
     def backward(ctx, grad):
-        return _AllGather.apply(grad, ctx.group, ctx.axis), None, None
+        return _AllGather.apply(grad, ctx.group, ctx.axis, ctx.total), None, None
 
     @staticmethod
     def jvp(ctx, tangent, *_):
@@ -186,41 +241,42 @@ class _ReduceScatter(torch.autograd.Function):
 
 
 class _AllGather(torch.autograd.Function):
-    """The ranks' blocks of ``axis`` joined in rank order; the adjoint of
-    :class:`_ReduceScatter`."""
+    """The ranks' blocks of ``axis`` joined in rank order, ``total`` long
+    (None: ``p`` equal blocks); the adjoint of :class:`_ReduceScatter`."""
 
     @staticmethod
-    def forward(x, group, axis):
-        return _all_gather(x, axis, group)
+    def forward(x, group, axis, total=None):
+        return _all_gather(x, axis, group, total)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.group, ctx.axis = inputs[1], inputs[2]
+        ctx.group, ctx.axis, ctx.total = inputs[1], inputs[2], output.shape[inputs[2]]
 
     @staticmethod
     def backward(ctx, grad):
-        return _ReduceScatter.apply(grad, ctx.group, ctx.axis), None, None
+        return _ReduceScatter.apply(grad, ctx.group, ctx.axis), None, None, None
 
     @staticmethod
     def jvp(ctx, tangent, *_):
-        return _AllGather.apply(tangent, ctx.group, ctx.axis)
+        return _AllGather.apply(tangent, ctx.group, ctx.axis, ctx.total)
 
     @staticmethod
-    def vmap(info, in_dims, x, group, axis):
-        return _AllGather.apply(x.movedim(in_dims[0], 0), group, axis + 1), 0
+    def vmap(info, in_dims, x, group, axis, total=None):
+        return _AllGather.apply(x.movedim(in_dims[0], 0), group, axis + 1, total), 0
 
 
 def reduce_scatter(x, group, axis: int = 0):
     """``x`` summed over the ranks of ``group``, of which this rank keeps
-    its block of ``axis`` (``p`` equal blocks in rank order;
+    its block of ``axis`` (:func:`share`'s blocks in rank order;
     differentiable, its adjoint :func:`all_gather`)."""
     return _ReduceScatter.apply(x, group, axis % x.ndim)
 
 
-def all_gather(x, group, axis: int = 0):
-    """The ranks' ``x`` joined along ``axis`` in rank order
-    (differentiable, its adjoint :func:`reduce_scatter`)."""
-    return _AllGather.apply(x, group, axis % x.ndim)
+def all_gather(x, group, axis: int = 0, total=None):
+    """The ranks' ``x`` joined along ``axis`` in rank order, ``total``
+    long where the blocks are :func:`share`'s of ``total`` (differentiable,
+    its adjoint :func:`reduce_scatter`)."""
+    return _AllGather.apply(x, group, axis % x.ndim, total)
 
 
 def reduce_sum(x, group):
@@ -338,3 +394,16 @@ def rank_rows(group, n_local: int, n_total: int):
     if n_local * p != n_total:
         raise ValueError(f"{n_local} rows a rank over {p} ranks are not the {n_total} rows of the grid")
     return r * n_local, n_local
+
+
+def share_starts(sizes, group):
+    """Where this rank's blocks start in the whole: for each of ``sizes``
+    (this rank's lengths of some leading axes) the sum of the lower ranks'
+    lengths (one ``all_gather`` of the sizes)."""
+    p, r = dist.get_world_size(group), dist.get_rank(group)
+    if not sizes:
+        return []
+    mine = torch.tensor([int(n) for n in sizes], dtype=torch.int64, device=backend_device())
+    every = mine.new_empty((p * mine.numel(),))
+    dist.all_gather_into_tensor(every, mine, group=group)
+    return every.reshape(p, -1)[:r].sum(dim=0).tolist()

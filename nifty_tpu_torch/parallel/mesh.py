@@ -59,19 +59,28 @@ def _dim(mesh, name) -> int:
     return mesh.mesh_dim_names.index(name)
 
 
-def gather_axis(x, axis: int, group):
+def gather_axis(x, axis: int, group, uneven: bool = False, sizes=None):
     """The shards ``x`` of the ranks of ``group`` joined along ``axis`` in
-    rank order (every shard of the same shape)."""
+    rank order: every shard of the same shape, or with ``uneven`` shards of
+    any length along ``axis`` (their lengths gathered first, or given as
+    ``sizes``; the shards padded to the longest and cropped)."""
     p = dist.get_world_size(group)
     dev = backend_device()
     src = x.movedim(axis, 0).contiguous()
     real = torch.view_as_real(src) if src.is_complex() else src
+    if sizes is None and uneven:
+        mine = torch.tensor([src.shape[0]], dtype=torch.int64, device=dev)
+        every = [torch.empty_like(mine) for _ in range(p)]
+        dist.all_gather(every, mine, group=group)
+        sizes = torch.cat(every).tolist()
+    sizes = [src.shape[0]] * p if sizes is None else [int(n) for n in sizes]
+    if max(sizes) > src.shape[0]:
+        real = torch.cat([real, real.new_zeros((max(sizes) - src.shape[0],) + tuple(real.shape[1:]))])
     parts = [torch.empty_like(real, device=dev) for _ in range(p)]
     dist.all_gather(parts, real.to(dev), group=group)
-    out = torch.stack(parts).to(x.device)
+    out = torch.cat([part[:n] for part, n in zip(parts, sizes)]).to(x.device)
     if src.is_complex():
         out = torch.view_as_complex(out)
-    out = out.reshape((p * src.shape[0],) + tuple(src.shape[1:]))
     return out.movedim(0, axis)
 
 

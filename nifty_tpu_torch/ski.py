@@ -111,13 +111,11 @@ class GridInterpolation(PaddedSparse):
                          transpose=t_tables)
         self.row_tables = RowBlocks(idx, wgt, t_tables, self.grid_shape)
 
-    def field_share(self, p: int):
-        """The shape of a rank's share of the points over ``p`` ranks."""
-        if self.shape[0] % p:
-            raise NotImplementedError(
-                f"position_sharding= takes an interpolation whose points split over the ranks: "
-                f"{self.shape[0]} points over {p} ranks do not (ROADMAP.md)")
-        return (self.shape[0] // p,)
+    def field_share(self, p: int, rank: int):
+        """The shape of rank ``rank``'s share of the points over ``p`` ranks
+        (``np.array_split``'s blocks)."""
+        lo, hi = collectives.share(self.shape[0], p, rank)
+        return (hi - lo,)
 
     def rows_table(self, lo: int, n: int) -> PaddedSparse:
         """The matrix of the grid's rows ``[lo, lo + n)``; itself for every row."""
@@ -127,7 +125,6 @@ class GridInterpolation(PaddedSparse):
         ctx = collectives.row_shard(x, self.grid_shape)
         if ctx is None:
             return super().__matmul__(x)
-        self.field_share(torch.distributed.get_world_size(ctx.group))
         lo, b = collectives.rank_rows(ctx.group, x.numel() // int(np.prod(self.grid_shape[1:])),
                                       self.grid_shape[0])
         out = collectives.reduce_scatter(PaddedSparse.__matmul__(self.rows_table(lo, b), x), ctx.group)

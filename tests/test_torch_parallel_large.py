@@ -15,17 +15,29 @@ first, points on the ranks' column boundaries, and a point on a bin.
 a SKI-interpolation likelihood, and one MGVI iteration with
 ``position_sharding=`` over each (the JAX package's draws) against the JAX
 package's ``position_sharding=`` runs on the conftest's 8-device mesh,
-each in a process of its own beside them.  (c) K7's plain version:
-ranges of a draw against the whole draw, bit for bit, its moments and a
-KS statistic; a p-rank ``white_noise`` against the one-process one.  (d)
-The large-field step at ``_run_step``'s two smoke sizes on 2 ranks
-against the one-process port step.  (e) The refusals that stay.
+each in a process of its own beside them.  On the same launches: the
+NUFFT with learned coordinates (``VariablePositionNufft``, 49 points that
+split unevenly; metric, energy and the coordinates' cotangent) and
+``ShiftedPositionFFT`` (its shifts' rows split with the field's), points
+that do not split over the ranks, against the JAX package; one MGVI
+iteration over the learned coordinates with a ``kl_reduce`` of one's own
+on the field mesh, on a mesh with samples across ranks (2 × 1 and 2 ×
+2) and, on 4 ranks, on two (1, 2) meshes over ranks {0, 1} and {2, 3}
+side by side with ``odir=`` (the second one resumed), against the JAX
+package's ``position_sharding=`` run; the dynamics light cone on a
+row-split latent against the JAX package's unsharded one.  (c) K7's plain
+version: ranges of a draw against the whole draw, bit for bit, its
+moments and a KS statistic; a p-rank ``white_noise`` against the
+one-process one.  (d) The large-field step at ``_run_step``'s two smoke
+sizes on 2 ranks against the one-process port step.  (e) The refusal that
+stays.
 
 Tolerances, and why: the stages 1e-12 of the maximum (float64 FFTs and
 sums in another order); the sharded metric and energy 1e-10 (as the
 field's metric in ``test_torch_parallel.py``); one MGVI iteration against
 the JAX package 1e-4 (the reference's own bound, ``tests/test_parallel.py``);
-the large-field step 1e-5 relative L2 in float32 (the reductions of a
+the light cone 1e-10 relative (one FFT in another order); the
+large-field step 1e-5 relative L2 in float32 (the reductions of a
 sharded run add in another order); K7's ranges exact; its moments within
 5 standard errors at 10⁶ entries, the KS statistic below the 1e-3 level's
 1.95/√n.
@@ -67,8 +79,15 @@ CG = dict(maxiter=5, miniter=5, resnorm=-1.0)
 KL = dict(maxiter=2, xtol=-1.0, cg_kwargs=CG)
 WIDTH = 4  # the NUFFT's kernel width on the ranks: the JAX package's position_sharding=
 # run compiles its taps in 95 s at width 6, 63 s at width 4 on the CPU
+LEARNED_WIDTH = 2  # the learned coordinates' and the shifts' width: the JAX package compiles
+# their derivatives in 46 s (metric, gradient) and its learned MGVI in 116 s at width 4
 SMOKE = (((1024, 512), 16), ((128, 64, 16), 8))  # _run_step's CI sizes and knots
 WHITE_KEY = 2**40 + 17
+N_LEARNED = 49  # learned coordinates: 25 + 24 points over 2 ranks, 13 + 12 + 12 + 12 over 4
+UV = 0.01  # the learned coordinates: base + UV · uv
+KL_WEIGHTS = [0.4, 0.1, 0.3, 0.2]  # a kl_reduce of one's own: the weights of the 4 samples
+CONE = dict(shape=(14, 32), distances=(1.0, 0.5), key="dyn", lightcone_key="lc", sm_s0=1.0,
+            sm_x0=(2.0, 2.0), sigc=1.0, quant=2.0, harmonic_padding=(2, 4))  # 16 x 36 latent rows
 
 
 def _close(got, want, atol=1e-12):
@@ -276,28 +295,47 @@ def test_row_shard_knows_the_raveled_rows(monkeypatch):
         assert collectives.row_shard(torch.zeros(24), (7, 6)) is None  # rows that do not split
 
 
-# --- (e) the refusals that stay --------------------------------------------------------------------
+# --- (e) the refusal that stays, and what replaced the others -------------------------------------
 
 
-def test_coordinates_as_inputs_are_refused_on_a_sharded_field():
-    """Inside a field context ``VariablePositionNufft``, ``ShiftedPositionFFT``,
-    ``ToeplitzSKI`` and ``nufft2`` with coordinates that carry a gradient
-    raise, naming ROADMAP.md (before any collective)."""
-    vp = nt.ops.nufft.VariablePositionNufft((8, 8), 6)
-    sp = nt.ops.nufft.ShiftedPositionFFT((8, 6))
-    pts = np.random.default_rng(0).uniform(0.1, 0.9, (1, 6))
+def test_coordinates_as_inputs_are_refused_on_a_sharded_field(monkeypatch):
+    """Inside a field context ``ToeplitzSKI`` still raises, naming
+    ROADMAP.md (before any collective).  ``VariablePositionNufft``,
+    ``ShiftedPositionFFT`` and ``nufft2`` with coordinates that carry a
+    gradient run there now: on one rank (a group of one, its collectives
+    the identity) each gives the whole image's result, and the
+    coordinates' cotangent is the one-process one."""
+    monkeypatch.setattr(collectives.dist, "get_world_size", lambda group=None: 1)
+    monkeypatch.setattr(collectives.dist, "get_rank", lambda group=None: 0)
+    for name in ("_all_reduce", "_reduce_scatter"):
+        monkeypatch.setattr(collectives, name, lambda x, *a, **k: x.clone())
+    monkeypatch.setattr(collectives, "_all_gather", lambda x, *a, **k: x.clone())
+    monkeypatch.setattr(collectives, "all_to_all", lambda chunks, shapes, group: list(chunks))
+    rng = np.random.default_rng(0)
+    vp = nt.ops.nufft.VariablePositionNufft((8, 8), 6, kernel_width=4)
+    sp = nt.ops.nufft.ShiftedPositionFFT((8, 6), kernel_width=4)
+    pts = rng.uniform(0.1, 0.9, (1, 6))
     toe = nt.ToeplitzSKI((8,), [(0.0, 1.0)], pts, kernel=lambda d: torch.exp(-d), **CPU)
-    x = torch.zeros((4, 8), dtype=torch.float64)
-    coords = torch.zeros((2, 6), dtype=torch.float64, requires_grad=True)
+    x, x6 = (torch.from_numpy(rng.standard_normal(s)) for s in ((8, 8), (8, 6)))
+    coords = torch.from_numpy(rng.uniform(-0.5, 0.5, (2, 6)))
+    delta = torch.from_numpy(0.3 * rng.standard_normal((2, 8, 6)))
+    calls = {
+        "vp": lambda c, d: vp({"nufftcoord": c, "nufftgrid": x}),
+        "sp": lambda c, d: sp({"spfftdelta_coord": d, "spfftgrid": x6}),
+        "nufft2": lambda c, d: nt.nufft2(x, c, kernel_width=4),
+    }
+    want = {k: torch.func.vjp(f, coords, delta) for k, f in calls.items()}
     with collectives.field_sharded(object(), ["cfxi"]):
         collectives.note_split(x, rows=True)
-        for call in (lambda: vp({"nufftcoord": torch.zeros(2, 6), "nufftgrid": torch.zeros(8, 8)}),
-                     lambda: sp({"spfftdelta_coord": torch.zeros(2, 8, 6), "spfftgrid": torch.zeros(8, 6)}),
-                     lambda: toe(torch.zeros(6, dtype=torch.float64)),
-                     lambda: nt.nufft2(x, coords)):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-                call()
-    assert nt.nufft2(x, coords.detach()).shape == (6,)  # outside the context: the whole image
+        collectives.note_split(x6, rows=True)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            toe(torch.zeros(6, dtype=torch.float64))
+        for k, f in calls.items():
+            y, pull = torch.func.vjp(f, coords, delta)
+            ct = torch.from_numpy(rng.standard_normal(y.shape) + 1j * rng.standard_normal(y.shape))
+            _close(y.numpy(), want[k][0].numpy())
+            for got, exp in zip(pull(ct), want[k][1](ct)):
+                _close(got.numpy(), exp.numpy())
 
 
 # --- (b) the ranks: 2 and 4 gloo processes --------------------------------------------------------
@@ -313,14 +351,18 @@ import nifty_tpu_torch as nt
 from nifty_tpu_torch import parallel
 from nifty_tpu_torch.bench.workload import large_field_step
 from nifty_tpu_torch.evi import seeds, white_noise
+from nifty_tpu_torch.models.dynamics import dynamic_lightcone_operator
+from nifty_tpu_torch.parallel import NamedSharding
 from nifty_tpu_torch.parallel.collectives import field_sharded
+from torch.distributed.device_mesh import DeviceMesh
+from torch.utils._pytree import tree_map
 
 parallel.initialize(store, nproc, rank, device="cpu")
 inp = dict(np.load(os.path.join(d, "inputs.npz")))
 cfg = json.load(open(os.path.join(d, "config.json")))
 f64 = torch.float64
 T = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
-share = lambda a: np.split(a, nproc)[rank]  # noqa: E731
+share = lambda a, p=nproc, r=rank: np.array_split(a, p)[r]  # noqa: E731
 tree = lambda prefix: {k[len(prefix):]: inp[k] for k in inp if k.startswith(prefix)}  # noqa: E731
 shape = tuple(cfg["shape"])
 out = {}
@@ -329,6 +371,14 @@ cfm = nt.CorrelatedFieldMaker("cf")
 cfm.set_amplitude_total_offset(0.5, (1e-1, 3e-2))
 cfm.add_fluctuations(shape, 1.0 / shape[0], (1.0, 0.5), (-3.0, 0.2), (1.0, 0.2))
 cf = cfm.finalize(device="cpu", dtype=f64, field_mesh=mesh)
+# meshes over some of the ranks, each built by every rank in one order
+sub = {}
+if nproc == 2:
+    sub["s2f1"] = DeviceMesh("cpu", torch.tensor([[0], [1]]), mesh_dim_names=("samples", "fx"))
+else:
+    sub["s2f2"] = DeviceMesh("cpu", torch.tensor([[0, 1], [2, 3]]), mesh_dim_names=("samples", "fx"))
+    halves = [DeviceMesh("cpu", torch.tensor([ranks]), mesh_dim_names=("samples", "fx"))
+              for ranks in ([0, 1], [2, 3])]
 sh = cf.position_sharding()
 keys = [k for k, v in sh.items() if v.split_axes()]
 coords = T(inp["coords"])
@@ -372,15 +422,95 @@ for name, lh in (("nufft", lh_n), ("ski", lh_s)):
     for k, v in opt.gather(s).pos.items():
         out[f"vi/{name}/{k}"] = v.numpy()
 
-# points that do not split over the ranks
+# points that do not split over the ranks: the rank's share of the visibilities and an energy
 odd = coords[:, :nproc + 1]
-opt = nt.OptimizeVI(nt.Gaussian(torch.zeros(1, dtype=torch.complex128)).amend(
-    lambda x: nt.nufft2(cf(x), odd)), 1, position_sharding=sh)
-try:
-    opt.draw_linear_samples(nt.position_from_numpy(cf, tree("start/"), sharding=sh), [1])
-    out["odd_points"] = np.asarray("")
-except NotImplementedError as e:
-    out["odd_points"] = np.asarray(str(e))
+lh_o = nt.Gaussian(T(share(inp["vis"][:nproc + 1])), noise_cov_inv=lambda r: r / noise**2).amend(
+    lambda x: nt.nufft2(torch.exp(cf(x)), odd, kernel_width=cfg["width"]))
+ski_odd = nt.HarmonicSKI(shape, [(0.0, 1.0)] * 2, inp["ski_points"][:, :nproc + 1],
+                         harmonic_kernel=lambda k: 1.0 / (1.0 + k**2), device="cpu", dtype=f64)
+with field_sharded(mesh.get_group("fx"), keys):
+    out["odd/vis"] = nt.nufft2(torch.exp(cf(pos)), odd, kernel_width=cfg["width"]).numpy()
+    out["odd/energy"] = lh_o(pos).detach().numpy()
+    out["odd/ski"] = (ski_odd.w @ torch.exp(cf(pos)).reshape(-1)).numpy()
+
+# learned coordinates (VariablePositionNufft; 49 points, uneven shares) and ShiftedPositionFFT
+base = T(inp["base"])
+vp = nt.ops.nufft.VariablePositionNufft(shape, base.shape[1], kernel_width=cfg["learned_width"])
+sp = nt.ops.nufft.ShiftedPositionFFT(shape, kernel_width=cfg["learned_width"])
+
+
+def learned(cf_, fp=nproc, fr=rank):
+    return nt.Gaussian(T(share(inp["vis_learned"], fp, fr)), noise_cov_inv=lambda r: r / noise**2).amend(
+        lambda x: vp({"nufftgrid": torch.exp(cf_(x)), "nufftcoord": base + cfg["uv"] * x["uv"]}))
+
+
+lh_sp = nt.Gaussian(T(share(inp["data_sp"])), noise_cov_inv=lambda r: r / noise**2).amend(
+    lambda x: sp({"spfftgrid": torch.exp(cf(x)), "spfftdelta_coord": x["spfftdelta_coord"]}))
+dc_rows = lambda a: np.split(a, nproc, axis=1)[rank]  # noqa: E731
+for name, lh, extra, split in (("learned", learned(cf), "uv", False),
+                               ("shifted", lh_sp, "spfftdelta_coord", True)):
+    cut = dc_rows if split else (lambda a: a)
+    with field_sharded(mesh.get_group("fx"), keys + ([extra] if split else [])):
+        p_ = {**pos, extra: T(cut(inp[f"{extra}/mpos"]))}
+        t_ = {**tan, extra: T(cut(inp[f"{extra}/mtan"]))}
+        out[f"{name}/energy"] = lh(p_).detach().numpy()
+        for k, v in lh.metric(p_, t_).items():
+            out[f"{name}/metric/{k}"] = v.detach().numpy()
+        out[f"{name}/grad"] = torch.func.grad(lh)(p_)[extra].numpy()
+
+# one MGVI iteration over the learned coordinates with a kl_reduce of one's own (weights of the
+# 4 samples), the JAX package's draws: on the field mesh, with samples across ranks, and on 4
+# ranks on two (1, 2) meshes side by side with odir= (the second resumed after it)
+weights = T(cfg["kl_weights"])
+kl_reduce = lambda t: tree_map(lambda v: torch.tensordot(weights.to(v.dtype), v, dims=1), t)  # noqa: E731
+
+
+def learned_vi(m, odir=None, resume=False):
+    fax = parallel.fft.mesh_axis(m, "fx")
+    cf_ = cfm.finalize(device="cpu", dtype=f64, field_mesh=m)
+    sh_ = {**cf_.position_sharding(), "uv": NamedSharding(m, ())}
+    lh = learned(cf_, fax.size, fax.rank)
+
+    def linear(lh_, pos_, seed, **kw):
+        i = order.index(seed)
+        prior = {k: T(share(v, fax.size, fax.rank)) if k == "cfxi" else T(v)
+                 for k, v in sorted(tree(f"white{i}/lprior/").items())}
+        white = nt.WhiteNoise(T(share(inp[f"white{i}/learned"], fax.size, fax.rank)), prior)
+        return nt.draw_linear_residual(lh_, pos_, white=white, **kw)
+
+    opt = nt.OptimizeVI(lh, 1, position_sharding=sh_, kl_reduce=kl_reduce, _draw_linear_residual=linear,
+                        _get_status_message=lambda *a, **k: "")
+    start = {**nt.position_from_numpy(cf_, tree("start/"), sharding=cf_.position_sharding()),
+             "uv": T(inp["uv/start"])}
+    s_, st = nt.optimize_kl(lh, start, key=torch.Generator().manual_seed(42), n_total_iterations=1,
+                            n_samples=2, draw_linear_kwargs=dict(cg_kwargs=cfg["cg"]),
+                            kl_kwargs=dict(minimize_kwargs=cfg["kl"]), sample_mode="linear_resample",
+                            odir=odir, resume=resume, _optimize_vi=opt)
+    return opt.gather(s_).pos, st
+
+
+runs = {"fx": mesh, **sub}
+if nproc == 4:
+    half = rank // 2
+    runs[f"half{half}"] = (halves[half], os.path.join(d, f"half{half}"))
+for name, run in runs.items():
+    m, odir = run if isinstance(run, tuple) else (run, None)
+    whole, _ = learned_vi(m, odir)
+    out.update({f"vi/learned_{name}/{k}": v.numpy() for k, v in whole.items()})
+    if name == "half1":  # the second half resumes its checkpoint alone
+        whole, st = learned_vi(m, odir, resume=True)
+        out.update({f"vi/learned_resumed/{k}": v.numpy() for k, v in whole.items()})
+        out["resumed_nit"] = np.asarray(st.nit)
+
+# the dynamics light cone on a row-split latent
+cone, _ = dynamic_lightcone_operator(**cfg["cone"])
+with field_sharded(mesh.get_group("fx"), ["dyn"]):
+    x_ = {"dyn": T(share(inp["cone/dyn"])), "lc": T(inp["cone/lc"])}
+    y, pull = torch.func.vjp(cone, x_)
+    out["cone/value"] = y.numpy()
+    lo = sum(len(a) for a in np.array_split(np.arange(cfg["cone"]["shape"][0]), nproc)[:rank])
+    g = pull(T(inp["cone/cot"][lo:lo + y.shape[0]]))[0]
+    out["cone/grad/dyn"], out["cone/grad/lc"] = g["dyn"].numpy(), g["lc"].numpy()
 
 # the large-field step at _run_step's smoke sizes
 if nproc == 2:
@@ -417,6 +547,22 @@ def _jax_lhs(inp, cf):
     return lh_n, lh_s
 
 
+def _jax_learned(inp, cf):
+    """The JAX package's likelihood over ``VariablePositionNufft`` of exp(cf)
+    at the coordinates ``base + UV · uv``, ``uv`` a latent."""
+    base = jnp.asarray(inp["base"])
+    vp = jnufft.VariablePositionNufft(SHAPE, N_LEARNED, kernel_width=LEARNED_WIDTH)
+    return nj.Gaussian(jnp.asarray(inp["vis_learned"]), noise_cov_inv=lambda r: r / NOISE**2).amend(
+        lambda x: vp({"nufftgrid": jnp.exp(cf(x)), "nufftcoord": base + UV * x["uv"]}))
+
+
+def _jax_shifted(inp, cf):
+    """The JAX package's likelihood over ``ShiftedPositionFFT`` of exp(cf)."""
+    sp = jnufft.ShiftedPositionFFT(SHAPE, kernel_width=LEARNED_WIDTH)
+    return nj.Gaussian(jnp.asarray(inp["data_sp"]), noise_cov_inv=lambda r: r / NOISE**2).amend(
+        lambda x: sp({"spfftgrid": jnp.exp(cf(x)), "spfftdelta_coord": x["spfftdelta_coord"]}))
+
+
 def _draw(domain, rng, scale=1.0):
     return {k: scale * rng.standard_normal(v.shape) for k, v in sorted(domain.items())}
 
@@ -446,25 +592,68 @@ def _inputs():
         prior = jax_random_like(k_prr, start)
         for name, v in zip(sorted(start), jax.tree_util.tree_leaves(prior)):
             inp[f"white{i}/prior/{name}"] = np.array(v)
+    _learned_inputs(inp, cf, rho)
     return inp
 
 
-def _jax_vi(inp, name):
-    """The JAX package's MGVI iteration over the NUFFT (``name`` "nufft") or
-    SKI's interpolation ("ski") with ``position_sharding=`` on the
-    conftest's 8-device mesh (in a process of its own, ``JAX_VI``)."""
-    from jax.sharding import Mesh
+def _learned_inputs(inp, cf, rho):
+    """The inputs of the learned coordinates, ``ShiftedPositionFFT``, the
+    light cone and the JAX package's draws of the learned MGVI iteration
+    (a generator of their own, so the other inputs stay as they were)."""
+    rng = np.random.default_rng(19)
+    inp["base"] = _coords(SHAPE, N_LEARNED, seed=5)
+    uv = rng.standard_normal((2, N_LEARNED))
+    vis = np.asarray(jnufft.nufft2(rho, jnp.asarray(inp["base"] + UV * uv), kernel_width=LEARNED_WIDTH))
+    inp["vis_learned"] = vis + NOISE * (rng.standard_normal(N_LEARNED) + 1j * rng.standard_normal(N_LEARNED))
+    sp = jnufft.ShiftedPositionFFT(SHAPE, kernel_width=LEARNED_WIDTH)
+    delta = 0.3 * rng.standard_normal((2,) + SHAPE)
+    vis = np.asarray(sp({"spfftgrid": rho, "spfftdelta_coord": jnp.asarray(delta)}))
+    inp["data_sp"] = vis + NOISE * (rng.standard_normal(SHAPE) + 1j * rng.standard_normal(SHAPE))
+    for name, scale in (("mpos", 0.3), ("mtan", 1.0), ("start", 0.1)):
+        inp[f"uv/{name}"] = scale * rng.standard_normal((2, N_LEARNED))
+        inp[f"spfftdelta_coord/{name}"] = scale * rng.standard_normal((2,) + SHAPE)
+    pshape = tuple(n + p for n, p in zip(CONE["shape"], CONE["harmonic_padding"]))
+    inp["cone/dyn"] = rng.standard_normal(pshape)
+    inp["cone/lc"] = rng.standard_normal(1)
+    inp["cone/cot"] = rng.standard_normal(CONE["shape"]) + 1j * rng.standard_normal(CONE["shape"])
+    lh = _jax_learned(inp, cf)
+    start = {**{k[6:]: v for k, v in inp.items() if k.startswith("start/")}, "uv": inp["uv/start"]}
+    _, sk = random.split(random.PRNGKey(42), 2)
+    for i, k in enumerate(random.split(sk, 2)):
+        k_nll, k_prr = random.split(k, 2)
+        inp[f"white{i}/learned"] = np.array(jax_random_like(k_nll, lh.left_sqrt_metric_tangents_shape))
+        prior = jax_random_like(k_prr, start)
+        for name, v in zip(sorted(start), jax.tree_util.tree_leaves(prior)):
+            inp[f"white{i}/lprior/{name}"] = np.array(v)
 
-    cfs = _jax_field(Mesh(np.asarray(jax.devices()), ("fx",)))
-    lh = dict(zip(("nufft", "ski"), _jax_lhs(inp, cfs)))[name]
+
+def _jax_vi(inp, name):
+    """The JAX package's MGVI iteration over the NUFFT (``name`` "nufft"),
+    SKI's interpolation ("ski") or the learned coordinates ("learned", a
+    ``kl_reduce`` of the samples weighted by ``KL_WEIGHTS``) with
+    ``position_sharding=`` on the conftest's 8-device mesh (in a process of
+    its own, ``JAX_VI``)."""
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec
+
+    mesh = Mesh(np.asarray(jax.devices()), ("fx",))
+    cfs = _jax_field(mesh)
+    sharding, start, kw = cfs.position_sharding(), _tree(inp, "start/"), {}
+    if name == "learned":
+        lh = _jax_learned(inp, cfs)
+        sharding = {**sharding, "uv": NamedSharding(mesh, PartitionSpec())}
+        start["uv"] = jnp.asarray(inp["uv/start"])
+        w = jnp.asarray(KL_WEIGHTS)
+        kw["kl_reduce"] = lambda t: jax.tree_util.tree_map(lambda v: jnp.tensordot(w, v, axes=1), t)
+    else:
+        lh = dict(zip(("nufft", "ski"), _jax_lhs(inp, cfs)))[name]
     # no status message: the JAX package's minisanity takes float() of a
     # complex residual's moments
-    opt = nj.OptimizeVI(lh, 1, position_sharding=cfs.position_sharding(),
-                        _get_status_message=lambda *a, **k: "")
-    sj, _ = nj.optimize_kl(lh, _tree(inp, "start/"), n_total_iterations=1, n_samples=2,
+    opt = nj.OptimizeVI(lh, 1, position_sharding=sharding, _get_status_message=lambda *a, **k: "",
+                        **kw)
+    sj, _ = nj.optimize_kl(lh, start, n_total_iterations=1, n_samples=2,
                            key=random.PRNGKey(42), draw_linear_kwargs=dict(cg_kwargs=CG),
                            kl_kwargs=dict(minimize_kwargs=KL), sample_mode="linear_resample",
-                           odir=None, position_sharding=cfs.position_sharding(), _optimize_vi=opt)
+                           odir=None, position_sharding=sharding, _optimize_vi=opt)
     return {k: np.asarray(v) for k, v in dict(getattr(sj.pos, "tree", sj.pos)).items()}
 
 
@@ -484,12 +673,40 @@ np.savez(os.path.join(d, f"jax_vi_{name}.npz"),
 
 
 def _wants(inp):
-    """The JAX package's metrics and energies of both likelihoods."""
+    """The JAX package's metrics and energies of the likelihoods (the
+    learned coordinates' and the shifts' cotangents too), the visibilities
+    and energies at points that do not split over 2 and 4 ranks, and the
+    light cone with its pull-back."""
     want = {}
-    for name, lh in zip(("nufft", "ski"), _jax_lhs(inp, _jax_field())):
+    cf = _jax_field()
+    for name, lh in zip(("nufft", "ski"), _jax_lhs(inp, cf)):
         want[f"{name}/energy"] = np.asarray(jax.jit(lh)(_tree(inp, "mpos/")))
         metric = jax.jit(lh.metric)(_tree(inp, "mpos/"), _tree(inp, "mtan/"))
         want.update({f"{name}/metric/{k}": np.asarray(v) for k, v in dict(metric).items()})
+    for name, lh, extra in (("learned", _jax_learned(inp, cf), "uv"),
+                            ("shifted", _jax_shifted(inp, cf), "spfftdelta_coord")):
+        p_ = {**_tree(inp, "mpos/"), extra: jnp.asarray(inp[f"{extra}/mpos"])}
+        t_ = {**_tree(inp, "mtan/"), extra: jnp.asarray(inp[f"{extra}/mtan"])}
+        energy, grad, metric = jax.jit(lambda p, t, lh=lh: (lh(p), jax.grad(lh)(p), lh.metric(p, t)))(p_, t_)
+        want[f"{name}/energy"], want[f"{name}/grad"] = np.asarray(energy), np.asarray(grad[extra])
+        want.update({f"{name}/metric/{k}": np.asarray(v) for k, v in dict(metric).items()})
+    rho = jax.jit(lambda p: jnp.exp(cf(p)))(_tree(inp, "mpos/"))
+    for p in (2, 4):
+        odd = jnp.asarray(inp["coords"][:, :p + 1])
+        want[f"odd{p}/vis"] = np.asarray(jnufft.nufft2(rho, odd, kernel_width=WIDTH))
+        lh = nj.Gaussian(jnp.asarray(inp["vis"][:p + 1]), noise_cov_inv=lambda r: r / NOISE**2).amend(
+            lambda x, odd=odd: jnufft.nufft2(jnp.exp(cf(x)), odd, kernel_width=WIDTH))
+        want[f"odd{p}/energy"] = np.asarray(lh(_tree(inp, "mpos/")))
+        ski = nj.HarmonicSKI(SHAPE, [(0.0, 1.0)] * 2, inp["ski_points"][:, :p + 1], harmonic_kernel=_kernel)
+        want[f"odd{p}/ski"] = np.asarray(ski.w @ rho.reshape(-1))
+    from nifty_tpu.models.dynamics import dynamic_lightcone_operator
+
+    cone, _ = dynamic_lightcone_operator(**CONE)
+    x = {"dyn": jnp.asarray(inp["cone/dyn"]), "lc": jnp.asarray(inp["cone/lc"])}
+    y, pull = jax.vjp(cone, x)
+    want["cone/value"] = np.asarray(y)
+    g = pull(jnp.conj(jnp.asarray(inp["cone/cot"])).astype(y.dtype))[0]  # torch's vjp conjugates
+    want["cone/grad/dyn"], want["cone/grad/lc"] = np.asarray(g["dyn"]), np.asarray(g["lc"])
     return want
 
 
@@ -516,7 +733,8 @@ def _start(d, nproc, inp):
     d = str(d)
     np.savez(os.path.join(d, "inputs.npz"), **inp)
     cfg = dict(shape=list(SHAPE), noise=NOISE, cg=CG, kl=KL, white_key=WHITE_KEY, width=WIDTH,
-               smoke=[[list(s), k] for s, k in SMOKE])
+               smoke=[[list(s), k] for s, k in SMOKE], uv=UV, kl_weights=KL_WEIGHTS, cone=CONE,
+               learned_width=LEARNED_WIDTH)
     with open(os.path.join(d, "config.json"), "w") as f:
         json.dump(cfg, f)
     script = os.path.join(d, "worker.py")
@@ -557,14 +775,14 @@ def launches(tmp_path_factory):
         f.write(JAX_VI)
     vis = [subprocess.Popen([sys.executable, os.path.join(d, "jax_vi.py"), d, ROOT, name],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-           for name in ("nufft", "ski")]
+           for name in ("nufft", "ski", "learned")]
     want = _wants(inp)
     one = _one_process(inp)
     ranks = {n: _finish(*started[n]) for n in (2, 4)}
     _finish(d, vis, outputs=False)
-    for name in ("nufft", "ski"):
+    for name in ("nufft", "ski", "learned"):
         want[f"vi/{name}"] = dict(np.load(os.path.join(d, f"jax_vi_{name}.npz")))
-    return ranks, want, one
+    return ranks, want, one, {n: started[n][0] for n in (2, 4)}
 
 
 RANKS = pytest.mark.parametrize("nproc", [2, 4])
@@ -614,9 +832,84 @@ def test_rank_white_noise_is_the_one_process_rows(launches, nproc):
 
 @RANKS
 def test_points_that_do_not_split_are_refused(launches, nproc):
-    for out in launches[0][nproc]:
-        msg = str(out["odd_points"])
-        assert "ROADMAP.md" in msg and f"over {nproc} ranks" in msg
+    """``nufft2`` and SKI's interpolation of the row-sharded field at
+    ``nproc + 1`` points, which split unevenly (the refusal is gone): each
+    rank's share of the JAX package's values (``np.array_split``'s block),
+    and the energy of a Gaussian over the visibilities, the JAX
+    package's."""
+    outs, want = launches[0][nproc], launches[1]
+    for r, out in enumerate(outs):
+        _close(out["odd/vis"], np.array_split(want[f"odd{nproc}/vis"], nproc)[r])
+        _close(out["odd/ski"], np.array_split(want[f"odd{nproc}/ski"], nproc)[r])
+        _close(out["odd/energy"], want[f"odd{nproc}/energy"], atol=1e-10)
+
+
+def _extra_rows(want, k, r, p):
+    if k.endswith("cfxi"):
+        return _rows(want, r, p)
+    return np.split(want, p, axis=1)[r] if k.endswith("spfftdelta_coord") else want
+
+
+@RANKS
+@pytest.mark.parametrize("response", ["learned", "shifted"])
+def test_learned_coordinates_metric_energy_and_cotangent_match_jax(launches, nproc, response):
+    """``VariablePositionNufft`` at coordinates ``base + UV · uv`` (49 points,
+    uneven shares; ``uv`` replicated) and ``ShiftedPositionFFT`` (its shifts'
+    rows split with the field's, its output the rank's rows) of exp(cf) on
+    the row-sharded field: the metric, the energy and the coordinates'
+    cotangent (the energy's gradient in ``uv`` or the shifts) are the JAX
+    package's, 1e-10."""
+    outs, want = launches[0][nproc], launches[1]
+    extra = "uv" if response == "learned" else "spfftdelta_coord"
+    for r, out in enumerate(outs):
+        _close(out[f"{response}/energy"], want[f"{response}/energy"], atol=1e-10)
+        for k in [k for k in want if k.startswith(f"{response}/metric/")]:
+            _close(out[k], _extra_rows(want[k], k, r, nproc), atol=1e-10)
+        _close(out[f"{response}/grad"], _extra_rows(want[f"{response}/grad"], extra, r, nproc), atol=1e-10)
+
+
+MESHES = {2: ["fx", "s2f1"], 4: ["fx", "s2f2", "half0", "half1"]}
+
+
+@pytest.mark.parametrize("nproc, run", [(n, m) for n in (2, 4) for m in MESHES[n]])
+def test_learned_optimize_kl_with_own_kl_reduce_matches_jax(launches, nproc, run):
+    """One MGVI iteration over the learned coordinates with a ``kl_reduce``
+    of one's own (the 4 samples weighted), the JAX package's draws: on the
+    field mesh, on a ("samples", "fx") mesh with the samples across ranks
+    (2 × 1, 2 × 2), and on 4 ranks on two (1, 2) meshes over ranks {0, 1}
+    and {2, 3} side by side, each with its own ``odir`` (written by the
+    mesh's first rank; the second mesh then resumes from it alone), against
+    the JAX package's ``position_sharding=`` run: 1e-4."""
+    outs, want = launches[0][nproc], launches[1]["vi/learned"]
+    mine = [out for r, out in enumerate(outs) if not run.startswith("half") or r // 2 == int(run[-1])]
+    assert len(mine) == (2 if run.startswith("half") else nproc)
+    for out in mine:
+        for k, v in want.items():
+            np.testing.assert_allclose(out[f"vi/learned_{run}/{k}"], v, atol=1e-4, rtol=0)
+            if run == "half1":
+                np.testing.assert_allclose(out[f"vi/learned_resumed/{k}"], v, atol=1e-4, rtol=0)
+        if run == "half1":
+            assert int(out["resumed_nit"]) == 1
+    if run.startswith("half"):
+        d = os.path.join(launches[3][nproc], run)
+        smp, st = nt.io.load(os.path.join(d, "last.pkl"), "cpu")
+        assert st.nit == 1 and len(smp) == 4
+        for k, v in want.items():
+            np.testing.assert_allclose(smp.pos[k].numpy(), v, atol=1e-4, rtol=0)
+
+
+@RANKS
+def test_light_cone_on_row_split_latent_matches_jax(launches, nproc):
+    """``dynamic_lightcone_operator`` with its latent's rows split over the
+    ranks (a 16 × 36 padded latent, 14 output rows: uneven over 4 ranks):
+    each rank's rows of the JAX package's unsharded transfer field, and the
+    pull-back of a cotangent of those rows (the latent's rows, the
+    lightspeeds' latent whole), 1e-10 relative."""
+    outs, want = launches[0][nproc], launches[1]
+    for r, out in enumerate(outs):
+        _close(out["cone/value"], np.array_split(want["cone/value"], nproc)[r], atol=1e-10)
+        _close(out["cone/grad/dyn"], _rows(want["cone/grad/dyn"], r, nproc), atol=1e-10)
+        _close(out["cone/grad/lc"], want["cone/grad/lc"], atol=1e-10)
 
 
 @pytest.mark.parametrize("size", range(len(SMOKE)))

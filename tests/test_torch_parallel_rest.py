@@ -15,8 +15,8 @@ tomography metric and energy, one MGVI iteration with ``position_sharding=``
 over an ``ExactGridLOS``, ``odir`` with resume, NUTS chains across ranks;
 the JAX package's ``position_sharding=`` run, whose compile is the longest
 piece, runs in a process of its own beside them.
-(c) The refusal of rays that do not split over the ranks (the NUFFT's and
-SKI's on a row-sharded field are ``test_torch_parallel_large.py``'s).
+(c) Rays that do not split over the ranks (``np.array_split``'s shares;
+the NUFFT's and SKI's points are ``test_torch_parallel_large.py``'s).
 
 Tolerances, and why: partial sums and pull-backs 1e-12 of the maximum
 (float64 sums in another order); the sharded metric and energy 1e-10 (as
@@ -205,7 +205,7 @@ inp = dict(np.load(os.path.join(d, "inputs.npz")))
 cfg = json.load(open(os.path.join(d, "config.json")))
 f64 = torch.float64
 T = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
-share = lambda a: np.split(a, nproc)[rank]  # noqa: E731
+share = lambda a: np.array_split(a, nproc)[rank]  # noqa: E731
 tree = lambda prefix: {k[len(prefix):]: inp[k] for k in inp if k.startswith(prefix)}  # noqa: E731
 shape = tuple(cfg["shape"])
 out = {}
@@ -284,15 +284,18 @@ for name, lh_, start, run_kw, pairs in (
             out[f"{odir}/samples/{k}"] = v.numpy()
         out[f"{odir}/nit"] = np.asarray(st.nit)
 
-# rays that do not split over the ranks
-odd = nt.ExactGridLOS(inp["starts"][:nproc + 1], inp["ends"][:nproc + 1], **kw)
-opt = nt.OptimizeVI(nt.Gaussian(torch.zeros(1, dtype=f64)).amend(nt.ChainModel(odd, dens)), 1,
-                    position_sharding=sh)
-try:
-    opt.draw_linear_samples(nt.position_from_numpy(cf, tree("start/"), sharding=sh), [1])
-    out["odd_rays"] = np.asarray("")
-except NotImplementedError as e:
-    out["odd_rays"] = np.asarray(str(e))
+# rays that do not split over the ranks: the metric and energy through both responses
+n_odd = nproc + 1
+odd = nt.ExactGridLOS(inp["starts"][:n_odd], inp["ends"][:n_odd], **kw)
+odd_s = nt.SamplingCartesianGridLOS(inp["starts"][:n_odd], inp["ends"][:n_odd], n_sampling_points=cfg["points"],
+                                    **kw)
+lh_o = lh_of(odd, inp["data_exact"][:n_odd]) + lh_of(odd_s, inp["data_sampled"][:n_odd])
+with field_sharded(mesh.get_group("fx"), [k for k, v in sh.items() if v.split_axes()]):
+    pos = nt.position_from_numpy(cf, tree("mpos/"), sharding=sh)
+    m = lh_o.metric(pos, nt.position_from_numpy(cf, tree("mtan/"), sharding=sh))
+    out["odd_rays/energy"] = lh_o(pos).detach().numpy()
+for k, v in m.items():
+    out["odd_rays/metric/" + k] = v.detach().numpy()
 
 # NUTS chains across the ranks
 logd = lambda q: -0.5 * (torch.sum(q["a"] ** 2 / 4.0) + q["b"] ** 2)  # noqa: E731
@@ -397,6 +400,13 @@ def _wants(inp):
     want = {"energy": np.asarray(jax.jit(lh)(_tree(inp, "mpos/")))}
     metric = jax.jit(lh.metric)(_tree(inp, "mpos/"), _tree(inp, "mtan/"))
     want.update({"metric/" + k: np.asarray(v) for k, v in dict(metric).items()})
+    for p in (2, 4):  # rays that do not split over p ranks
+        n = p + 1
+        lh = (_jax_lh(_jax_los("exact", starts[:n], ends[:n]), inp["data_exact"][:n], cf)
+              + _jax_lh(_jax_los("sampled", starts[:n], ends[:n]), inp["data_sampled"][:n], cf))
+        want[f"odd{p}/energy"] = np.asarray(jax.jit(lh)(_tree(inp, "mpos/")))
+        metric = jax.jit(lh.metric)(_tree(inp, "mpos/"), _tree(inp, "mtan/"))
+        want.update({f"odd{p}/metric/" + k: np.asarray(v) for k, v in dict(metric).items()})
     sn, _ = nj.nuts_sample(lambda q: -0.5 * jnp.sum(q**2), random.PRNGKey(4),
                            position_proto=jnp.zeros(2), chain_map=jax.pmap, **NUTS_LONG)
     want["nuts_long"] = np.asarray(sn.samples)
@@ -554,10 +564,16 @@ def test_odir_resume_across_ranks_matches_one_process(launches, nproc, run):
 
 @RANKS
 def test_rays_that_do_not_split_are_refused(launches, nproc):
-    (_, outs), _ = launches[0][nproc], launches[1]
-    for out in outs:
-        msg = str(out["odd_rays"])
-        assert "ROADMAP.md" in msg and f"over {nproc} ranks" in msg
+    """``nproc + 1`` rays, which split unevenly over the ranks (the refusal
+    is gone; ``np.array_split``'s shares of the data): the metric and energy
+    of a Gaussian over the exact and the sampled LOS of exp(cf), the JAX
+    package's, 1e-10."""
+    (_, outs), want = launches[0][nproc], launches[1]
+    for r, out in enumerate(outs):
+        _close(out["odd_rays/energy"], want[f"odd{nproc}/energy"], atol=1e-10)
+        for k in [k for k in want if k.startswith(f"odd{nproc}/metric/")]:
+            got = out["odd_rays/metric/" + k.split("/")[-1]]
+            _close(got, _rows(want[k], r, nproc) if k.endswith("cfxi") else want[k], atol=1e-10)
 
 
 @RANKS
