@@ -352,11 +352,12 @@ PARALLEL = dict(shapes=(1280, 4096), ranks=(8, 4, 2), metric_knots=(None, 64), v
 LARGE = dict(nufft_shape=4096, nufft_points=2**20, ranks=(2, 4, 8), ski_grid=1024,
              ski_points=2**18, k7_entries=10**8, k7_f64_entries=10**7, k7_rows=4096, seed=91)
 # phase 17h: radio imaging with learned coordinates (17f's exact 4096² field through exp and
-# VariablePositionNufft at 2^20 points, the coordinates base + 1e-4 uv with uv a latent),
+# VariablePositionNufft at 2^20 points, the coordinates base + 1e-4 uv with uv a latent;
+# its MGVI iteration over 4 mirrored sample pairs, 8 sets of coordinates a KL evaluation),
 # 17f's stages at 2^20 + 3 points (shares that differ by one over 2, 4 and 8 virtual ranks),
 # and phase 13e's light cone, (512, 1024) padded by (64, 64), on a row-split latent
 LEARNED = dict(nufft_shape=4096, nufft_points=2**20, uneven_points=2**20 + 3, ranks=(2, 4, 8),
-               taps_cuts=3, dynamics=(512, 1024), dynamics_padding=(64, 64), seed=97)
+               taps_cuts=3, vi_samples=4, dynamics=(512, 1024), dynamics_padding=(64, 64), seed=97)
 CG_ITERS = 20
 NAMES = {"K1": "expand_to_grid", "K2": "collapse_from_grid",
          "K3": "hartley_rows", "K4": "hartley_cols",
@@ -1248,8 +1249,9 @@ def learned_phase(dev, read_launches, mesh, vi, rel_pos, sync):
     field's exp at ``base + 1e-4 uv`` (``uv`` a replicated latent): its
     metric and energy on the group against the unsharded (K1r, K2r, K3,
     K4r), the ms of cutting a position's taps (weights and derivatives) on
-    the card, and one MGVI iteration at CG 3 (K7 drawing its noise) against
-    the unsharded one's step; 17f's stages at points whose shares differ by
+    the card, and one MGVI iteration at CG 3 over 4 mirrored sample pairs
+    (K7 drawing its noise) against the unsharded one's step, with its peak
+    memory, the taps it cut and the plans' memory held after it; 17f's stages at points whose shares differ by
     one (the ranks' partial outputs against ``nufft2``, the joined
     pull-backs against ``nufft_adjoint``, the reduce-scatter's padded
     blocks against ``np.array_split``'s shares); the light cone on a
@@ -1267,7 +1269,7 @@ def learned_phase(dev, read_launches, mesh, vi, rel_pos, sync):
     from nifty_tpu_torch.bench.workload import latent_draw, learned_nufft_likelihood
     from nifty_tpu_torch.bench.workload import learned_position, short_vi_settings
     from nifty_tpu_torch.parallel import NamedSharding, collectives
-    from nifty_tpu_torch.parallel.nufft import NufftPlan, clear_plans, nufft_stages
+    from nifty_tpu_torch.parallel.nufft import NufftPlan, nufft_stages, taps_cut
 
     L, f32 = LEARNED, torch.float32
     rng = np.random.default_rng(L["seed"])
@@ -1316,24 +1318,39 @@ def learned_phase(dev, read_launches, mesh, vi, rel_pos, sync):
         fail(f"learned coordinates: the sharded metric {err} / energy {e_err} > "
              f"{TOL['learned_metric']} off the unsharded")
 
-    # 17h. one MGVI iteration at CG 3 on the group against the unsharded
-    short = short_vi_settings()
+    # 17h. one MGVI iteration at CG 3 over 4 mirrored sample pairs on the group against the
+    # unsharded; the taps it cuts (the model keeps a plan for each set of coordinates a KL
+    # evaluation maps) and the memory they hold
+    short = dict(short_vi_settings(), n_samples=L["vi_samples"])
     ref, _, ref_s = vi(lh, pw, short)
+    card = dev.type == "cuda"
+    sync()
+    mem0 = torch.cuda.memory_allocated() if card else 0
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    cut0 = taps_cut()
     native.reset_launches()
     got, st, secs = vi(lh_s, ps, short, position_sharding=sh)
     read_launches("parallel_learned_vi", SHARDED + ("K7",), refuse=("K1", "K2", "K4"))
+    vi_cuts = taps_cut() - cut0
     step = {k: ref.pos[k].double() - pw[k].double() for k in pw}
     err_step = rel_pos({k: got.pos[k].double() - pw[k].double() for k in pw}, step)
+    kl_after = float(st.minimization_state.fun)
+    step_rel = rel_pos(ref.pos, pw)
+    finite = all(bool(torch.isfinite(v).all()) for v in got.pos.values())
+    del got, st, ref
+    sync()
+    mem = {"vi_peak_mb": (torch.cuda.max_memory_allocated() - mem0) / 2**20 if card else None,
+           "plans_held_mb_after_vi": (torch.cuda.memory_allocated() - mem0) / 2**20 if card else None}
     emit({"phase": "parallel_learned", "shape": [n, n], "points": m, "ranks": 1, **line,
-          "vi_settings": "CG 3", "vi_seconds": secs, "unsharded_vi_seconds": ref_s,
-          "vi_err_over_step": err_step, "vi_step_rel_l2": rel_pos(ref.pos, pw),
-          "kl_after": float(st.minimization_state.fun), "seconds": time.perf_counter() - t17h})
-    if not (err_step <= TOL["learned_vi_step"]
-            and all(bool(torch.isfinite(v).all()) for v in got.pos.values())):
+          "vi_settings": "CG 3", "vi_samples": 2 * L["vi_samples"], "vi_seconds": secs,
+          "unsharded_vi_seconds": ref_s, "vi_taps_cut": vi_cuts, **mem,
+          "vi_err_over_step": err_step, "vi_step_rel_l2": step_rel,
+          "kl_after": kl_after, "seconds": time.perf_counter() - t17h})
+    if not (err_step <= TOL["learned_vi_step"] and finite):
         fail(f"learned coordinates: the sharded MGVI iteration is {err_step} of the unsharded "
              f"one's step (> {TOL['learned_vi_step']}) off it, or non-finite")
-    del lh, cf, lh_s, cf_s, ps, ts, pw, tw, ref, got, base
-    clear_plans()
+    del lh, cf, lh_s, cf_s, ps, ts, pw, tw, base  # the plans go with the likelihood
     torch.cuda.empty_cache()
 
     # 17h. 17f's stages at points whose shares differ by one
@@ -1399,7 +1416,6 @@ def learned_phase(dev, read_launches, mesh, vi, rel_pos, sync):
             errs.append(float((y - whole[lo:hi]).abs().max()) / top if y.shape[0] == hi - lo else float("inf"))
         virtual[p] = max(errs)
     sync()
-    card = dev.type == "cuda"
     mem0 = torch.cuda.memory_allocated() if card else 0
     if card:
         torch.cuda.reset_peak_memory_stats()

@@ -53,9 +53,10 @@ unsharded on the rank's own card:
    coordinates ``base + 1e-4 uv`` with ``uv`` a replicated latent; 2^20 + 2
    points share unevenly over 4 ranks): its metric inside the field
    context against the unsharded one on the rank's own card (relative L2
-   1e-4) and one MGVI iteration by ``position_sharding=`` against the
-   unsharded at CG 3, of the unsharded step (1e-3), with the seconds of
-   each and of cutting a position's taps on the rank;
+   1e-4) and one MGVI iteration over 4 mirrored sample pairs by
+   ``position_sharding=`` against the unsharded at CG 3, of the unsharded
+   step (1e-3), with the seconds of each, of cutting a position's taps on
+   the rank, the taps the iteration cut and its peak memory on the rank;
 10. two ``("samples", "fx")`` meshes of shape (1, 2), over ranks {0, 1}
    and {2, 3} (every rank builds both), each running its own
    ``optimize_kl`` of ``build_vi_likelihood``'s exact ``vi``² field with
@@ -106,6 +107,7 @@ TOL = {"hartley": 1e-6, "metric": 1e-5, "vi": 1e-4, "chains": 1e-2,
        # f32 autograd of the window (chip_smoke.py's 17h)
        "learned_metric": 1e-4}
 KL_WEIGHTS = (0.4, 0.1, 0.3, 0.2)  # check 10's kl_reduce: the weights of the 4 samples
+LEARNED_SAMPLES = 4  # check 9's sample pairs: 8 sets of coordinates in each KL evaluation
 LARGE = ("10240x10240:64", "8192x8192x16:64")  # _run_step's 1.05e8 and 1.07e9 dof
 FALLBACK = "8192x8192x8:64"  # tried after a size that does not fit
 NUTS = dict(n_chains=4, n_warmup=8, n_samples=4, max_tree_depth=5, step_size=1e-3)  # chip_smoke.py's MCMC
@@ -331,7 +333,7 @@ def _learned(args):
     from nifty_tpu_torch.bench.workload import (build_vi_likelihood, learned_nufft_likelihood,
                                                 learned_position, short_vi_settings)
     from nifty_tpu_torch.parallel import NamedSharding
-    from nifty_tpu_torch.parallel.nufft import NufftPlan, clear_plans
+    from nifty_tpu_torch.parallel.nufft import NufftPlan, taps_cut
 
     dev = parallel.multihost.backend_device() if args.device != "cpu" else torch.device("cpu")
     rank, p, f32 = args.rank, args.ranks, torch.float32
@@ -385,18 +387,23 @@ def _learned(args):
     def vi(lh_, pos, **kw):
         return nt.optimize_kl(lh_, pos, key=torch.Generator(device=dev).manual_seed(81),
                               n_total_iterations=1, sample_mode="linear_resample",
-                              **short_vi_settings(), **kw)[0]
+                              **dict(short_vi_settings(), **kw))[0]
 
-    ref, ref_s = timed(lambda: vi(lh, pw))
-    got, got_s = timed(lambda: vi(lh_s, ps, position_sharding=sh))
+    ref, ref_s = timed(lambda: vi(lh, pw, n_samples=LEARNED_SAMPLES))
+    if cuda:
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    cut0 = taps_cut()
+    got, got_s = timed(lambda: vi(lh_s, ps, position_sharding=sh, n_samples=LEARNED_SAMPLES))
+    peak_gib = (torch.cuda.max_memory_allocated() - mem0) / 2**30 if cuda else None
     mine, start = cut(ref.pos), cut(pw)
     step = {k: mine[k].double() - start[k].double() for k in mine}
     report({"check": "learned_nufft_mgvi_iteration", "by": "position_sharding", "shape": [n, n],
-            "points": m, "ranks": p, "settings": "CG 3", "s": got_s, "unsharded_s": ref_s,
+            "points": m, "ranks": p, "settings": "CG 3", "samples": 2 * LEARNED_SAMPLES, "s": got_s,
+            "unsharded_s": ref_s, "taps_cut": taps_cut() - cut0, "peak_gib": peak_gib,
             "step_rel_l2": _rel(ref.pos, pw), "rel_l2": _rel(got.pos, mine)},
            _rel({k: got.pos[k].double() - start[k].double() for k in mine}, step), TOL["vi_step"])
-    del lh, lh_s, cf, cf_s, ps, pw, ref, got, base
-    clear_plans()
+    del lh, lh_s, cf, cf_s, ps, pw, ref, got, base  # the plans go with the likelihood
     if cuda:
         torch.cuda.empty_cache()
 

@@ -117,8 +117,9 @@ def nufft2(x, coords, *, oversampling: float = 2.0, kernel_width: int = 6):
 
     Inside a field context, on the rank's rows of a row-sharded field (a
     shape the field noted), it is the sharded NUFFT of
-    :mod:`~..parallel.nufft`: the rank's share of the points, the
-    coordinates fixed."""
+    :mod:`~..parallel.nufft`: the rank's share of the points.  Coordinates
+    that carry a gradient have their taps cut anew at each call here; the
+    models below keep them for the coordinates' values."""
     from ..parallel import collectives
 
     ctx = collectives.row_shard(x)
@@ -203,11 +204,20 @@ class VariablePositionNufft(Model):
             self._k_coord: ShapeWithDtype((len(self.grid_shape), self.npoints)),
         })
         init = {k: partial(random_like, primals=v) for k, v in domain.items()}
+        self._plans = {}  # on a row-sharded field: the taps of the coordinates' values
         super().__init__(domain=domain, init=init)
 
     def forward(self, x):
-        return nufft2(x[self._k_grid], x[self._k_coord], oversampling=self.oversampling,
-                      kernel_width=self.kernel_width)
+        from ..parallel import collectives
+
+        grid, coords = x[self._k_grid], x[self._k_coord]
+        ctx = collectives.row_shard(grid)
+        if ctx is None:
+            return nufft2(grid, coords, oversampling=self.oversampling, kernel_width=self.kernel_width)
+        from ..parallel.nufft import sharded_nufft2
+
+        return sharded_nufft2(grid, coords, ctx, oversampling=self.oversampling,
+                              kernel_width=self.kernel_width, plans=self._plans)
 
 
 class ShiftedPositionFFT(Model):
@@ -243,6 +253,7 @@ class ShiftedPositionFFT(Model):
         freqs = np.meshgrid(*[np.fft.fftfreq(n) for n in self.grid_shape], indexing="ij")
         self._base = Const(np.stack([f.ravel() for f in freqs]))
         self._df = np.array([1.0 / n for n in self.grid_shape])  # one FFT bin, cycles/pixel
+        self._plans = {}  # on a row-sharded field: the taps of the coordinates' values
         super().__init__(domain=domain, init=init)
 
     def forward(self, x):
@@ -267,7 +278,7 @@ class ShiftedPositionFFT(Model):
         from ..parallel.nufft import sharded_nufft2
 
         vis = sharded_nufft2(grid, coords, ctx, oversampling=self.oversampling,
-                             kernel_width=self.kernel_width, local_coords=split)
+                             kernel_width=self.kernel_width, local_coords=split, plans=self._plans)
         p, r = torch.distributed.get_world_size(ctx.group), torch.distributed.get_rank(ctx.group)
         lo, hi = collectives.share(shift.shape[0], p, r)
         out = (vis * torch.exp(shift[lo:hi] * (-2j * math.pi))).reshape((-1,) + self.grid_shape[1:])

@@ -43,27 +43,31 @@ cotangent along that order, weights it and sums each cell's run with
 ``torch.segment_reduce``, writing each hit cell once.  No float atomics
 run, so a pull-back gives the same bits on every call.
 
-:class:`ShardedNufft` packages (a)-(e) as one autograd Function: linear,
-so its jvp is itself; its ``torch.func.vmap`` rule carries a leading
-sample batch through one exchange each way.  Only ``all_to_all``,
-``reduce_scatter`` and ``all_gather`` move data; the oversampled grid is
-never gathered whole on a rank.
+:class:`ShardedNufft` packages (a)-(e) as one autograd Function at fixed
+coordinates: linear, so its jvp is itself; its ``torch.func.vmap`` rule
+carries a leading sample batch through one exchange each way.  Only
+``all_to_all``, ``reduce_scatter`` and ``all_gather`` move data; the
+oversampled grid is never gathered whole on a rank.  Its plan is kept
+while the coordinate tensor lives.
 
 Coordinates that carry a gradient (``VariablePositionNufft``, whose
 coordinates are a model input, and ``ShiftedPositionFFT``) take the same
 stages, cut in two: :class:`NufftBlock`, (a)-(c), linear in the image,
 and :class:`NufftTaps`, (d) without its reduce-scatter, of the block and
 the coordinates.  The taps' derivatives ``w'(ν − k)·n_os`` (a table
-beside the weights, ``_Taps.dwgt``) applied to the same block give the
-partial output's derivative in each coordinate: the coordinates' tangent
-enters the partial output, which the reduce-scatter sums like the
-forward, and the coordinates' cotangent on a rank is its partial sum
-over its column block (the whole cotangent all-gathered first), which
-the caller sums over the ranks (``replicate`` of replicated
+beside the weights, ``_Taps.dwgt``, cut with them) applied to the same
+block give the partial output's derivative in each coordinate: the
+coordinates' tangent enters the partial output, which the reduce-scatter
+sums like the forward, and the coordinates' cotangent on a rank is its
+partial sum over its column block (the whole cotangent all-gathered
+first), which the caller sums over the ranks (``replicate`` of replicated
 coordinates; the adjoint of ``all_gather`` of ``ShiftedPositionFFT``'s
-rows).  A plan is cut once for each set of coordinates and found again
-by their values (:func:`plan_for`: within a metric apply or a CG solve
-the primal coordinates are fixed, while each call makes them anew).
+rows).  Their plans are found by value (:class:`PlanCache`, held by the
+model: within a metric apply or a CG solve the primal coordinates are
+fixed, while each call makes them anew).  The fixed coordinates keep the
+one Function: through ``NufftBlock`` and ``NufftTaps`` their metric
+apply and MGVI iteration measured slower on the card (PERF.md §6),
+the cost of the Functions' dispatch under the ``torch.func`` transforms.
 """
 
 from __future__ import annotations
@@ -77,14 +81,16 @@ import torch
 
 from ..ops.gather_reduce import GatherReduce
 from ..ops.nufft import _kb_apodization, _params
+from ..utils.tree import looped
 from . import collectives
 from .fft import MeshAxis
 from .multihost import host_local_slice
 
-__all__ = ["NufftBlock", "NufftPlan", "NufftTaps", "ShardedNufft", "clear_plans", "nufft_stages",
-           "plan_for", "sharded_nufft2"]
+__all__ = ["Geometry", "NufftBlock", "NufftPlan", "NufftTaps", "PlanCache", "ShardedNufft", "nufft_stages",
+           "sharded_nufft2", "taps_cut"]
 
 _CDT = {torch.float32: torch.complex64, torch.float64: torch.complex128}
+_cut = [0]  # the tap matrices cut in this process (:func:`taps_cut`)
 
 
 def _kb(u, m: int, beta: float):
@@ -213,6 +219,7 @@ class NufftPlan:
         key = (rank, str(torch.device(device)), dtype)
         if key in self._taps and (self._taps[key].dwgt is not None or not deriv):
             return self._taps[key]
+        _cut[0] += 1
         k1, h, w, order, sorted_h, dw = self._entries(device, deriv)
         T = h.shape[1]
         c_lo, c_hi = self.bounds[rank], self.bounds[rank + 1]
@@ -521,22 +528,24 @@ def _deriv_taps(blk, t, batch):
     return G.expand((G.shape[0],) + tuple(batch) + (G.shape[-1],)).reshape(G.shape[0], -1, G.shape[-1])
 
 
-def _taps_value(blk, coords, geo, rank):
+def _taps_value(blk, coords, plans, rank):
     """:class:`NufftTaps`'s value on plain tensors: ``blk`` (a batch, then
-    the cells), ``coords`` ``(ndim, M)``."""
-    plan = plan_for(coords, geo)
+    the cells), ``coords`` ``(ndim, M)``; the coordinates' first cut has
+    the derivative taps too, which the jvp or the backward reads next."""
+    plan = plans.plan(coords)
+    plan.taps(rank, blk.device, blk.real.dtype, deriv=True)
     out = plan.apply_taps(blk.reshape(-1, blk.shape[-1]), rank)
     return out.reshape(tuple(blk.shape[:-1]) + (plan.n_points,))
 
 
-def _taps_tangent(dblk, dc, blk, coords, geo, rank):
+def _taps_tangent(dblk, dc, blk, coords, plans, rank):
     """The partial output's tangent at ``(blk, coords)`` (plain tensors;
     ``blk`` a batch, then the cells, shared by the tangents' batch where it
     has none): the taps of the block's tangent
     ``dblk`` (None: 0) plus each point's coordinates' tangent ``dc``
     (``(ndim, M)``, or with leading axes of the batch's; None: 0) times the
     derivative taps of ``blk``."""
-    plan = plan_for(coords, geo)
+    plan = plans.plan(coords)
     bd = tuple(torch.broadcast_shapes(blk.shape[:-1], () if dblk is None else dblk.shape[:-1],
                                       () if dc is None else dc.shape[:-2]))
     n = int(np.prod(bd, dtype=np.int64))
@@ -554,13 +563,13 @@ def _taps_tangent(dblk, dc, blk, coords, geo, rank):
     return out.reshape(bd + (plan.n_points,))
 
 
-def _taps_cotangents(g, blk, coords, geo, rank, keep: int = 0):
+def _taps_cotangents(g, blk, coords, plans, rank, keep: int = 0):
     """The cotangents of ``(blk, coords)`` from the whole partial output's
     ``g`` (a batch, then ``M``; ``blk``'s batch its trailing axes or none):
     the taps' CSR transpose of ``g``, and each coordinate's partial sum over this
     rank's block, ``Re(conj(G) g)``, summed over the batch but its first
     ``keep`` axes."""
-    plan = plan_for(coords, geo)
+    plan = plans.plan(coords)
     bd = tuple(g.shape[:-1])
     gb = g.reshape(-1, g.shape[-1])
     d_blk = plan.taps_t(gb, rank).reshape(bd + (-1,))
@@ -581,11 +590,12 @@ def _lead(a, d, n):
     return a.movedim(d, 0) if d is not None else a.unsqueeze(0).expand((n,) + tuple(a.shape))
 
 
-def _per_sample(fn, args, in_dims):
+def _per_sample(fn, args, in_dims, plans):
     """``fn`` of each sample of the mapped ``args`` (``in_dims`` None for
     an unmapped one), stacked on a leading axis: coordinates that differ by
-    sample take each sample's taps."""
+    sample take each sample's taps, and ``plans`` keeps as many."""
     n = next(a.shape[d] for a, d in zip(args, in_dims) if d is not None)
+    plans.keep(n)
     outs = [fn(*[a if d is None or a is None else a.select(d, i) for a, d in zip(args, in_dims)])
             for i in range(n)]
     if isinstance(outs[0], tuple):
@@ -598,8 +608,8 @@ class _TapsTangent(torch.autograd.Function):
     so a transform above it maps it by :meth:`vmap`."""
 
     @staticmethod
-    def forward(dblk, dc, blk, coords, geo, rank):
-        return _taps_tangent(dblk, dc, blk, coords, geo, rank)
+    def forward(dblk, dc, blk, coords, plans, rank):
+        return _taps_tangent(dblk, dc, blk, coords, plans, rank)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -610,14 +620,14 @@ class _TapsTangent(torch.autograd.Function):
         raise NotImplementedError("the NUFFT's tangent in its coordinates is not differentiated again")
 
     @staticmethod
-    def vmap(info, in_dims, dblk, dc, blk, coords, geo, rank):
+    def vmap(info, in_dims, dblk, dc, blk, coords, plans, rank):
         if in_dims[3] is None:  # one set of coordinates: the mapped axis leads the batch
             n = info.batch_size
             dc = dc if in_dims[1] is None else dc.movedim(in_dims[1], 0)
             blk = blk if in_dims[2] is None else blk.movedim(in_dims[2], 0)
-            return _TapsTangent.apply(_lead(dblk, in_dims[0], n), dc, blk, coords, geo, rank), 0
-        return _per_sample(lambda a, b, c, d: _TapsTangent.apply(a, b, c, d, geo, rank),
-                           (dblk, dc, blk, coords), in_dims[:4]), 0
+            return _TapsTangent.apply(_lead(dblk, in_dims[0], n), dc, blk, coords, plans, rank), 0
+        return _per_sample(lambda a, b, c, d: _TapsTangent.apply(a, b, c, d, plans, rank),
+                           (dblk, dc, blk, coords), in_dims[:4], plans), 0
 
 
 class _TapsCotangents(torch.autograd.Function):
@@ -625,8 +635,8 @@ class _TapsCotangents(torch.autograd.Function):
     :class:`NufftTaps`), mapped by :meth:`vmap`."""
 
     @staticmethod
-    def forward(g, blk, coords, geo, rank, keep=0):
-        return _taps_cotangents(g, blk, coords, geo, rank, keep)
+    def forward(g, blk, coords, plans, rank, keep=0):
+        return _taps_cotangents(g, blk, coords, plans, rank, keep)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -637,13 +647,13 @@ class _TapsCotangents(torch.autograd.Function):
         raise NotImplementedError("the NUFFT's cotangent in its coordinates is not differentiated again")
 
     @staticmethod
-    def vmap(info, in_dims, g, blk, coords, geo, rank, keep=0):
+    def vmap(info, in_dims, g, blk, coords, plans, rank, keep=0):
         if in_dims[2] is None:  # one set of coordinates: a cotangent a mapped sample
             n = info.batch_size
             blk = blk if in_dims[1] is None else blk.movedim(in_dims[1], 0)
-            return _TapsCotangents.apply(_lead(g, in_dims[0], n), blk, coords, geo, rank, keep + 1), (0, 0)
-        return _per_sample(lambda a, b, c: _TapsCotangents.apply(a, b, c, geo, rank, keep),
-                           (g, blk, coords), in_dims[:3]), (0, 0)
+            return _TapsCotangents.apply(_lead(g, in_dims[0], n), blk, coords, plans, rank, keep + 1), (0, 0)
+        return _per_sample(lambda a, b, c: _TapsCotangents.apply(a, b, c, plans, rank, keep),
+                           (g, blk, coords), in_dims[:3], plans), (0, 0)
 
 
 class NufftTaps(torch.autograd.Function):
@@ -651,44 +661,42 @@ class NufftTaps(torch.autograd.Function):
     gradient: the rank's raveled block ``blk`` (a batch, then the cells)
     and the coordinates ``coords`` ``(ndim, M)`` -> the rank's partial
     output over every point (the batch, then ``M``).  The taps are those of
-    the coordinates' values (:func:`plan_for`); its jvp adds the
-    derivative taps times the coordinates' tangent, its backward gives the
-    block the taps' transpose and the coordinates their partial sum over
-    the rank's block; under ``torch.func.vmap`` coordinates that differ by
-    sample take each sample's taps."""
+    the coordinates' values (``plans``, a :class:`PlanCache`); its jvp adds
+    the derivative taps times the coordinates' tangent, its backward gives
+    the block the taps' transpose and the coordinates their partial sum
+    over the rank's block; under ``torch.func.vmap`` coordinates that
+    differ by sample take each sample's taps."""
 
     @staticmethod
-    def forward(blk, coords, geo, rank):
-        return _taps_value(blk, coords, geo, rank)
+    def forward(blk, coords, plans, rank):
+        return _taps_value(blk, coords, plans, rank)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        blk, coords, ctx.geo, ctx.rank = inputs
+        blk, coords, ctx.plans, ctx.rank = inputs
         ctx.save_for_backward(blk, coords)
         ctx.save_for_forward(blk, coords)
 
     @staticmethod
     def backward(ctx, grad):
         blk, coords = ctx.saved_tensors
-        d_blk, d_c = _TapsCotangents.apply(grad, blk, coords, ctx.geo, ctx.rank)
+        d_blk, d_c = _TapsCotangents.apply(grad, blk, coords, ctx.plans, ctx.rank)
         return d_blk, d_c, None, None
 
     @staticmethod
     def jvp(ctx, d_blk, d_c, *_):
         blk, coords = ctx.saved_tensors
-        return _TapsTangent.apply(d_blk, d_c, blk, coords, ctx.geo, ctx.rank)
+        return _TapsTangent.apply(d_blk, d_c, blk, coords, ctx.plans, ctx.rank)
 
     @staticmethod
-    def vmap(info, in_dims, blk, coords, geo, rank):
+    def vmap(info, in_dims, blk, coords, plans, rank):
         if in_dims[1] is None:  # one set of coordinates: the mapped axis joins the block's batch
-            return NufftTaps.apply(blk.movedim(in_dims[0], 0), coords, geo, rank), 0
-        return _per_sample(lambda b, c: NufftTaps.apply(b, c, geo, rank), (blk, coords), in_dims[:2]), 0
+            return NufftTaps.apply(blk.movedim(in_dims[0], 0), coords, plans, rank), 0
+        return _per_sample(lambda b, c: NufftTaps.apply(b, c, plans, rank), (blk, coords), in_dims[:2],
+                           plans), 0
 
 
 # --- plans -----------------------------------------------------------------------------------
-
-PLANS_KEPT = 6  # plans kept a geometry: the primal's and each sample's coordinates of a VI step
-_PLANS: dict = {}  # a geometry's key -> [(a weak reference to the coordinates, their _version, a copy, the plan)]
 
 
 class Geometry(NamedTuple):
@@ -700,48 +708,79 @@ class Geometry(NamedTuple):
     oversampling: float
     kernel_width: int
 
-
-def plan_for(coords, geo: Geometry) -> NufftPlan:
-    """The plan of ``coords`` (a tensor ``(ndim, M)``) in ``geo``: the same
-    tensor's, else one cut for equal values (coordinates a model makes
-    anew at each call, fixed within a metric apply or a CG solve), else a
-    new one, cut on the coordinates' device; the last ``PLANS_KEPT`` of a
-    geometry are kept."""
-    with torch._C._DisableFuncTorch():  # the coordinates' values, inside torch.func transforms too
-        c = coords.detach()
-        entries = _PLANS.setdefault(geo, [])
-        hit = next((e for e in entries if e[0]() is coords and e[1] == coords._version), None)
-        if hit is None:
-            hit = next((e for e in entries if e[2].shape == c.shape and e[2].dtype == c.dtype
-                        and e[2].device == c.device and torch.equal(e[2], c)), None)
-        if hit is None:
-            copy = c.clone()
-            hit = (lambda: None, None, copy, NufftPlan(geo.shape, copy, geo.p, geo.oversampling,
-                                                        geo.kernel_width))
-        entries[:] = [e for e in entries if e is not hit][-(PLANS_KEPT - 1):]
-        try:
-            ref = weakref.ref(coords)
-        except TypeError:
-            ref = hit[0]
-        entries.append((ref, coords._version, hit[2], hit[3]))
-    return hit[3]
+    def plan(self, coords=None) -> NufftPlan:
+        """A new plan of ``coords`` (None: the geometry alone)."""
+        return NufftPlan(self.shape, coords, self.p, self.oversampling, self.kernel_width)
 
 
-def clear_plans():
-    """Free every kept plan (their tap tables)."""
-    _PLANS.clear()
+_FIXED: dict = {}  # id of a coordinate tensor -> (a weak reference to it, its plan's key, the plan)
+
+
+def _fixed_plan(coords, geo: Geometry) -> NufftPlan:
+    """The plan of fixed coordinates (a tensor without a gradient) in
+    ``geo``, found by the tensor itself and its ``_version`` and freed when
+    the tensor is (one geometry a coordinate tensor at a time)."""
+    key = (geo, coords._version)
+    entry = _FIXED.get(id(coords))
+    if entry is None or entry[0]() is not coords or entry[1] != key:
+        if entry is None or entry[0]() is not coords:
+            weakref.finalize(coords, _FIXED.pop, id(coords), None)
+        entry = _FIXED[id(coords)] = (weakref.ref(coords), key, geo.plan(coords.detach().clone()))
+    return entry[2]
+
+
+class PlanCache:
+    """The plans of coordinates that carry a gradient in ``geo``, found by
+    their values: a model makes its coordinates anew at each call, while
+    within a metric apply or a CG solve they stay fixed.  It keeps the
+    most recently used, as many as the most coordinate sets one call has
+    mapped (the samples of a KL under ``torch.func.vmap`` or in an
+    :func:`~..utils.tree.lmap` loop; one at least), so a KL's metric
+    applies cut no taps again.  The model
+    that owns the coordinates holds its caches, so the plans go with it; a
+    copy or a pickle starts empty."""
+
+    def __init__(self, geo: Geometry):
+        self.geo, self.kept, self._entries = geo, 1, []  # entries: (a copy of the coordinates, the plan)
+
+    def __reduce__(self):
+        return PlanCache, (self.geo,)
+
+    def keep(self, n: int):
+        """Keep at least ``n`` plans (``n`` coordinate sets in one call)."""
+        self.kept = max(self.kept, int(n))
+
+    def plan(self, coords) -> NufftPlan:
+        self.keep(looped())  # a loop over samples asks for each sample's in turn
+        with torch._C._DisableFuncTorch():  # the coordinates' values, inside torch.func transforms too
+            c = coords.detach()
+            hit = next((e for e in self._entries if e[0].shape == c.shape and e[0].dtype == c.dtype
+                        and e[0].device == c.device and torch.equal(e[0], c)), None)
+            if hit is None:
+                copy = c.clone()
+                hit = (copy, self.geo.plan(copy))
+            self._entries = [e for e in self._entries if e is not hit] + [hit]
+            del self._entries[:-self.kept]
+        return hit[1]
+
+
+def taps_cut() -> int:
+    """The tap matrices this process has cut (one a rank and set of
+    coordinates), for a caller that counts the cuts of a run."""
+    return _cut[0]
 
 
 def sharded_nufft2(x, coords, ctx, *, oversampling: float = 2.0, kernel_width: int = 6,
-                   local_coords: bool = False):
+                   local_coords: bool = False, plans: Optional[dict] = None):
     """``nufft2`` of the rank's rows ``x`` of a row-sharded image inside the
     field context ``ctx``: the rank's share of the visibilities at
     ``coords`` (``(ndim, M)``; ``np.array_split``'s block of the points),
-    noted as a split output.  Coordinates that carry a gradient take
-    :class:`NufftBlock` and :class:`NufftTaps`; their cotangent is summed
-    over the ranks (``replicate``: the coordinates are replicated) unless
-    ``local_coords`` (the caller's coordinates are the rank's own copy, as
-    an ``all_gather`` of split ones is, whose adjoint sums)."""
+    noted as a split output.  Coordinates that carry a gradient have their
+    cotangent summed over the ranks (``replicate``: the coordinates are
+    replicated) unless ``local_coords`` (the caller's coordinates are the
+    rank's own copy, as an ``all_gather`` of split ones is, whose adjoint
+    sums); their plans are kept in ``plans`` (a model's dict, geometry ->
+    :class:`PlanCache`; None: this call's alone)."""
     import torch.distributed as dist
 
     p, r = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
@@ -749,20 +788,19 @@ def sharded_nufft2(x, coords, ctx, *, oversampling: float = 2.0, kernel_width: i
     ax, nd = MeshAxis(ctx.group, p, r), len(shape)
     geo = Geometry(shape, p, float(oversampling), int(kernel_width))
     if not (coords.requires_grad or torch._C._functorch.is_functorch_wrapped_tensor(coords)):
-        out = ShardedNufft.apply(x, plan_for(coords, geo), ax, nd)
+        out = ShardedNufft.apply(x, _fixed_plan(coords, geo), ax, nd)
     else:
         if not local_coords:
             coords = collectives.replicate(coords, ctx.group)
-        blk = NufftBlock.apply(x, plan_for_geometry(geo), ax, nd)
-        out = collectives.reduce_scatter(NufftTaps.apply(blk, coords, geo, r), ctx.group, axis=-1)
+        plans = {} if plans is None else plans
+        cache = plans[geo] = plans.get(geo) or PlanCache(geo)
+        blk = NufftBlock.apply(x, _geometry_plan(geo), ax, nd)
+        out = collectives.reduce_scatter(NufftTaps.apply(blk, coords, cache, r), ctx.group, axis=-1)
     return collectives.note_split(out)
 
 
-_GEOMETRIES: dict = {}
-
-
-def plan_for_geometry(geo: Geometry) -> NufftPlan:
-    """A plan of ``geo`` without coordinates: stages (a)-(c) and their adjoints."""
-    if geo not in _GEOMETRIES:
-        _GEOMETRIES[geo] = NufftPlan(geo.shape, None, geo.p, geo.oversampling, geo.kernel_width)
-    return _GEOMETRIES[geo]
+@functools.lru_cache(maxsize=None)
+def _geometry_plan(geo: Geometry) -> NufftPlan:
+    """The plan of ``geo`` without coordinates: stages (a)-(c) and their
+    adjoints (the window's transforms, kept once on each device)."""
+    return geo.plan()

@@ -426,6 +426,15 @@ def mean_and_std(forest, correct_bias=True):
     return m, s
 
 
+_LOOPS = []  # the lengths of the lmap loops running, outermost first
+
+
+def looped() -> int:
+    """The samples the running :func:`lmap` loops map (the product of their
+    lengths; 1 outside one), for a cache that keeps one entry a sample."""
+    return math.prod(_LOOPS)
+
+
 def lmap(fun, in_axes=0):
     """``fun`` mapped over the leading axis of its arguments by a Python loop
     (vmap's semantics: ``in_axes`` 0 maps an argument, None passes it
@@ -439,10 +448,15 @@ def lmap(fun, in_axes=0):
         n = {_leaves(a)[0].shape[0] for a, ax in zip(args, axes) if ax == 0}
         if len(n) != 1:
             raise ValueError(f"inconsistent mapped lengths {n}")
-        outs = [
-            fun(*(a if ax is None else tree_map(lambda x, i=i: x[i], a) for a, ax in zip(args, axes)))
-            for i in range(n.pop())
-        ]
+        n = n.pop()
+        _LOOPS.append(n)
+        try:
+            outs = [
+                fun(*(a if ax is None else tree_map(lambda x, i=i: x[i], a) for a, ax in zip(args, axes)))
+                for i in range(n)
+            ]
+        finally:
+            _LOOPS.pop()
         return stack(outs)
 
     return mapped

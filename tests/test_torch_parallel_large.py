@@ -44,10 +44,12 @@ sharded run add in another order); K7's ranges exact; its moments within
 """
 
 import functools
+import gc
 import json
 import os
 import subprocess
 import sys
+import weakref
 
 import jax
 import numpy as np
@@ -64,7 +66,9 @@ from nifty_tpu_torch.bench.workload import large_field_step
 from nifty_tpu_torch.evi import white_noise
 from nifty_tpu_torch.ops.cuda_normal import philox_normal, philox_words, philox_words_plain
 from nifty_tpu_torch.parallel import collectives
-from nifty_tpu_torch.parallel.nufft import nufft_stages
+from nifty_tpu_torch.parallel import nufft as pnufft
+from nifty_tpu_torch.parallel.nufft import nufft_stages, taps_cut
+from nifty_tpu_torch.utils.tree import get_map
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -298,6 +302,16 @@ def test_row_shard_knows_the_raveled_rows(monkeypatch):
 # --- (e) the refusal that stays, and what replaced the others -------------------------------------
 
 
+def _one_rank(monkeypatch):
+    """A group of one: its collectives the identity."""
+    monkeypatch.setattr(collectives.dist, "get_world_size", lambda group=None: 1)
+    monkeypatch.setattr(collectives.dist, "get_rank", lambda group=None: 0)
+    for name in ("_all_reduce", "_reduce_scatter"):
+        monkeypatch.setattr(collectives, name, lambda x, *a, **k: x.clone())
+    monkeypatch.setattr(collectives, "_all_gather", lambda x, *a, **k: x.clone())
+    monkeypatch.setattr(collectives, "all_to_all", lambda chunks, shapes, group: list(chunks))
+
+
 def test_coordinates_as_inputs_are_refused_on_a_sharded_field(monkeypatch):
     """Inside a field context ``ToeplitzSKI`` still raises, naming
     ROADMAP.md (before any collective).  ``VariablePositionNufft``,
@@ -305,12 +319,7 @@ def test_coordinates_as_inputs_are_refused_on_a_sharded_field(monkeypatch):
     gradient run there now: on one rank (a group of one, its collectives
     the identity) each gives the whole image's result, and the
     coordinates' cotangent is the one-process one."""
-    monkeypatch.setattr(collectives.dist, "get_world_size", lambda group=None: 1)
-    monkeypatch.setattr(collectives.dist, "get_rank", lambda group=None: 0)
-    for name in ("_all_reduce", "_reduce_scatter"):
-        monkeypatch.setattr(collectives, name, lambda x, *a, **k: x.clone())
-    monkeypatch.setattr(collectives, "_all_gather", lambda x, *a, **k: x.clone())
-    monkeypatch.setattr(collectives, "all_to_all", lambda chunks, shapes, group: list(chunks))
+    _one_rank(monkeypatch)
     rng = np.random.default_rng(0)
     vp = nt.ops.nufft.VariablePositionNufft((8, 8), 6, kernel_width=4)
     sp = nt.ops.nufft.ShiftedPositionFFT((8, 6), kernel_width=4)
@@ -336,6 +345,65 @@ def test_coordinates_as_inputs_are_refused_on_a_sharded_field(monkeypatch):
             _close(y.numpy(), want[k][0].numpy())
             for got, exp in zip(pull(ct), want[k][1](ct)):
                 _close(got.numpy(), exp.numpy())
+
+
+@pytest.mark.parametrize("map_", ["vmap", "lmap"])
+def test_learned_plans_are_kept_for_the_mapped_samples_and_go_with_the_model(monkeypatch, map_):
+    """``VariablePositionNufft`` on a row-sharded field (one rank), its
+    coordinates differing by sample: one call over 8 samples (by
+    ``torch.func.vmap`` or an ``lmap`` loop) cuts each sample's taps once,
+    derivatives included; a second pass, as a CG solve's next metric
+    apply makes, cuts none and gives the same values.  The plans go with
+    the model."""
+    _one_rank(monkeypatch)
+    rng = np.random.default_rng(3)
+    vp = nt.ops.nufft.VariablePositionNufft((8, 8), 6, kernel_width=4)
+    x = torch.from_numpy(rng.standard_normal((8, 8)))
+    base = torch.from_numpy(rng.uniform(-0.4, 0.4, (2, 6)))
+    shifts, tangent = (torch.from_numpy(rng.standard_normal(s)) for s in ((8, 2, 6), (2, 6)))
+
+    def push(d):  # the coordinates carry a gradient: the jvp in them
+        return torch.func.jvp(lambda e: vp({"nufftcoord": base + 0.01 * e, "nufftgrid": x}), (d,), (tangent,))
+
+    with collectives.field_sharded(object(), ["cfxi"]):
+        collectives.note_split(x, rows=True)
+        cut0 = taps_cut()
+        first = get_map(map_)(push)(shifts)
+        cut1 = taps_cut()
+        again = get_map(map_)(push)(shifts)
+        cut2 = taps_cut()
+    assert (cut1 - cut0, cut2 - cut1) == (8, 0)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    (cache,) = vp._plans.values()
+    assert cache.kept == 8
+    gone = weakref.ref(cache)
+    del vp, cache, push
+    gc.collect()
+    assert gone() is None
+
+
+def test_fixed_coordinates_plan_goes_with_the_coordinates(monkeypatch):
+    """``nufft2`` at fixed coordinates on a row-sharded field (one rank)
+    cuts their taps once while the coordinate tensor lives, without their
+    derivatives, and frees the plan when the tensor goes."""
+    _one_rank(monkeypatch)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((8, 8)))
+    coords = torch.from_numpy(rng.uniform(-0.5, 0.5, (2, 6)))
+    key = id(coords)
+    with collectives.field_sharded(object(), ["cfxi"]):
+        collectives.note_split(x, rows=True)
+        cut0 = taps_cut()
+        y = [nt.nufft2(x, coords, kernel_width=4) for _ in range(2)]
+        assert taps_cut() - cut0 == 1
+    _close(y[0].numpy(), nt.nufft2(x, coords, kernel_width=4).numpy())
+    plan = pnufft._FIXED[key][2]
+    assert all(t.dwgt is None for t in plan._taps.values())
+    gone = weakref.ref(plan)
+    del coords, plan
+    gc.collect()
+    assert key not in pnufft._FIXED and gone() is None
 
 
 # --- (b) the ranks: 2 and 4 gloo processes --------------------------------------------------------
@@ -431,6 +499,10 @@ ski_odd = nt.HarmonicSKI(shape, [(0.0, 1.0)] * 2, inp["ski_points"][:, :nproc + 
 with field_sharded(mesh.get_group("fx"), keys):
     out["odd/vis"] = nt.nufft2(torch.exp(cf(pos)), odd, kernel_width=cfg["width"]).numpy()
     out["odd/energy"] = lh_o(pos).detach().numpy()
+    w = white_noise(lh_o, pos, cfg["white_key"])  # K7's offsets for shares that differ by a point
+    out["odd/white/data"] = w.data.numpy()
+    for k, v in w.prior.items():
+        out["odd/white/prior/" + k] = v.numpy()
     out["odd/ski"] = (ski_odd.w @ torch.exp(cf(pos)).reshape(-1)).numpy()
 
 # learned coordinates (VariablePositionNufft; 49 points, uneven shares) and ShiftedPositionFFT
@@ -722,6 +794,12 @@ def _one_process(inp):
     pos = nt.position_from_numpy(cf, {k[5:]: v for k, v in inp.items() if k.startswith("mpos/")})
     w = white_noise(lh, pos, WHITE_KEY)
     one = {"white/data": w.data.numpy(), **{"white/prior/" + k: v.numpy() for k, v in w.prior.items()}}
+    for p in (2, 4):  # the nproc + 1 points of the workers' uneven shares
+        lh_o = nt.Gaussian(torch.from_numpy(inp["vis"][:p + 1]), noise_cov_inv=lambda r: r / NOISE**2).amend(
+            lambda x, p=p: nt.nufft2(torch.exp(cf(x)), coords[:, :p + 1], kernel_width=WIDTH))
+        w = white_noise(lh_o, pos, WHITE_KEY)
+        one[f"odd{p}/white/data"] = w.data.numpy()
+        one.update({f"odd{p}/white/prior/" + k: v.numpy() for k, v in w.prior.items()})
     for i, (size, knots) in enumerate(SMOKE):
         _, x, e = large_field_step(size, knots, "cpu")
         one[f"large{i}/energy"] = e
@@ -822,12 +900,23 @@ def test_position_sharded_optimize_kl_matches_jax(launches, nproc, response):
 def test_rank_white_noise_is_the_one_process_rows(launches, nproc):
     """``white_noise`` on p ranks (K7's plain version, each rank its rows of
     ξ and its share of the visibilities): the one-process draw's rows, bit
-    for bit; the replicated leaves the whole draw's."""
+    for bit; the replicated leaves the whole draw's.  Over ``nproc + 1``
+    points too, whose shares differ by one (``np.array_split``'s blocks)."""
     outs, one = launches[0][nproc], launches[2]
     for r, out in enumerate(outs):
         for k in [k for k in one if k.startswith("white/")]:
             want = _rows(one[k], r, nproc) if k in ("white/data", "white/prior/cfxi") else one[k]
             np.testing.assert_array_equal(out[k], want)
+        odd = f"odd{nproc}/white/"
+        keys = [k for k in one if k.startswith(odd)]
+        assert odd + "data" in keys and odd + "prior/cfxi" in keys
+        for k in keys:
+            want = one[k]
+            if k == odd + "data":
+                want = np.array_split(want, nproc)[r]
+            elif k == odd + "prior/cfxi":
+                want = _rows(want, r, nproc)
+            np.testing.assert_array_equal(out["odd/white/" + k[len(odd):]], want)
 
 
 @RANKS
