@@ -14,8 +14,8 @@ kind (K1-K4 by their kernel names, elementwise, cat, reductions, the
 rest), kernel launches per apply, wall time per apply under the profiler,
 and the device's busy share of that wall time.  For the knot form it adds
 the device time and launches of the relu-feature map (its chunks'
-kernels, also counted in their kinds), from a profiler range around
-``ops.pwl.pwl_features``/``pwl_transpose`` that only this script opens.
+kernels, also counted in their kinds), from the program's spans
+``nt.pwl.features`` and ``nt.pwl.transpose`` (:mod:`nifty_tpu_torch.tracing`).
 With ``--vi`` it profiles one MGVI and one geoVI iteration
 (``OptimizeVI.update`` with ``chip_smoke.py`` phase 7's settings, after
 one warm-up) at each size instead, the samples mapped by ``--maps``
@@ -73,23 +73,7 @@ def kind_of(name: str) -> str:
     return "other"
 
 
-PWL_RANGE = "pwl_features"
-
-
-def _annotate_pwl():
-    """Wrap the relu-feature map's two directions in a profiler range."""
-    import torch
-
-    from nifty_tpu_torch.ops import pwl
-
-    def ranged(fn):
-        def call(*args):
-            with torch.profiler.record_function(PWL_RANGE):
-                return fn(*args)
-
-        return call
-
-    pwl.pwl_features, pwl.pwl_transpose = ranged(pwl.pwl_features), ranged(pwl.pwl_transpose)
+PWL_RANGES = ("nt.pwl.features", "nt.pwl.transpose")  # the relu-feature map's spans
 
 
 def kernel_times(fn, calls, warmup=1, ranges=()):
@@ -115,9 +99,9 @@ def kernel_times(fn, calls, warmup=1, ranges=()):
     kernels = {}
     for ev in prof.key_averages():
         dt = getattr(ev, "self_device_time_total", 0.0)
-        # a range also shows on the device as an annotation spanning its
-        # kernels: not a kernel of its own
-        if ev.device_type == cuda and dt > 0 and ev.key not in ranges:
+        # a user annotation (a ``record_function`` range) also shows on the
+        # device, spanning its kernels: not a kernel of its own
+        if ev.device_type == cuda and dt > 0 and not ev.is_user_annotation:
             kernels[ev.key] = (dt / 1e3 / calls, ev.count / calls)
     inside = {r: [0.0, 0] for r in ranges}
     for ev in prof.events() if ranges else ():
@@ -146,8 +130,8 @@ def _line(wall_ms, kernels, inside=None, **head):
             "top_kernels": [{"name": name[:100], "ms": ms, "launches": count} for name, (ms, count)
                             in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]]}
     if inside:
-        ms, count = inside[PWL_RANGE]
-        line["relu_features"] = {"ms": ms, "launches": count}
+        line["relu_features"] = {"ms": sum(inside[r][0] for r in PWL_RANGES),
+                                 "launches": sum(inside[r][1] for r in PWL_RANGES)}
     return line
 
 
@@ -223,10 +207,7 @@ def main() -> int:
         args.knots = None  # the tomography and the spherical fields are exact
     elif args.vi:
         args.knots = 64 if args.knots is None else args.knots or None
-    ranges = ()
-    if args.knots is not None:
-        _annotate_pwl()
-        ranges = (PWL_RANGE,)
+    ranges = PWL_RANGES if args.knots is not None else ()
     for n in args.sizes:
         head = {"card": smi, "n": n, "knots": args.knots, "rays": args.los,
                 "sphere": args.sphere}

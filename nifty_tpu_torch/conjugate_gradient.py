@@ -20,7 +20,10 @@ convergence criteria:
 iterate frozen by a mask once it stops, the flag read every
 :data:`SYNC_EVERY` iterations.
 
-The matrix-vector product is the device work of all of them.
+The matrix-vector product is the device work of all of them.  A solve by
+:func:`cg` or :func:`static_cg` is the span ``cg``, each of its products
+the span ``cg.matvec`` (:mod:`.tracing`); :func:`static_cg` reads its
+flag through :func:`~.tracing.host_read`.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 from torch.utils._pytree import tree_leaves
 
+from . import tracing
 from .logger import logger
 from .utils.tree import norm as tree_norm
 from .utils.tree import (
@@ -58,6 +62,12 @@ class CGResults(NamedTuple):
     success: bool
 
 
+def _matvec(mat, x):
+    with tracing.span("cg.matvec"):
+        return mat(x)
+
+
+@tracing.span("cg")
 def cg(
     mat: Callable,
     j,
@@ -97,7 +107,7 @@ def cg(
         nfev = 0
     else:
         pos = x0
-        r = tree_map(torch.sub, mat(pos), j)
+        r = tree_map(torch.sub, _matvec(mat, pos), j)
         energy = half_diff_dot(r, pos)
         nfev = 1
     d = r
@@ -108,7 +118,7 @@ def cg(
     info = -1
     i = 0
     for i in range(1, maxiter + 1):
-        q = mat(d)
+        q = _matvec(mat, d)
         nfev += 1
         curv = float(vdot(d, q).real)
         if curv == 0.0:
@@ -126,7 +136,7 @@ def cg(
         alpha = gamma_prev / curv
         pos = tree_axpy(-alpha, d, pos)
         if i % N_RESET == 0:
-            r = tree_map(torch.sub, mat(pos), j)
+            r = tree_map(torch.sub, _matvec(mat, pos), j)
             nfev += 1
         else:
             r = tree_axpy(-alpha, q, r)
@@ -159,6 +169,7 @@ def cg(
     return CGResults(x=pos, nit=i, nfev=nfev, info=info, success=info == 0)
 
 
+@tracing.span("cg")
 def static_cg(
     mat: Callable,
     j,
@@ -212,7 +223,7 @@ def static_cg(
         energy = torch.zeros(lead, dtype=leaf.real.dtype, device=leaf.device)
     else:
         pos = x0
-        r = tree_map(torch.sub, mat(pos), j)
+        r = tree_map(torch.sub, _matvec(mat, pos), j)
         energy = half_diff_dot(r, pos)
     d = r
     gamma = dot(r, r).real
@@ -220,10 +231,10 @@ def static_cg(
     nit = torch.zeros(lead, dtype=torch.int32, device=leaf.device)
 
     for i in range(1, maxiter + 1):
-        if i > 1 and (i - 1) % SYNC_EVERY == 0 and not bool((info < -1).any()):
+        if i > 1 and (i - 1) % SYNC_EVERY == 0 and not tracing.host_read((info < -1).any()):
             break
         active = info < -1
-        q = mat(d)
+        q = _matvec(mat, d)
         curv = dot(d, q).real
         bad_curv = curv <= 0.0
         new_info = torch.where(bad_curv, failed, info)
@@ -231,7 +242,7 @@ def static_cg(
         new_pos = tree_axpy(-alpha, d, pos)
         new_r = tree_axpy(-alpha, q, r)
         if i % N_RESET == 0:
-            exact = tree_map(torch.sub, mat(new_pos), j)
+            exact = tree_map(torch.sub, _matvec(mat, new_pos), j)
             new_r = where(new_info < -1, exact, new_r)
         new_gamma = dot(new_r, new_r).real
         ok = new_info != -1

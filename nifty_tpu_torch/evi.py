@@ -45,7 +45,7 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_leaves
 
-from . import conjugate_gradient, optimize
+from . import conjugate_gradient, optimize, tracing
 from .interop import position_from_numpy
 from .likelihood import Likelihood, LikelihoodWithModel, frozen_keys
 from .utils.tree import (
@@ -84,6 +84,7 @@ class WhiteNoise(NamedTuple):
     prior: Any
 
 
+@tracing.span("noise")
 def white_noise(likelihood: Likelihood, pos, key, point_estimates=()) -> WhiteNoise:
     """The white draws of a residual at ``pos`` from ``key``, on the
     position's device: the data-space draws in the dtypes of the
@@ -126,7 +127,8 @@ def white_noise(likelihood: Likelihood, pos, key, point_estimates=()) -> WhiteNo
 
 def seeds(generator: torch.Generator, n: int) -> list:
     """``n`` integer seeds from ``generator``, one a sample (pair)."""
-    return torch.randint(0, 2**62, (n,), generator=generator, device=generator.device).tolist()
+    draw = torch.randint(0, 2**62, (n,), generator=generator, device=generator.device)
+    return tracing.host_read(draw)  # a blocking read where the generator is the card's
 
 
 def _white_noises(likelihood, pos, keys, point_estimates) -> WhiteNoise:

@@ -40,6 +40,7 @@ from typing import Callable
 import torch
 from torch.utils._pytree import tree_leaves, tree_structure, tree_unflatten
 
+from . import tracing
 from .model import ChainModel, Model
 from .utils.tree import ShapeWithDtype, tree_add, tree_map, vdot
 
@@ -223,6 +224,7 @@ class LikelihoodWithModel(Likelihood):
         kl, fwd = self._split(kw)
         return self.likelihood.transformation(fwd(primals), **kl)
 
+    @tracing.span("likelihood.metric")
     def metric(self, primals, tangents, **kw):
         kl, fwd = self._split(kw)
         y, f_t = torch.func.jvp(fwd, (primals,), (tangents,))

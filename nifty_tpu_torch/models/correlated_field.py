@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from .. import device as _device
+from .. import tracing
 from ..model import ChainModel, Model, WrappedCall
 from ..num.stats_distributions import lognormal_prior, normal_prior
 from ..ops.cuda_expand import mirror_unfold
@@ -715,6 +716,7 @@ class CorrelatedField(Model):
             outer = ea if outer is None else torch.tensordot(outer, ea, dims=0)
         return azm * outer
 
+    @tracing.span("cf.forward")
     def forward(self, p):
         out = self.harmonic_amplitude(p) * p[self.xi_key]
         for dvol, ht in zip(self.harmonic_volumes, self.harmonic_transforms):

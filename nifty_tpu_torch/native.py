@@ -13,18 +13,19 @@ one where it launches its kernel on the card, and nowhere else, so a run
 can show which kernels its path went through; :data:`batched_launches`
 counts, in the same places, the launches that took a batch of more than
 one sample, so a run can show that its samples went through a kernel
-together.
+together.  Both are the counters of :mod:`.tracing`, the same objects.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import glob
 import hashlib
 import os
 import subprocess
 import threading
+
+from .tracing import batched_launches, launches, reset_launches
 
 __all__ = [
     "build",
@@ -47,9 +48,6 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-launches: collections.Counter = collections.Counter()
-batched_launches: collections.Counter = collections.Counter()
-
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
@@ -71,12 +69,6 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 _build_log = ""
-
-
-def reset_launches() -> None:
-    """Set every launch count to 0."""
-    launches.clear()
-    batched_launches.clear()
 
 
 def _nvcc() -> str:

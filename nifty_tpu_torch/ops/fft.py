@@ -18,6 +18,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from .. import tracing
 from .cuda_fft import Hartley2d, cuda_hartley_supported
 
 __all__ = ["hartley", "hartley_plain"]
@@ -52,6 +53,7 @@ def hartley_plain(x, axes: Optional[Sequence[int]] = None):
     return ft.real - ft.imag
 
 
+@tracing.span("hartley")
 def hartley(x, axes: Optional[Sequence[int]] = None):
     """Hartley transform over ``axes`` (all axes by default)."""
     axes = tuple(range(x.ndim)) if axes is None else tuple(a % x.ndim for a in axes)

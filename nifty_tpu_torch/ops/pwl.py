@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
+
 __all__ = ["KNOT_CHUNK", "PwlFeatures", "pwl_features", "pwl_transpose"]
 
 KNOT_CHUNK = 4  # knots per chunk: the largest temporary is 4 times the core grid
@@ -32,24 +34,28 @@ def _features(x, t):
 
 def pwl_features(x, knots, coef):
     """``Σ_k coef_k · relu(x − knots_k)`` over ``k < K − 1``, in knot chunks."""
-    t = knots[:-1]
-    out = None
-    for s in range(0, t.shape[0], KNOT_CHUNK):
-        part = _features(x, t[s : s + KNOT_CHUNK]) @ coef[s : s + KNOT_CHUNK]
-        out = part if out is None else out + part
-    return out
+    tracing.count("pwl_passes")
+    with tracing.span("pwl.features"):
+        t = knots[:-1]
+        out = None
+        for s in range(0, t.shape[0], KNOT_CHUNK):
+            part = _features(x, t[s : s + KNOT_CHUNK]) @ coef[s : s + KNOT_CHUNK]
+            out = part if out is None else out + part
+        return out
 
 
 def pwl_transpose(x, knots, cot):
     """Pull-back of :func:`pwl_features` to ``coef``:
     ``g_k = Σ_p cot_p · relu(x_p − knots_k)``, in knot chunks."""
-    t = knots[:-1]
-    c = cot.reshape(-1)
-    parts = [
-        c @ _features(x, t[s : s + KNOT_CHUNK]).reshape(-1, min(KNOT_CHUNK, t.shape[0] - s))
-        for s in range(0, t.shape[0], KNOT_CHUNK)
-    ]
-    return torch.cat(parts)
+    tracing.count("pwl_passes")
+    with tracing.span("pwl.transpose"):
+        t = knots[:-1]
+        c = cot.reshape(-1)
+        parts = [
+            c @ _features(x, t[s : s + KNOT_CHUNK]).reshape(-1, min(KNOT_CHUNK, t.shape[0] - s))
+            for s in range(0, t.shape[0], KNOT_CHUNK)
+        ]
+        return torch.cat(parts)
 
 
 class PwlFeatures(torch.autograd.Function):

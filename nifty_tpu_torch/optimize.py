@@ -40,7 +40,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
 
-from . import conjugate_gradient
+from . import conjugate_gradient, tracing
 from .logger import logger
 from .utils.misc import hvp
 from .utils.tree import norm as tree_norm
@@ -258,7 +258,8 @@ def static_newton_cg(
     stopped sample still costs its CG and its line-search trials while
     others run; the search ends once every running sample has accepted a
     trial.  The host reads one flag a line-search trial and one a Newton
-    step (all accepted, all stopped)."""
+    step (all accepted, all stopped), each through
+    :func:`~.tracing.host_read`; each trial is the span ``newton.trial``."""
     dot, nrm = (sample_vdot, sample_norm) if batched else (vdot, tree_norm)
     lead = tuple(tree_leaves(x0)[0].shape[:1]) if batched else ()
     norm_ord = 1 if norm_ord is None else norm_ord
@@ -278,7 +279,7 @@ def static_newton_cg(
     status = torch.full(lead, -2, dtype=torch.int32, device=energy.device)  # -2: go on
     nit = torch.zeros(lead, dtype=torch.int32, device=energy.device)
     i = 0
-    while bool((status == -2).any()):
+    while tracing.host_read((status == -2).any()):
         i += 1
         running = status == -2
         # no earlier energy (NaN): the fallback disables or fixes the forcing term
@@ -309,14 +310,15 @@ def static_newton_cg(
                 dd = where(accepted, dd, _steepest_descent(g, hessp, pos, dot))
                 scale = torch.where(accepted, scale, 1.0)
             trial = tree_axpy(-scale, dd, pos)
-            trial_energy, trial_g = fun_and_grad(trial)
+            with tracing.span("newton.trial"):
+                trial_energy, trial_g = fun_and_grad(trial)
             took = ~accepted & (trial_energy <= energy)
             new_pos, new_energy, new_g = where(
                 took, (trial, trial_energy, trial_g), (new_pos, new_energy, new_g)
             )
             n_tried = torch.where(accepted, n_tried, ls_it + 1).to(torch.int32)
             accepted = accepted | took
-            if bool((accepted | ~running).all()):
+            if tracing.host_read((accepted | ~running).all()):
                 break
             # a failed sample keeps the last scale it tried
             scale = torch.where(accepted | (ls_it == 8), scale, scale / 2.0)

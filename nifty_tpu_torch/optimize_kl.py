@@ -80,7 +80,7 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_leaves
 
-from . import io, optimize
+from . import io, optimize, tracing
 from .evi import (
     Samples,
     concatenate_zip,
@@ -604,6 +604,7 @@ class OptimizeVI:
             smpls, states = stack([r for r, _ in outs]), [st for _, st in outs]
         return Samples(pos=samples.pos, samples=smpls, keys=samples.keys), states
 
+    @tracing.span("vi.draw_samples")
     @_in_field
     def draw_samples(
         self,
@@ -648,6 +649,7 @@ class OptimizeVI:
 
     # -- the KL -----------------------------------------------------------------
 
+    @tracing.span("vi.kl_minimize")
     @_in_field
     def kl_minimize(
         self,
@@ -707,6 +709,7 @@ class OptimizeVI:
         )
         return OptimizeVIState(nit, key, config=config)
 
+    @tracing.span("vi.update")
     @_in_field
     def update(self, samples: Samples, state: OptimizeVIState):
         """One VI iteration: the samples, then the KL step."""

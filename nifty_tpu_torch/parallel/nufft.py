@@ -79,6 +79,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..ops.gather_reduce import GatherReduce
 from ..ops.nufft import _kb_apodization, _params
 from ..utils.tree import looped
@@ -90,7 +91,6 @@ __all__ = ["Geometry", "NufftBlock", "NufftPlan", "NufftTaps", "PlanCache", "Sha
            "sharded_nufft2", "taps_cut"]
 
 _CDT = {torch.float32: torch.complex64, torch.float64: torch.complex128}
-_cut = [0]  # the tap matrices cut in this process (:func:`taps_cut`)
 
 
 def _kb(u, m: int, beta: float):
@@ -219,7 +219,7 @@ class NufftPlan:
         key = (rank, str(torch.device(device)), dtype)
         if key in self._taps and (self._taps[key].dwgt is not None or not deriv):
             return self._taps[key]
-        _cut[0] += 1
+        tracing.count("taps_cut")
         k1, h, w, order, sorted_h, dw = self._entries(device, deriv)
         T = h.shape[1]
         c_lo, c_hi = self.bounds[rank], self.bounds[rank + 1]
@@ -766,8 +766,9 @@ class PlanCache:
 
 def taps_cut() -> int:
     """The tap matrices this process has cut (one a rank and set of
-    coordinates), for a caller that counts the cuts of a run."""
-    return _cut[0]
+    coordinates), for a caller that counts the cuts of a run: the counter
+    ``tracing.counts["taps_cut"]``."""
+    return tracing.counts["taps_cut"]
 
 
 def sharded_nufft2(x, coords, ctx, *, oversampling: float = 2.0, kernel_width: int = 6,
